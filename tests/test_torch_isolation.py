@@ -1,0 +1,90 @@
+"""The port stands alone: importing every module of tpu_bootstrap_torch
+(and chip_smoke.py) pulls in neither JAX nor the JAX package, and the
+kernel module imports without nvcc or a card, building or launching
+only when a CUDA tensor asks for a kernel."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import tpu_bootstrap_torch
+from tpu_bootstrap_torch.workload import kernels
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _port_modules() -> list:
+    names = ["tpu_bootstrap_torch"]
+    for info in pkgutil.walk_packages(tpu_bootstrap_torch.__path__,
+                                      "tpu_bootstrap_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_cover_the_slice():
+    names = set(_port_modules())
+    for mod in ("telemetry", "workload.bridge", "workload.model",
+                "workload.quant", "workload.decode_attention",
+                "workload.kernels", "workload.decode",
+                "workload.speculative", "workload.serving"):
+        assert f"tpu_bootstrap_torch.{mod}" in names, mod
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_bootstrap'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_kernel_wrappers_refuse_host_tensors():
+    x = torch.randn(2, 16)
+    q = torch.zeros(16, 8, dtype=torch.int8)
+    s = torch.ones(8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.int8_matmul(x, q, s)
+    kq = torch.zeros(3, 16, 2, 16, dtype=torch.int8)
+    ks = torch.ones(3, 16, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.paged_attention(torch.randn(1, 2, 16), kq, ks, kq, ks,
+                                torch.ones(1, 1, dtype=torch.int32),
+                                torch.ones(1, dtype=torch.int32))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_library_name_follows_the_sources():
+    assert kernels.sources() == sorted(
+        (ROOT / "tpu_bootstrap_torch/workload/csrc").glob("*.cu"))
+    name = kernels.library_path().name
+    assert name == f"libtpubc_torch_kernels-{kernels.source_digest()}.so"
+    assert kernels.library_path().parent == ROOT / "build" / "kernels"
+
+
+def test_smem_rule_mirrors_the_kernel_layout():
+    # bs=64, D=64, one query head per KV head: the decode model's block.
+    assert kernels.paged_attention_smem_bytes(64, 64, 1) == (
+        2 * 256 + 256 + 3 * 16 + 2 * 256 + 64 * 68 + 64 * 64)
+    assert kernels.paged_attention_smem_bytes(64, 64, 4) < (
+        kernels.PAGED_SMEM_LIMIT)

@@ -1,0 +1,240 @@
+"""The slice as a whole: the port's block-paged serving engine
+(tpu_bootstrap_torch/workload/serving.py) held to the JAX reference's
+serve(paged=True, kv_quant=True, prefix_cache=False, overcommit=False)
+on the same bridged int8 weights and requests, and to its own solo
+greedy generate; the allocator and scheduling helpers held to the
+reference's by differential tests; and the options this slice does not
+port refusing loudly."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_decode import assert_greedy_equal
+from tpu_bootstrap.workload import model as jmodel
+from tpu_bootstrap.workload import quant as jquant
+from tpu_bootstrap.workload import serving as jserving
+from tpu_bootstrap_torch.workload import bridge
+from tpu_bootstrap_torch.workload import decode as tdecode
+from tpu_bootstrap_torch.workload import model as tmodel
+from tpu_bootstrap_torch.workload import serving as tserving
+
+torch.set_num_threads(2)
+
+BASE = dict(vocab_size=64, num_layers=1, num_heads=4, head_dim=16,
+            embed_dim=32, mlp_dim=64, max_seq_len=64)
+JCFG = jmodel.ModelConfig(**BASE)
+TCFG = tmodel.ModelConfig(**BASE)
+JPARAMS = jquant.quantize_params(jmodel.init_params(JCFG,
+                                                    jax.random.PRNGKey(7)))
+TPARAMS = bridge.params_from_numpy(jax.tree.map(np.asarray, JPARAMS))
+
+
+def _requests(n, seed, max_prompt=21, max_budget=13):
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(1, BASE["vocab_size"],
+                             int(rng.integers(2, max_prompt))).tolist(),
+             int(rng.integers(1, max_budget))) for i in range(n)]
+
+
+def _port_requests(specs):
+    return [tserving.Request(rid=i, tokens=t, max_new=m)
+            for i, t, m in specs]
+
+
+def _solo(tokens, max_new):
+    return tdecode.generate(TPARAMS, [tokens], TCFG, max_new, kv_quant=True,
+                            device="cpu")[0].tolist()
+
+
+@pytest.mark.parametrize("pool", [
+    dict(batch_size=3, block_size=16, prefill_budget=8),
+    # A pool that holds one request at a time: everything queues.
+    dict(batch_size=3, kv_blocks=3, block_size=16, prefill_budget=16),
+], ids=["default_pool", "tight_pool"])
+def test_serve_streams_equal_reference(pool):
+    """Same requests, same bridged int8 weights: the port's token streams
+    equal the reference's (seed 11 has no near-tie), and each equals the
+    port's own solo greedy generate."""
+    specs = _requests(6, seed=11)
+    want = jserving.serve(
+        JPARAMS, JCFG, [jserving.Request(rid=i, tokens=t, max_new=m)
+                        for i, t, m in specs],
+        paged=True, kv_quant=True, prefix_cache=False, overcommit=False,
+        **pool)
+    stats: dict = {}
+    got = tserving.serve(TPARAMS, TCFG, _port_requests(specs), paged=True,
+                         kv_quant=True, prefix_cache=False,
+                         overcommit=False, device="cpu", stats=stats, **pool)
+    prompts = {i: t for i, t, _ in specs}
+    assert set(got) == set(want)
+    assert_greedy_equal(got, want, prompts, TPARAMS, TCFG)
+    solo = {i: _solo(t, m) for i, t, m in specs}
+    assert got == solo
+    # Chunked prefill covers every prompt token except the re-fed last
+    # one, exactly once.
+    assert stats["prefill_tokens"] == sum(len(t) - 1 for _, t, _ in specs)
+    assert stats["scheduler"]["admitted"] == len(specs)
+    if "kv_blocks" in pool:
+        assert stats["blocks_peak"] <= 3
+
+
+def test_paged_matches_solo_with_eos_and_interleaved_prefill():
+    """A long prompt prefills across rounds while a short row streams;
+    eos cuts a row inclusively; every stream still equals solo."""
+    pool = tserving.PagedPool(TPARAMS, TCFG, 2, block_size=16,
+                              prefill_budget=8, kv_quant=True, device="cpu")
+    a = tserving.Request(rid=0, tokens=[5, 9, 2], max_new=20)
+    b = tserving.Request(rid=1, tokens=list(range(3, 40)), max_new=4)
+    pool.admit(a)
+    pool.admit(b)
+    interleaved, got = 0, {}
+    while pool.has_active():
+        slot_b = next((s for s in pool.slots if s is not None
+                       and s.rid == 1), None)
+        b_prefilling = slot_b is not None and pool._prefilling(slot_b)
+        events = pool.step_round()
+        if b_prefilling and events.get(0, {}).get("new"):
+            interleaved += 1
+        got.update({rid: ev["generated"] for rid, ev in events.items()
+                    if ev["done"]})
+    assert interleaved >= 2
+    assert got[0] == _solo(a.tokens, a.max_new)
+    assert got[1] == _solo(b.tokens, b.max_new)
+    eos = got[0][3]
+    cut = tserving.serve(TPARAMS, TCFG, [a], 1, paged=True, kv_quant=True,
+                         eos_id=eos, device="cpu")
+    assert cut[0] == got[0][:got[0].index(eos) + 1]
+
+
+def test_oom_refusal_and_defrag_keep_streams():
+    pool = tserving.PagedPool(TPARAMS, TCFG, 3, kv_blocks=4, block_size=16,
+                              kv_quant=True, device="cpu")
+    big = tserving.Request(rid=0, tokens=[3] * 16, max_new=30)  # 3 blocks
+    small = tserving.Request(rid=1, tokens=[4, 5], max_new=20)  # 2 blocks
+    short = tserving.Request(rid=2, tokens=[6, 7], max_new=2)  # 1 block
+    pool.admit(short)
+    pool.admit(big)
+    assert not pool.admits(small)
+    with pytest.raises(RuntimeError, match="blocks"):
+        pool.admit(small)
+    got = {}
+    while pool.slots[0] is not None:  # the short row retires first
+        got.update({rid: ev["generated"]
+                    for rid, ev in pool.step_round().items() if ev["done"]})
+    assert pool.allocator.compactness() < 1.0
+    assert pool.defrag() > 0 and pool.allocator.compactness() == 1.0
+    while pool.has_active():
+        got.update({rid: ev["generated"]
+                    for rid, ev in pool.step_round().items() if ev["done"]})
+    assert got[0] == _solo(big.tokens, big.max_new)
+    assert got[2] == _solo(short.tokens, short.max_new)
+    assert pool.admits(small)
+    tiny = tserving.PagedPool(TPARAMS, TCFG, 1, kv_blocks=2, block_size=16,
+                              kv_quant=True, device="cpu")
+    with pytest.raises(ValueError, match="never"):
+        tiny.validate(tserving.Request(rid=3, tokens=[1] * 8, max_new=40),
+                      TCFG)
+
+
+def test_scheduler_admits_by_priority_then_arrival():
+    pool = tserving.PagedPool(TPARAMS, TCFG, 1, block_size=16,
+                              kv_quant=True, device="cpu")
+    sched = tserving.Scheduler(pool)
+    for rid, prio in ((0, 0), (1, 2), (2, 0), (3, 2)):
+        sched.submit(tserving.Request(rid=rid, tokens=[rid + 1, 2],
+                                      max_new=1, priority=prio))
+    order = []
+    while sched.pending() or pool.has_active():
+        order += [rid for rid, ev in sched.step().items() if ev["done"]]
+    assert order == [1, 3, 0, 2]
+    assert sched.stats == {"submitted": 4, "admitted": 4, "retired": 4}
+
+
+def test_block_allocator_differential_against_reference():
+    """One random op sequence on both allocators: the same ids, and equal
+    available/used/refcount/compactness after every op."""
+    rng = np.random.default_rng(3)
+    ref = jserving.BlockAllocator(12, 8)
+    ref.digest_enabled = False
+    port = tserving.BlockAllocator(12, 8)
+    owned: list = []
+    for _ in range(200):
+        op = rng.integers(0, 3)
+        if op == 0 and ref.available():
+            n = int(rng.integers(1, ref.available() + 1))
+            ids = ref.alloc(n)
+            assert port.alloc(n) == ids
+            owned.append(ids)
+        elif op == 1 and owned:
+            ids = owned.pop(int(rng.integers(0, len(owned))))
+            ref.free(ids)
+            port.free(ids)
+        elif op == 2 and owned:
+            bid = owned[int(rng.integers(0, len(owned)))][0]
+            ref.incref(bid)
+            port.incref(bid)
+            owned.append([bid])
+        assert port.available() == ref.available()
+        assert port.used() == ref.used()
+        assert port.compactness() == ref.compactness()
+        for bid in range(13):
+            assert port.refcount(bid) == ref.refcount(bid)
+    assert port.stats["peak_used"] == ref.stats["peak_used"]
+    with pytest.raises(RuntimeError, match="exhausted"):
+        port.alloc(port.available() + 1)
+    with pytest.raises(ValueError, match="double free"):
+        port.free([0])
+
+
+def test_scheduling_helpers_equal_reference():
+    for n in range(1, 300):
+        assert tserving._bucket_up(n) == jserving._bucket_up(n)
+        assert tserving._bucket_down(n) == jserving._bucket_down(n)
+    rng = np.random.default_rng(4)
+    for _ in range(300):
+        k = int(rng.integers(1, 9))
+        active = [tserving._Slot(rid=i, history=[0] * int(rng.integers(1, 60)),
+                                 remaining=int(rng.integers(1, 70)),
+                                 generated=[]) for i in range(k)]
+        cap = int(rng.integers(60, 130))
+        assert (tserving._majority_chunk(active, cap)
+                == jserving._majority_chunk(active, cap))
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"prefix_cache": True}, "prefix cache"),
+    ({"overcommit": True}, "overcommit"),
+    ({"temperature": 0.8}, "sampling"),
+    ({"draft_params": TPARAMS}, "spec rounds"),
+    ({"spec_lookup": True}, "spec rounds"),
+    ({"resident": True}, "item 8"),
+    ({"paged": False}, "item 8"),
+    ({"kv_quant": False}, "float KV pool"),
+], ids=lambda v: v if isinstance(v, str) else "-".join(v))
+def test_options_not_ported_raise(kw, item):
+    args = {"paged": True, "kv_quant": True, "device": "cpu", **kw}
+    reqs = [tserving.Request(rid=0, tokens=[1, 2], max_new=2)]
+    with pytest.raises(NotImplementedError, match=item):
+        tserving.serve(TPARAMS, TCFG, reqs, 2, **args)
+
+
+def test_deadlines_and_host_tier_not_ported_raise():
+    pool = tserving.PagedPool(TPARAMS, TCFG, 1, kv_quant=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="deadlines"):
+        tserving.Scheduler(pool).submit(
+            tserving.Request(rid=0, tokens=[1], max_new=1, deadline=5.0))
+    with pytest.raises(NotImplementedError, match="host tier"):
+        tserving.PagedPool(TPARAMS, TCFG, 1, kv_quant=True, host_blocks=4,
+                           device="cpu")
+
+
+def test_device_none_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    reqs = [tserving.Request(rid=0, tokens=[1, 2], max_new=2)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserving.serve(TPARAMS, TCFG, reqs, 2, paged=True, kv_quant=True)
+    with pytest.raises(ValueError, match="params live on"):
+        tserving.PagedPool(TPARAMS, TCFG, 1, kv_quant=True, device="meta")

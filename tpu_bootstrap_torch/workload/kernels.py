@@ -1,0 +1,245 @@
+"""Build, binding and launch counters of the port's CUDA kernels.
+
+The sources are ``csrc/*.cu`` beside this file. On first use they are
+compiled for Hopper, each file by its own ``nvcc`` process (all started
+together), and linked into one shared library with a plain C interface:
+
+    build/kernels/libtpubc_torch_kernels-<sha of the sources>.so
+
+under the repository root, loaded with ``ctypes``. The content hash in
+the name means an edited source builds a new library instead of loading
+a stale one. Nothing happens at import: the module imports on a machine
+without ``nvcc`` or a card, and only a wrapper called with CUDA tensors
+builds (and a failed build raises).
+
+Each wrapper validates device, dtype, shape and contiguity, allocates
+its output with ``torch.empty``, launches on PyTorch's current stream,
+raises if the C entry reports a CUDA error, and adds one to its entry in
+``LAUNCHES``. Nothing here falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+# Launches per kernel since the last reset_launches(); one tick where the
+# kernel is launched and nowhere else.
+LAUNCHES = {"int8_matmul": 0, "paged_attention": 0}
+
+_lock = threading.Lock()
+_lib = None  # guarded-by: _lock
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libtpubc_torch_kernels-{source_digest()}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _run(cmds: list) -> str:
+    """Run the commands in parallel; raise with every failure's output,
+    else return their combined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(logs[-1])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "\n".join(logs)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source (one nvcc per file, in parallel) and link the
+    library; returns its path. A library already built from the same
+    sources is reused. ``verbose`` prints each kernel's registers, shared
+    memory and spills (``-Xptxas -v``) to stderr."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in sources()]
+        log = _run([[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-c", str(src),
+                     "-o", obj] for src, obj in zip(sources(), objs)])
+        if verbose:
+            print(log, file=sys.stderr)
+        staged = Path(tmp) / out.name
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged), *objs]])
+        os.replace(staged, out)  # atomic: a reader never sees half a file
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpubc_int8_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.tpubc_int8_matmul.restype = i
+    lib.tpubc_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, f, i, p]
+    lib.tpubc_paged_attention.restype = i
+    lib.tpubc_paged_attention_smem_bytes.argtypes = [i, i, i]
+    lib.tpubc_paged_attention_smem_bytes.restype = i
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _need(t: torch.Tensor, name: str, dtypes: tuple, ndim: int) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_FLOATS = (torch.bfloat16, torch.float32)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor,
+                s: torch.Tensor) -> torch.Tensor:
+    """Kernel K1: x (T, K) bf16/f32 @ q (K, N) int8 * s (N,) f32 -> (T, N)
+    in x.dtype."""
+    _need(x, "x", _FLOATS, 2)
+    _need(q, "q", (torch.int8,), 2)
+    _need(s, "s", (torch.float32,), 1)
+    t, k = x.shape
+    n = q.shape[1]
+    if q.shape[0] != k or s.shape[0] != n or t < 1 or k < 1 or n < 1:
+        raise ValueError(f"int8_matmul shapes: x {tuple(x.shape)}, "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)}")
+    if not (x.device == q.device == s.device):
+        raise ValueError("int8_matmul operands on different devices")
+    out = torch.empty((t, n), dtype=x.dtype, device=x.device)
+    rc = lib().tpubc_int8_matmul(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), t, k, n,
+        int(x.dtype == torch.bfloat16), _stream())
+    _check(rc, "int8_matmul")
+    LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+# The kernel's own limits (csrc/paged_attention.cu): D a multiple of 16,
+# its shared-memory layout within the 48 KB a CTA gets without opting in.
+PAGED_SMEM_LIMIT = 48 * 1024
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def paged_attention_smem_bytes(bs: int, d: int, g: int) -> int:
+    """The kernel's shared-memory layout size (mirrors ``make_layout`` in
+    csrc/paged_attention.cu; ``chip_smoke.py`` checks the two agree)."""
+    return (2 * _align16(g * d * 4) + _align16(g * bs * 4)
+            + 3 * _align16(g * 4) + 2 * _align16(bs * 4)
+            + _align16(bs * (d + 4)) + _align16(bs * d))
+
+
+def paged_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                    vq: torch.Tensor, vs: torch.Tensor,
+                    block_tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Kernel K2: q (B, H, D) over int8 pools (N, bs, Hk, D) with scales
+    (N, bs, Hk), tables (B, nb) int32 and lengths (B,) int32 -> (B, H, D)
+    in q.dtype."""
+    _need(q, "q", _FLOATS, 3)
+    _need(kq, "kq", (torch.int8,), 4)
+    _need(vq, "vq", (torch.int8,), 4)
+    _need(ks, "ks", (torch.float32,), 3)
+    _need(vs, "vs", (torch.float32,), 3)
+    _need(block_tables, "block_tables", (torch.int32,), 2)
+    _need(lengths, "lengths", (torch.int32,), 1)
+    b, h, d = q.shape
+    n, bs, hk, dk = kq.shape
+    nb = block_tables.shape[1]
+    if (dk != d or vq.shape != kq.shape or ks.shape != (n, bs, hk)
+            or vs.shape != ks.shape or block_tables.shape[0] != b
+            or lengths.shape != (b,) or h % hk != 0 or nb < 1):
+        raise ValueError(
+            f"paged_attention shapes: q {tuple(q.shape)}, kq "
+            f"{tuple(kq.shape)}, ks {tuple(ks.shape)}, tables "
+            f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
+    g = h // hk
+    if d % 16 != 0 or paged_attention_smem_bytes(bs, d, g) > PAGED_SMEM_LIMIT:
+        raise ValueError(
+            f"paged_attention does not take block_size={bs}, head_dim={d}, "
+            f"group={g} (see decode_attention.paged_supports)")
+    for name, t in (("kq", kq), ("vq", vq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    rc = lib().tpubc_paged_attention(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, hk, g, d, bs, nb, float(d) ** -0.5,
+        int(q.dtype == torch.bfloat16), _stream())
+    _check(rc, "paged_attention")
+    LAUNCHES["paged_attention"] += 1
+    return out
