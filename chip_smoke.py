@@ -14,12 +14,35 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               version over ragged lengths, an aliased table and garbage in
               every block a row does not own; widening the table must not
               change a bit.
-5. serve   -- the slice end to end: serve(paged=True, kv_quant=True) of 32
-              requests on the decode model at full width (8 layers, int8
-              weights from a seed), the launch counts of both kernels over
-              that run (both must be > 0), and every stream held to the
+5. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
+              of 32 requests on the decode model at full width (8 layers,
+              int8 weights from a seed), the launch counts of both kernels
+              over that run (both must be > 0), and every stream held to the
               port's solo greedy generate, in bf16 and again in f32: any
-              divergence must be a near-tie.
+              divergence must be a near-tie. Then the flash prefill:
+              generate(prefill_flash=True), whose prompt attention runs
+              through K3, against generate() with the einsum prefill.
+6. k3      -- flash_fwd (kernel K3) against its plain version (out and lse,
+              each element to its own limit) at the train shapes (B=8
+              S=1023 and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and
+              not, plus a GQA and small head-dim cases; timed beside
+              scaled_dot_product_attention.
+7. k4      -- flash_dq and flash_dkv (kernel K4) through the autograd
+              function against the plain backward, at the same cases (some
+              with an lse cotangent); two backward runs must be bitwise
+              equal; timed beside SDPA's backward.
+8. train   -- the training slice end to end: make_train_step on the
+              reference's 134M train benchmark model (seq 1024, batch 8,
+              attention="flash", a fixed token batch from a seed), one
+              warm-up step then 5 timed; every loss finite, the loss falling,
+              the first step's loss equal to the dense core's within
+              FLASH_DENSE_TOL, the attention weights' gradients equal to the
+              dense core's within ATTN_GRAD_TOL while a broken attention's
+              land outside it, 8 launches of each flash kernel per step; one
+              profiled step; then two steps of train_loop.
+9. train_long -- the reference's long-context configuration (seq 8192,
+              batch 2, remat, vocab_chunk 4096): one warm-up and two timed
+              steps; with remat the forward kernel runs twice per layer.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line the caller
 reads. Times are medians of CUDA-event timings after warm-up, with the 50 MB
@@ -300,13 +323,14 @@ def _diverged(decode, params, cfg, reqs, done) -> list:
     return out
 
 
-def _profile_serve(torch, run) -> dict:
-    """One more bf16 serve, of the first PROFILED_REQUESTS requests,
-    under torch.profiler (device activity only: a full run records some
-    600k kernels, which takes the profiler minutes to fold): device busy
-    time (the sum of kernel times, one stream) against the run's wall
-    time, and the kernels that take it. Profiling slows the host, so the
-    idle share is an upper bound for the unprofiled run."""
+def _profile(torch, run, tags: dict) -> dict:
+    """``run()`` once under torch.profiler (device activity only: a full
+    serve records some 600k kernels, which takes the profiler minutes to
+    fold): device busy time (the sum of kernel times, one stream) against
+    the run's wall time, the device time of each kernel named in ``tags``
+    ({key: kernel-name fragment}), and the kernels that take most.
+    Profiling slows the host, so the idle share is an upper bound for the
+    unprofiled run."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -324,11 +348,52 @@ def _profile_serve(torch, run) -> dict:
 
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
-            "k1_ms": share("int8_matmul_kernel"),
-            "k2_ms": share("paged_attention_kernel"),
+            **{key: share(tag) for key, tag in tags.items()},
             "kernel_launches": sum(e.count for e in gpu),
             "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
                      / 1e3, "count": e.count} for e in top]}
+
+
+# The flash prefill check: a batch of equal-length prompts, as generate's
+# prefill_flash takes them (no per-row pads), on the bf16 KV cache so that
+# the two prefills differ only in how they attend.
+PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 4, 448, 16
+
+
+def _prefill_flash(torch, kernels, decode, params, cfg) -> dict:
+    """generate(prefill_flash=True), whose prompt attention runs through K3
+    (one launch per layer), against generate() with the einsum prefill:
+    the streams must be equal except at a near-tie (NEAR_TIE in bf16: the
+    einsum core rounds scores and probabilities to bf16, K3 keeps f32)."""
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(
+        1, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)))
+    kernels.reset_launches()
+    got = decode.generate(params, prompt, cfg, PREFILL_NEW,
+                          prefill_flash=True)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["flash_fwd"]
+    want = decode.generate(params, prompt, cfg, PREFILL_NEW)
+    diverged = []
+    for r in range(PREFILL_BATCH):
+        g, w = got[r].tolist(), want[r].tolist()
+        if g != w:
+            j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+            margin = decode.greedy_margins(params, prompt[r].tolist(),
+                                           w[:j + 1], cfg)[j]
+            diverged.append({"row": r, "step": j, "margin": margin})
+    out = {"phase": "prefill_flash", "batch": PREFILL_BATCH,
+           "prompt_len": PREFILL_LEN, "new": PREFILL_NEW,
+           "flash_fwd_launches": launches,
+           "finite_shape_ok": bool(got.shape == want.shape and (
+               (got >= 0) & (got < cfg.vocab_size)).all()),
+           "near_tie": NEAR_TIE["bfloat16"], "diverged": diverged}
+    emit(out)
+    bad = [d for d in diverged if d["margin"] >= NEAR_TIE["bfloat16"]]
+    if bad or launches != cfg.num_layers or not out["finite_shape_ok"]:
+        raise SystemExit(f"prefill_flash failed: bad={bad} "
+                         f"launches={launches}")
+    return out
 
 
 def phase_serve(torch, kernels, device) -> dict:
@@ -377,8 +442,9 @@ def phase_serve(torch, kernels, device) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     done32 = serving.serve(params, cfg32, reqs, 8, **kw)
     diverged32 = _diverged(decode, params, cfg32, reqs, done32)
-    profile = _profile_serve(torch, lambda: serving.serve(
-        params, cfg, reqs[:PROFILED_REQUESTS], 8, **kw))
+    profile = _profile(torch, lambda: serving.serve(
+        params, cfg, reqs[:PROFILED_REQUESTS], 8, **kw),
+        {"k1_ms": "int8_matmul_kernel", "k2_ms": "paged_attention_kernel"})
     result = {"phase": "serve", "requests": len(reqs), "tokens": tokens,
               "wall_s": wall, "tokens_per_s": tokens / wall,
               "rounds": stats["rounds"], "blocks_peak": stats["blocks_peak"],
@@ -394,10 +460,407 @@ def phase_serve(torch, kernels, device) -> dict:
     emit(result)
     bad = [d for dt in NEAR_TIE for d in result["diverged"][dt]
            if d["margin"] >= NEAR_TIE[dt]]
-    if not shape_ok or bad or min(launches.values()) < 1:
+    if (not shape_ok or bad or launches["int8_matmul"] < 1
+            or launches["paged_attention"] < 1):
         raise SystemExit(f"serve failed: shape_ok={shape_ok} bad={bad} "
                          f"launches={launches}")
+    _prefill_flash(torch, kernels, decode, params, cfg)
     return result
+
+
+# Flash cases: (name, B, S, H, Hk, D, dtype, causal, dlse). The train shapes
+# (B=8, S=1023 and B=2, S=8191, H=16, D=64: the train and train_long phases'
+# attention), a GQA and a non-causal case, and small cases for the other
+# head dims the kernels instantiate.
+FLASH_CASES = (
+    ("train", 8, 1023, 16, 16, 64, "bfloat16", True, False),
+    ("train", 8, 1023, 16, 16, 64, "float32", True, False),
+    ("long", 2, 8191, 16, 16, 64, "bfloat16", True, False),
+    ("long", 2, 8191, 16, 16, 64, "float32", True, False),
+    ("gqa", 8, 1023, 16, 4, 64, "bfloat16", True, True),
+    ("full", 8, 1023, 16, 16, 64, "bfloat16", False, False),
+    ("full", 8, 1023, 16, 16, 64, "float32", False, False),
+    ("d32", 2, 333, 8, 2, 32, "float32", True, True),
+    ("d128", 2, 333, 8, 4, 128, "bfloat16", False, True),
+)
+# K3 against its plain version, element by element: |got - want| <=
+# rtol * |want| + atol. Both compute in f32 from the same inputs and differ
+# only in the order of f32 sums over up to 8191 terms (about 1e-6 here), so:
+# lse, f32 in every dtype, and out in f32 to 1e-5 relative plus 1e-5; out
+# in bf16 also to one bf16 step (2^-7 relative at most), for the elements
+# whose two f32 values straddle a bf16 rounding boundary. One step at the
+# bottom of a binade reads just under 1 (0.99 on an NVIDIA H100 80GB HBM3,
+# 700 W); two steps, or a skipped KV tile, read far above it.
+K3_OUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+K3_LSE_TOL = (1e-5, 1e-5)
+# K4 against its plain backward, as max |got - want| / max |want|. f32: the
+# order of f32 sums. bf16: dq, dk and dv are rounded to bf16 (2^-8
+# relative) after sums in f32 that differ in order.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _flash_inputs(torch, device, case, seed: int):
+    _, b, s, h, hk, d, dtype, _, dlse = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dt)
+
+    q, k, v = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d)
+    w = rnd(b, s, h, d)  # the cotangent of out
+    wl = (torch.randn(b, s, h, generator=gen, device=device) if dlse
+          else torch.zeros(b, s, h, device=device))
+    return q, k, v, w, wl
+
+
+def _tol_ratio(torch, got, want, tol) -> float:
+    """max |got - want| / (rtol * |want| + atol): 1 or less is within tol."""
+    rtol, atol = tol
+    want = want.float()
+    return ((got.float() - want).abs() / (rtol * want.abs() + atol)
+            ).max().item()
+
+
+def _rel_err(torch, got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _flash_bound(case, products: int, nbytes: float) -> tuple:
+    """Bound of ``products`` (S x S x D) products, halved under causal,
+    over the peak for the inputs' type."""
+    _, b, s, h, _, d, dtype, causal, _ = case
+    flops = products * 2 * b * h * s * s * d / (2 if causal else 1)
+    return bound(nbytes, flops, BF16_FLOPS if dtype == "bfloat16"
+                 else F32_FLOPS)
+
+
+def _sdpa_layout(torch, *ts):
+    return [t.detach().transpose(1, 2).contiguous() for t in ts]
+
+
+def phase_k3(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
+    """flash_fwd (kernel K3) against its plain version: out and lse."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, failures = [], []
+    for n, case in enumerate(cases):
+        name, b, s, h, hk, d, dtype, causal, _ = case
+        q, k, v, _, _ = _flash_inputs(torch, device, case, seed=10 + n)
+        scale = d ** -0.5
+        out, lse = kernels.flash_fwd(q, k, v, scale, causal)
+        want, want_lse = fa.attention_plain(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out.float()).all()
+                      and torch.isfinite(lse).all())
+        out_ratio = _tol_ratio(torch, out, want, K3_OUT_TOL[dtype])
+        lse_ratio = _tol_ratio(torch, lse, want_lse, K3_LSE_TOL)
+        row = {"case": name, "B": b, "S": s, "H": h, "Hk": hk, "D": d,
+               "dtype": dtype, "causal": causal,
+               "rel_err": _rel_err(torch, out, want),
+               "max_abs_err": (out.float() - want.float()).abs().max().item(),
+               "lse_max_abs_err": (lse - want_lse).abs().max().item(),
+               "out_tol_ratio": out_ratio, "lse_tol_ratio": lse_ratio,
+               "close": finite and out_ratio <= 1 and lse_ratio <= 1}
+        del want, want_lse, out, lse
+        if name in ("train", "long", "gqa", "full"):
+            timer = Timer(torch, device, reps=10 if s > 4096 else 25)
+            e = q.element_size()
+            row["bound_ms"], row["bound_by"] = _flash_bound(
+                case, 2, (2 * q.numel() + k.numel() + v.numel()) * e
+                + 4 * b * s * h)
+            row["kernel_ms"] = timer(
+                lambda: kernels.flash_fwd(q, k, v, scale, causal))
+            row["plain_ms"] = timer(
+                lambda: fa.attention_plain(q, k, v, scale, causal))
+            row["library_ms"] = None
+            if dtype == "bfloat16":
+                qt, kt, vt = _sdpa_layout(torch, q, k, v)
+                row["library_ms"] = timer(lambda: sdpa(
+                    qt, kt, vt, is_causal=causal, enable_gqa=hk < h))
+                del qt, kt, vt
+            del timer
+        rows.append(row)
+        if not row["close"]:
+            failures.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "k3", "out_tolerance": K3_OUT_TOL,
+          "lse_tolerance": K3_LSE_TOL, "rows": rows})
+    if failures:
+        raise SystemExit(f"k3 failed: {failures}")
+    return {"rows": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def phase_k4(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
+    """flash_dq and flash_dkv (kernel K4) through the autograd function,
+    against the plain backward of the plain forward, on a weighted sum of
+    out plus (where the case says so) of lse; two backward runs must be
+    bitwise equal."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, failures = [], []
+    for n, case in enumerate(cases):
+        name, b, s, h, hk, d, dtype, causal, dlse = case
+        q, k, v, w, wl = _flash_inputs(torch, device, case, seed=30 + n)
+        scale = d ** -0.5
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def grads():
+            out, lse = fa.flash_attention_with_lse(*qkv, causal=causal)
+            loss = (out.float() * w.float()).sum() + (lse * wl).sum()
+            return torch.autograd.grad(loss, qkv)
+
+        got = grads()
+        again = grads()
+        out_p, lse_p = fa.attention_plain(q, k, v, scale, causal)
+        delta_p = (w.float() * out_p.float()).sum(-1) - wl
+        want = fa.attention_bwd_plain(q, k, v, w, lse_p, delta_p, scale,
+                                      causal)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        errs = [_rel_err(torch, g, x) for g, x in zip(got, want)]
+        row = {"case": name, "B": b, "S": s, "H": h, "Hk": hk, "D": d,
+               "dtype": dtype, "causal": causal, "dlse": dlse,
+               "rel_err": dict(zip(("dq", "dk", "dv"), errs)),
+               "max_abs_err": max((g.float() - x.float()).abs().max().item()
+                                  for g, x in zip(got, want)),
+               "bitwise_repeat": all(torch.equal(a, c)
+                                     for a, c in zip(got, again))}
+        row["close"] = finite and max(errs) <= FLASH_TOL[dtype]
+        del got, again, want, out_p
+        if name in ("train", "long", "gqa", "full"):
+            timer = Timer(torch, device, reps=10 if s > 4096 else 25)
+            e = q.element_size()
+            ins = (2 * q.numel() + k.numel() + v.numel()) * e + 8 * b * s * h
+            dq_b = _flash_bound(case, 3, ins + q.numel() * e)
+            dkv_b = _flash_bound(case, 4, ins + (k.numel() + v.numel()) * e)
+            k4_b = _flash_bound(case, 5, ins + (q.numel() + k.numel()
+                                                + v.numel()) * e)
+            row.update({"dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
+                        "dkv_bound_ms": dkv_b[0], "dkv_bound_by": dkv_b[1],
+                        "bound_ms": k4_b[0], "bound_by": k4_b[1]})
+            args = (q, k, v, w, lse_p, delta_p, scale, causal)
+            row["dq_ms"] = timer(lambda: kernels.flash_dq(*args))
+            row["dkv_ms"] = timer(lambda: kernels.flash_dkv(*args))
+            row["kernel_ms"] = row["dq_ms"] + row["dkv_ms"]
+            row["dq_plain_ms"] = timer(lambda: fa.attention_dq_plain(*args))
+            row["dkv_plain_ms"] = timer(
+                lambda: fa.attention_dkv_plain(*args))
+            row["plain_ms"] = row["dq_plain_ms"] + row["dkv_plain_ms"]
+            row["library_ms"] = None
+            if dtype == "bfloat16":
+                qt, kt, vt = [t.requires_grad_(True) for t in
+                              _sdpa_layout(torch, q, k, v)]
+                ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=hk < h)
+                wt = w.transpose(1, 2).contiguous()
+                row["library_ms"] = timer(lambda: torch.autograd.grad(
+                    ot, (qt, kt, vt), wt, retain_graph=True))
+                del qt, kt, vt, ot, wt
+            del timer
+        rows.append(row)
+        if not row["close"] or not row["bitwise_repeat"]:
+            failures.append(row)
+        del q, k, v, w, wl, qkv, lse_p, delta_p
+        torch.cuda.empty_cache()
+    emit({"phase": "k4", "tolerance_rel": FLASH_TOL, "rows": rows})
+    if failures:
+        raise SystemExit(f"k4 failed: {failures}")
+    return {"rows": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+# The reference's single-chip train benchmark model (bench.py:306-312):
+# about 134M params, bf16 activations, f32 master weights.
+TRAIN_MODEL = dict(vocab_size=32768, num_layers=8, num_heads=16, head_dim=64,
+                   embed_dim=1024, mlp_dim=4096)
+# One step's loss with the flash kernels against the dense einsum core, from
+# the same params and tokens, in bf16: the dense core rounds scores and
+# probabilities to bf16 where the kernels keep f32. On an NVIDIA H100 80GB
+# HBM3 (700 W power limit) this phase measured the two 8.2e-5 apart, and
+# the control below 3.5e-3 from the dense loss: at initialization the loss
+# barely depends on attention, so the gradients below are the real check.
+FLASH_DENSE_TOL = 1e-3
+# The first step's gradients of every layer's wq, wk, wv and wo with the
+# flash kernels against the dense core's, as |g_flash - g_dense| /
+# |g_dense| (norms over the layers) for each of the four. The control, an
+# attention that returns v (each position attending only to itself), must
+# land above the limit for every weight, so that the limit tells a right
+# attention from a wrong one. On an NVIDIA H100 80GB HBM3 (700 W) flash
+# read 0.009-0.015 and the control 1.0-1.31; the limit sits between.
+ATTN_GRAD_TOL = 0.1
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+FLASH_TAGS = {"flash_fwd_ms": "flash_fwd_kernel",
+              "flash_dq_ms": "flash_dq_kernel",
+              "flash_dkv_ms": "flash_dkv_kernel"}
+
+
+def _bench_mfu(cfg, n_params: int, batch: int, step_s: float) -> float:
+    """bench.py:336-339: 6 * params * tokens + 12 * B * L * H * S^2 * D
+    FLOPs per step (S = max_seq_len - 1), over the step time and the bf16
+    peak."""
+    m = cfg.model
+    s = m.max_seq_len - 1
+    attn = 12 * batch * m.num_layers * m.num_heads * s * s * m.head_dim
+    return (6 * n_params * batch * s + attn) / step_s / BF16_FLOPS
+
+
+def _attn_grads(torch, model, params, cfg, tokens, attn_fn) -> tuple:
+    """(loss, {name: gradient of that weight over every layer, flat}) of
+    loss_fn at ``params``; params themselves are not changed."""
+    leaves = [blk[n] for n in ATTN_WEIGHTS for blk in params["blocks"]]
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = model.loss_fn(params, tokens, cfg.model, attn_fn)
+            # The control leaves wq and wk out of the graph: zero grads.
+            grads = [torch.zeros_like(p) if g is None else g for p, g in
+                     zip(leaves, torch.autograd.grad(loss, leaves,
+                                                     allow_unused=True))]
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    layers = len(params["blocks"])
+    return loss.item(), {n: torch.cat([g.flatten() for g in
+                                       grads[i * layers:(i + 1) * layers]])
+                         for i, n in enumerate(ATTN_WEIGHTS)}
+
+
+def _dense_check(torch, train, cfg, params, tokens) -> dict:
+    """The flash kernels against the dense core, and a broken attention
+    against the dense core, from the same params and tokens."""
+    from tpu_bootstrap_torch.workload import model
+    from tpu_bootstrap_torch.workload.flash_attention import \
+        make_flash_attn_fn
+
+    def broken(q, k, v):
+        return model.repeat_kv(v, q.shape[-2])
+
+    attn = {"flash": make_flash_attn_fn(block_size=cfg.attention_block),
+            "dense": None, "control": broken}
+    loss, grads = {}, {}
+    for name, fn in attn.items():
+        loss[name], grads[name] = _attn_grads(torch, model, params, cfg,
+                                              tokens, fn)
+    dense = grads.pop("dense")
+    err = {name: {n: ((g[n] - dense[n]).norm() / dense[n].norm()).item()
+                  for n in ATTN_WEIGHTS} for name, g in grads.items()}
+    del grads, dense
+    torch.cuda.empty_cache()
+    return {"dense_loss": loss["dense"], "control_loss": loss["control"],
+            "attn_grad_err": err["flash"],
+            "control_attn_grad_err": err["control"]}
+
+
+def _run_train(torch, kernels, train, cfg, batch: int, timed: int,
+               dense_check: bool) -> dict:
+    """A fixed token batch from a seed; one warm-up step, then ``timed``
+    steps through make_train_step with the launch counts set to 0 just
+    before and read just after; then one profiled step."""
+    device = torch.device("cuda")
+    params, opt_state = train.init_train_state(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in train.tree_leaves(params))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.model.vocab_size,
+                           (batch, cfg.model.max_seq_len), generator=gen,
+                           device=device)
+    out = {"batch": batch, "seq": cfg.model.max_seq_len - 1,
+           "remat": cfg.remat, "vocab_chunk": cfg.model.vocab_chunk,
+           "params": n_params}
+    if dense_check:
+        out.update(_dense_check(torch, train, cfg, params, tokens))
+    step = train.make_train_step(cfg)
+    params, opt_state, loss = step(params, opt_state, tokens)  # warm-up
+    losses = [loss.item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = dict(kernels.LAUNCHES)
+    out.update({
+        "losses": losses, "step_ms": step_s * 1e3,
+        "tokens_per_s": batch * out["seq"] / step_s,
+        "mfu_bench": _bench_mfu(cfg, n_params, batch, step_s),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / timed for k in
+                              ("flash_fwd", "flash_dq", "flash_dkv")}})
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(loss.item())
+
+    out["profile"] = _profile(torch, one_step, FLASH_TAGS)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, kernels, device) -> dict:
+    """The slice end to end: make_train_step on the reference's train
+    benchmark model (bench.py:306-312: max_seq_len 1024, batch 8,
+    attention="flash"), then two steps of train_loop, the user's entry."""
+    from tpu_bootstrap_torch.workload import model, train
+
+    cfg = train.TrainConfig(model=model.ModelConfig(
+        **TRAIN_MODEL, max_seq_len=1024, compute_dtype=torch.bfloat16),
+        attention="flash")
+    out = _run_train(torch, kernels, train, cfg, batch=8, timed=5,
+                     dense_check=True)
+    losses = out["losses"]
+    layers = cfg.model.num_layers
+    loop = train.train_loop(cfg, 2)
+    out.update({"phase": "train", "flash_dense_tol": FLASH_DENSE_TOL,
+                "flash_dense_diff": abs(losses[0] - out["dense_loss"]),
+                "control_dense_diff": abs(out["control_loss"]
+                                          - out["dense_loss"]),
+                "attn_grad_tol": ATTN_GRAD_TOL, "train_loop_losses": loop})
+    emit(out)
+    per_step = out["launches_per_step"]
+    ok = (all(math.isfinite(x) for x in losses + loop)
+          and losses[5] < losses[0]
+          and out["flash_dense_diff"] <= FLASH_DENSE_TOL
+          and max(out["attn_grad_err"].values()) <= ATTN_GRAD_TOL
+          and min(out["control_attn_grad_err"].values()) > ATTN_GRAD_TOL
+          and all(per_step[k] == layers for k in per_step))
+    if not ok:
+        raise SystemExit(
+            f"train failed: losses={losses} loop={loop} "
+            f"dense={out['dense_loss']} grads={out['attn_grad_err']} "
+            f"control={out['control_attn_grad_err']} launches={per_step}")
+    return out
+
+
+def phase_train_long(torch, kernels, device) -> dict:
+    """The reference's long-context configuration (bench.py:1786-1791):
+    max_seq_len 8192, batch 2, remat, vocab_chunk 4096; one warm-up step
+    and two timed. With remat the forward runs twice per step."""
+    from tpu_bootstrap_torch.workload import model, train
+
+    cfg = train.TrainConfig(model=model.ModelConfig(
+        **TRAIN_MODEL, max_seq_len=8192, compute_dtype=torch.bfloat16,
+        vocab_chunk=4096), attention="flash", remat=True)
+    out = _run_train(torch, kernels, train, cfg, batch=2, timed=2,
+                     dense_check=False)
+    out["phase"] = "train_long"
+    emit(out)
+    per_step = out["launches_per_step"]
+    layers = cfg.model.num_layers
+    if not (all(math.isfinite(x) for x in out["losses"])
+            and per_step["flash_fwd"] == 2 * layers
+            and per_step["flash_dq"] == per_step["flash_dkv"] == layers):
+        raise SystemExit(f"train_long failed: losses={out['losses']} "
+                         f"launches={per_step}")
+    return out
 
 
 def k1_step_totals(k1: dict, layers: int = 8) -> dict:
@@ -424,6 +887,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from tpu_bootstrap_torch.workload import (decode, decode_attention,
                                               kernels, quant)
+    from tpu_bootstrap_torch.workload import flash_attention as fa
 
     device = torch.device("cuda")
     info = phase_device(torch)
@@ -433,10 +897,23 @@ def main() -> int:
     k2 = phase_k2(torch, kernels, decode, decode_attention, timer, device)
     del timer  # frees the L2-flush buffer
     launches = phase_serve(torch, kernels, device)["launches"]
+    torch.cuda.empty_cache()
+    k3 = phase_k3(torch, fa, kernels, device)
+    k4 = phase_k4(torch, fa, kernels, device)
+    train_launches = phase_train(torch, kernels, device)["launches"]
+    phase_train_long(torch, kernels, device)
 
     k1_step = k1_step_totals(k1)
     k2_main = next(r for r in k2["rows"] if r["Hk"] == 16
                    and r["q"] == "bfloat16")
+    k3_main = next(r for r in k3["rows"] if r["case"] == "train"
+                   and r["dtype"] == "bfloat16")
+    k4_main = next(r for r in k4["rows"] if r["case"] == "train"
+                   and r["dtype"] == "bfloat16")
+    flash_at = ("one launch at the train shape: B=8 S=1023 H=Hk=16 D=64, "
+                "bf16, causal")
+    src = "tpu_bootstrap_torch/workload/csrc/flash_attention.cu"
+    ref = "tpu_bootstrap/workload/flash_attention.py"
     emit({"kernels": [
         {"name": "int8_matmul", "route": "cuda",
          "source": "tpu_bootstrap_torch/workload/csrc/int8_matmul.cu",
@@ -458,6 +935,34 @@ def main() -> int:
          "library_ms": k2_main["library_ms"],
          "at": "one launch, B=8 H=Hk=16 D=64 bs=64 nb=8, bf16 q, lengths "
                + ",".join(map(str, K2_LENGTHS))},
+        {"name": "flash_fwd", "route": "cuda", "source": src,
+         "replaces": f"{ref}:110",
+         "launches": train_launches["flash_fwd"],
+         "max_abs_err": k3["max_abs_err"],
+         "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": k3_main["library_ms"],
+         "at": flash_at + "; library: scaled_dot_product_attention"},
+        # No one PyTorch call computes dq alone or dk/dv alone: SDPA's
+        # backward (all three) is given beside them, not as library_ms.
+        {"name": "flash_dq", "route": "cuda", "source": src,
+         "replaces": f"{ref}:233",
+         "launches": train_launches["flash_dq"],
+         "max_abs_err": k4["max_abs_err"],
+         "ms": k4_main["dq_ms"], "plain_ms": k4_main["dq_plain_ms"],
+         "bound_ms": k4_main["dq_bound_ms"],
+         "bound_by": k4_main["dq_bound_by"],
+         "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
+         "at": flash_at},
+        {"name": "flash_dkv", "route": "cuda", "source": src,
+         "replaces": f"{ref}:267",
+         "launches": train_launches["flash_dkv"],
+         "max_abs_err": k4["max_abs_err"],
+         "ms": k4_main["dkv_ms"], "plain_ms": k4_main["dkv_plain_ms"],
+         "bound_ms": k4_main["dkv_bound_ms"],
+         "bound_by": k4_main["dkv_bound_by"],
+         "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
+         "at": flash_at},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

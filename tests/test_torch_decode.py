@@ -198,7 +198,6 @@ def test_greedy_margins_replay_generate():
 def test_generate_options_not_ported_raise():
     _, tcfg, _, tparams = _setup()
     for kw, item in (({"temperature": 0.7}, "item 5"),
-                     ({"kv_kernel": True}, "item 8"),
-                     ({"prefill_flash": True}, "item 7")):
+                     ({"kv_kernel": True}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tdecode.generate(tparams, [[1, 2]], tcfg, 2, device="cpu", **kw)

@@ -33,7 +33,10 @@ def test_port_modules_cover_the_slice():
     for mod in ("telemetry", "workload.bridge", "workload.model",
                 "workload.quant", "workload.decode_attention",
                 "workload.kernels", "workload.decode",
-                "workload.speculative", "workload.serving"):
+                "workload.speculative", "workload.serving",
+                "workload.flash_attention", "workload.xent",
+                "workload.faults", "workload.checkpoint", "workload.data",
+                "workload.train"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 
@@ -63,6 +66,17 @@ def test_kernel_wrappers_refuse_host_tensors():
         kernels.paged_attention(torch.randn(1, 2, 16), kq, ks, kq, ks,
                                 torch.ones(1, 1, dtype=torch.int32),
                                 torch.ones(1, dtype=torch.int32))
+    q = torch.randn(1, 8, 4, 64)
+    kv = torch.randn(1, 8, 2, 64)
+    rows = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.flash_fwd(q, kv, kv, 0.125, True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.flash_dq(q, kv, kv, q, rows, rows, 0.125, True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.flash_dkv(q, kv, kv, q, rows, rows, 0.125, False)
+    assert set(kernels.LAUNCHES) == {"int8_matmul", "paged_attention",
+                                     "flash_fwd", "flash_dq", "flash_dkv"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

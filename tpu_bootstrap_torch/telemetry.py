@@ -3,15 +3,17 @@
 A copy of the subset of ``tpu_bootstrap.telemetry`` the port records
 (that module is framework-free, but the port imports nothing of the JAX
 package): named counters and gauges, fixed-bucket histograms, and
-``span`` timing. Names are the reference's, so a scrape of either
-package reads the same keys: ``quant_<kernel>_{calls,weight_bytes,
-activation_bytes,bytes}_total`` from the quantized matmul seam, the
-``kv_blocks_*`` pool gauges and the ``serve_*`` scheduler gauges.
+``span`` timing, the train loop's heartbeat and the MFU denominator.
+Names are the reference's, so a scrape of either package reads the same
+keys: ``quant_<kernel>_{calls,weight_bytes,activation_bytes,bytes}_total``
+from the quantized matmul seam, the ``kv_blocks_*`` pool gauges, the
+``serve_*`` scheduler gauges and the train loop's ``workload_*`` gauges.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
@@ -94,19 +96,59 @@ _spans: deque = deque(maxlen=4096)
 @contextlib.contextmanager
 def span(name: str, **attrs):
     """Time a block on the host clock and keep the record in a bounded
-    ring (``spans()``). The caller synchronises the device inside the
-    block where the span must cover device work."""
+    ring (``spans()``). Yields the record, whose ``dur_ms`` is set when the
+    block exits. The caller synchronises the device inside the block where
+    the span must cover device work."""
+    rec = {"name": name, **attrs}
     t0 = time.perf_counter()
     try:
-        yield
+        yield rec
     finally:
-        _spans.append({"name": name,
-                       "dur_ms": (time.perf_counter() - t0) * 1e3,
-                       **attrs})
+        rec["dur_ms"] = (time.perf_counter() - t0) * 1e3
+        _spans.append(rec)
 
 
 def spans() -> list:
     return list(_spans)
+
+
+# The denominator of workload_train_mfu, as in the reference: the operator
+# sets it with TPUBC_PEAK_TFLOPS; otherwise it follows the card's name.
+PEAK_TFLOPS_ENV = "TPUBC_PEAK_TFLOPS"
+# Dense bf16 tensor-core peak of the H100 SXM (NVIDIA's data sheet). The
+# PCIe and NVL parts run lower and are not assumed.
+H100_SXM_BF16_TFLOPS = 989.0
+
+
+def peak_tflops() -> float | None:
+    """bf16 peak TFLOP/s of the card the port runs on: TPUBC_PEAK_TFLOPS
+    when set, else the H100 SXM's when CUDA reports one, else None (an
+    unknown part, or no card: no MFU is computed)."""
+    try:
+        return float(os.environ[PEAK_TFLOPS_ENV])
+    except (KeyError, ValueError):
+        pass
+    import torch
+
+    if torch.cuda.is_available():
+        name = torch.cuda.get_device_name()
+        if "H100" in name and "PCIe" not in name and "NVL" not in name:
+            return H100_SXM_BF16_TFLOPS
+    return None
+
+
+# Train-loop heartbeat: the step loop stamps (step, monotonic time) after
+# every step, so a wedged loop can be told from a slow one.
+_beat_lock = threading.Lock()
+_beat = {"t": None, "step": None}  # guarded-by: _beat_lock
+
+
+def heartbeat(step: int | None = None) -> None:
+    """Stamp liveness (the train step loop)."""
+    with _beat_lock:
+        _beat["t"] = time.monotonic()
+        if step is not None:
+            _beat["step"] = step
 
 
 def record_kv_block_pool(total: int, used: int, free: int,

@@ -16,7 +16,8 @@ written against the reference's functional form keep working.
 projection through kernel K1; ``prefill``, ``decode_step`` and
 ``_block_step`` attend with the einsum path (the reference's
 ``kv_kernel=False``), which is also what the serving engine's prefill
-chunk uses.
+chunk uses. ``prefill(flash=True)`` / ``generate(prefill_flash=True)`` run
+the prompt's causal self-attention through the flash kernel K3 instead.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from tpu_bootstrap_torch import telemetry
 from tpu_bootstrap_torch.workload import decode_attention, quant
+from tpu_bootstrap_torch.workload.flash_attention import flash_attention
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
     Params,
@@ -208,14 +210,17 @@ def _attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 def _block_step(block: Params, x: torch.Tensor, cache: dict,
                 positions: torch.Tensor, valid: torch.Tensor,
-                cfg: ModelConfig, slot=None):
+                cfg: ModelConfig, slot=None, prefill_flash: bool = False):
     """One block over x (B, S, E): its KV written into ``cache`` (in
     place) at ``positions`` and attention over the whole cache, on the
     einsum path. ``slot`` as a (B,) tensor writes each row at its own
     start (per-row frontiers); otherwise the chunk starts at ``slot`` or
     at positions[0] for every row. On an int8 cache the chunk's quantized
     K/V are written first and attention reads the dequantized cache, so
-    the chunk sees its own KV at int8 precision, as in the reference."""
+    the chunk sees its own KV at int8 precision, as in the reference.
+    ``prefill_flash`` on a multi-token chunk attends causally over the
+    chunk's own (q, k, v) through the flash kernel, never reading the
+    cache (a fresh prefill's attention is exactly that)."""
     dtype = cfg.compute_dtype
     h = _rms_norm(x, block["attn_norm"])
     q, k, v = _qkv(block, h, positions, cfg)
@@ -233,12 +238,15 @@ def _block_step(block: Params, x: torch.Tensor, cache: dict,
             _row_scatter(cache[name], arr, start)
         else:
             _slice_write(cache[name], arr, start)
-    if quantized:
-        cache_k = _dequantize_kv(cache["k"], cache["k_scale"], dtype)
-        cache_v = _dequantize_kv(cache["v"], cache["v_scale"], dtype)
+    if prefill_flash and q.shape[1] > 1:
+        out = flash_attention(q, k, v, causal=True)
     else:
-        cache_k, cache_v = cache["k"], cache["v"]
-    out = _attend(q, cache_k, cache_v, valid, cfg)
+        if quantized:
+            cache_k = _dequantize_kv(cache["k"], cache["k_scale"], dtype)
+            cache_v = _dequantize_kv(cache["v"], cache["v_scale"], dtype)
+        else:
+            cache_k, cache_v = cache["k"], cache["v"]
+        out = _attend(q, cache_k, cache_v, valid, cfg)
     x = x + _linear(out, block["wo"], 2, dtype)
     return _mlp_tail(block, x, cfg), cache
 
@@ -259,12 +267,19 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def prefill(params: Params, tokens: torch.Tensor, caches: list,
             cfg: ModelConfig, lengths: torch.Tensor | None = None,
-            all_logits: bool = False):
+            all_logits: bool = False, flash: bool = False):
     """Run the prompt (B, S) into cache slots [0, S) (in place). Returns
     (logits of the last position (B, vocab), caches), or all positions'
     logits with ``all_logits``. ``lengths`` (B,) are the true lengths of
     a LEFT-padded ragged batch: pad columns are masked out and rotary
-    phases count from each row's first real token."""
+    phases count from each row's first real token. ``flash`` runs the
+    prompt's causal self-attention through kernel K3, in O(S) memory: the
+    long-prompt path (not with ``lengths``: its causal mask cannot
+    exclude per-row pads)."""
+    if flash and lengths is not None:
+        raise ValueError(
+            "ragged prompts (lengths) do not compose with the flash "
+            "prefill — its causal mask cannot exclude per-row pads")
     b, s = tokens.shape
     max_len = caches[0]["k"].shape[1]
     dev = tokens.device
@@ -282,7 +297,8 @@ def prefill(params: Params, tokens: torch.Tensor, caches: list,
                     <= torch.arange(s, device=dev)[None, :, None]))
     x = params["embed"][tokens].to(cfg.compute_dtype)
     for block, cache in zip(params["blocks"], caches):
-        x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot)
+        x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot,
+                           prefill_flash=flash)
     if all_logits:
         return _logits(params, x), caches
     return _logits(params, x[:, -1:])[:, 0], caches
@@ -318,8 +334,9 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
     """Greedy generation: prompt (B, S) -> (B, steps) continuations. The
     cache is sized S + steps; attention runs on the einsum path (the
     reference's ``kv_kernel=False``), which makes this the solo oracle
-    the serving engine is held to. The decode loop keeps tokens on the
-    device and reads them back once at the end."""
+    the serving engine is held to. ``prefill_flash`` runs the prompt
+    through kernel K3 (not with ``prompt_lengths``). The decode loop keeps
+    tokens on the device and reads them back once at the end."""
     if temperature != 0.0:
         raise NotImplementedError(
             "sampling is not ported yet (ROADMAP queue 1 item 5: sampling "
@@ -328,10 +345,10 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
         raise NotImplementedError(
             "generate's int8 kernel path (kernel K5) is not ported yet "
             "(ROADMAP queue 1 item 8)")
-    if prefill_flash:
-        raise NotImplementedError(
-            "the flash prefill (kernel K3) is not ported yet (ROADMAP queue "
-            "1 item 7)")
+    if prefill_flash and prompt_lengths is not None:
+        raise ValueError(
+            "prompt_lengths does not compose with prefill_flash (the "
+            "flash causal mask cannot exclude per-row pads)")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     device = resolve_device(device)
@@ -347,7 +364,8 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
                         kv_quant=int(kv_quant)):
         caches = init_cache(cfg, b, s + steps, quantized=kv_quant,
                             device=device)
-        logits, caches = prefill(params, prompt, caches, cfg, lengths=lengths)
+        logits, caches = prefill(params, prompt, caches, cfg, lengths=lengths,
+                                 flash=prefill_flash)
         token = torch.argmax(logits, dim=-1)
         toks = [token]
         for i in range(steps - 1):

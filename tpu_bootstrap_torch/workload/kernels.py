@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Launches per kernel since the last reset_launches(); one tick where the
 # kernel is launched and nowhere else.
-LAUNCHES = {"int8_matmul": 0, "paged_attention": 0}
+LAUNCHES = {"int8_matmul": 0, "paged_attention": 0, "flash_fwd": 0,
+            "flash_dq": 0, "flash_dkv": 0}
 
 _lock = threading.Lock()
 _lib = None  # guarded-by: _lock
@@ -126,6 +127,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tpubc_paged_attention.restype = i
     lib.tpubc_paged_attention_smem_bytes.argtypes = [i, i, i]
     lib.tpubc_paged_attention_smem_bytes.restype = i
+    dims = [i, i, i, i, i, f, i, i, p]  # b, s, h, hk, d, scale, causal, bf16
+    lib.tpubc_flash_fwd.argtypes = [p] * 5 + dims
+    lib.tpubc_flash_fwd.restype = i
+    lib.tpubc_flash_dq.argtypes = [p] * 7 + dims
+    lib.tpubc_flash_dq.restype = i
+    lib.tpubc_flash_dkv.argtypes = [p] * 8 + dims
+    lib.tpubc_flash_dkv.restype = i
     return lib
 
 
@@ -243,3 +251,96 @@ def paged_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     _check(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out
+
+
+# The flash kernels' head dims (csrc/flash_attention.cu instantiates these).
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def _flash_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                *rows: torch.Tensor) -> tuple:
+    """Validate model-layout q (B, S, H, D), k/v (B, S, Hk, D) and the
+    per-row f32 tensors (B, S, H); returns (B, S, H, Hk, D)."""
+    _need(q, "q", _FLOATS, 4)
+    _need(k, "k", (q.dtype,), 4)
+    _need(v, "v", (q.dtype,), 4)
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    if (k.shape != (b, s, hk, d) or v.shape != k.shape or hk < 1 or h % hk
+            or s < 1 or b < 1):
+        raise ValueError(f"flash shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head_dim in "
+                         f"{FLASH_HEAD_DIMS}, got {d}")
+    for name, t in zip(("lse", "delta"), rows):
+        _need(t, name, (torch.float32,), 3)
+        if t.shape != (b, s, h):
+            raise ValueError(f"{name} must be {(b, s, h)}, got {tuple(t.shape)}")
+    for t in (q, k, v, *rows):
+        if t.device != q.device:
+            raise ValueError("flash operands on different devices")
+        if t.data_ptr() % 16:
+            raise ValueError("flash operands must be 16-byte aligned")
+    return b, s, h, hk, d
+
+
+def _flash_tail(b, s, h, hk, d, sm_scale, causal, dtype) -> tuple:
+    return (b, s, h, hk, d, float(sm_scale), int(bool(causal)),
+            int(dtype == torch.bfloat16), _stream())
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float, causal: bool) -> tuple:
+    """Kernel K3: (O (B, S, H, D) in q.dtype, LSE (B, S, H) f32)."""
+    b, s, h, hk, d = _flash_dims(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    rc = lib().tpubc_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_flash_tail(b, s, h, hk, d, sm_scale, causal, q.dtype))
+    _check(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+             sm_scale: float, causal: bool) -> torch.Tensor:
+    """Kernel K4, dq half: dq (B, S, H, D) in q.dtype, from dO (q's shape
+    and dtype), LSE and delta' = rowsum(dO * O) - dlse, both (B, S, H)
+    f32."""
+    b, s, h, hk, d = _flash_dims(q, k, v, lse, delta)
+    _need(dout, "dout", (q.dtype,), 4)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout must be {tuple(q.shape)}, got "
+                         f"{tuple(dout.shape)}")
+    dq = torch.empty_like(q)
+    rc = lib().tpubc_flash_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_flash_tail(b, s, h, hk, d, sm_scale, causal, q.dtype))
+    _check(rc, "flash_dq")
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+              sm_scale: float, causal: bool) -> tuple:
+    """Kernel K4, dk/dv half: (dk, dv) (B, S, Hk, D) in k.dtype, summed
+    over each KV head's query group in f32."""
+    b, s, h, hk, d = _flash_dims(q, k, v, lse, delta)
+    _need(dout, "dout", (q.dtype,), 4)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout must be {tuple(q.shape)}, got "
+                         f"{tuple(dout.shape)}")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = lib().tpubc_flash_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_flash_tail(b, s, h, hk, d, sm_scale, causal, q.dtype))
+    _check(rc, "flash_dkv")
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv

@@ -204,7 +204,11 @@ def dense_attn_core(q: torch.Tensor, k: torch.Tensor,
 
 
 def _attention(block: Params, x: torch.Tensor, cfg: ModelConfig,
+               attn_fn=None,
                positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal attention of x (batch, seq, embed). ``attn_fn(q, k, v)``
+    (q (batch, seq, heads, head_dim), k/v with kv_heads) replaces the
+    attention core when given: the hook the flash kernels plug into."""
     dtype = cfg.compute_dtype
     seq = x.shape[1]
     if positions is None:
@@ -215,7 +219,7 @@ def _attention(block: Params, x: torch.Tensor, cfg: ModelConfig,
     v = torch.einsum("bse,ehd->bshd", h, block["wv"].to(dtype))
     q = _rotary(q, positions)
     k = _rotary(k, positions)
-    out = dense_attn_core(q, k, v)
+    out = (attn_fn or dense_attn_core)(q, k, v)
     return torch.einsum("bshd,hde->bse", out, block["wo"].to(dtype))
 
 
@@ -255,16 +259,25 @@ def _mlp(block: Params, x: torch.Tensor, cfg: ModelConfig,
     return linear(h, block["w_down"], 1, dtype)
 
 
-def hidden(params: Params, tokens: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """tokens (batch, seq) -> final-normed hidden states (batch, seq,
-    embed) of the dense model."""
+def hidden_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                    attn_fn=None) -> tuple:
+    """tokens (batch, seq) -> (final-normed hidden states (batch, seq,
+    embed), aux): the model up to the head. ``aux`` is the MoE
+    load-balancing loss, 0 for the dense model (MoE is not ported)."""
     _no_moe(cfg)
     x = params["embed"][tokens].to(cfg.compute_dtype)
     for block in params["blocks"]:
-        x = x + _attention(block, x, cfg)
+        x = x + _attention(block, x, cfg, attn_fn)
         x = x + _mlp(block, x, cfg)
-    return _rms_norm(x, params["final_norm"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _rms_norm(x, params["final_norm"]), aux
+
+
+def hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+           attn_fn=None) -> torch.Tensor:
+    """tokens (batch, seq) -> final-normed hidden states (batch, seq,
+    embed) of the dense model."""
+    return hidden_with_aux(params, tokens, cfg, attn_fn)[0]
 
 
 def head_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -274,7 +287,38 @@ def head_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bse,ve->bsv", x.float(), w)
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                     attn_fn=None) -> tuple:
+    """tokens (batch, seq) -> (logits (batch, seq, vocab) f32, aux)."""
+    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn)
+    return head_logits(x, params["embed"]), aux
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            attn_fn=None) -> torch.Tensor:
     """tokens (batch, seq) -> logits (batch, seq, vocab) in f32."""
-    return head_logits(hidden(params, tokens, cfg), params["embed"])
+    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+
+
+def loss_from_inputs(params: Params, inputs: torch.Tensor,
+                     targets: torch.Tensor, cfg: ModelConfig,
+                     attn_fn=None) -> torch.Tensor:
+    """Mean cross-entropy of ``targets`` under the model run on
+    ``inputs``. ``cfg.vocab_chunk > 0`` streams the head over vocab chunks
+    (``xent.py``) without materializing the (batch, seq, vocab) logits."""
+    if cfg.vocab_chunk > 0:
+        from tpu_bootstrap_torch.workload.xent import chunked_mean_xent
+
+        x, _ = hidden_with_aux(params, inputs, cfg, attn_fn)
+        return chunked_mean_xent(x, params["embed"], targets, cfg.vocab_chunk)
+    logits, _ = forward_with_aux(params, inputs, cfg, attn_fn)
+    logprobs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logprobs, -1, targets[..., None].long())[..., 0]
+    return nll.mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            attn_fn=None) -> torch.Tensor:
+    """Next-token cross-entropy averaged over all positions."""
+    return loss_from_inputs(params, tokens[:, :-1], tokens[:, 1:], cfg,
+                            attn_fn)
