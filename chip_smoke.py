@@ -14,7 +14,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               version over ragged lengths, an aliased table and garbage in
               every block a row does not own; widening the table must not
               change a bit.
-5. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
+5. k1e     -- int8_expert_matmul (kernel K1e) against its plain version at
+              the MoE decode model's expert stacks (E=8; (K, N) = (1024,
+              4096) and (4096, 1024)), T in {1, 8, 32, 256}, x in bf16 and
+              f32, plus a ragged case; each row of a T=8 launch must equal,
+              bitwise, the row alone (per expert); timed beside torch.bmm.
+6. k6      -- int4_matmul (kernel K6, group 64) at every (K, N) of the
+              decode model (lm_head as under head="int4"), T in {1, 8, 64},
+              plus a K tail (K=1000) and an odd small group (6); and
+              int4_expert_matmul (kernel K6e) at the two expert stacks; the
+              same checks, timed beside torch.matmul / torch.bmm on the
+              bf16-dequantized weight.
+7. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
               of 32 requests on the decode model at full width (8 layers,
               int8 weights from a seed), the launch counts of both kernels
               over that run (both must be > 0), and every stream held to the
@@ -22,16 +33,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               divergence must be a near-tie. Then the flash prefill:
               generate(prefill_flash=True), whose prompt attention runs
               through K3, against generate() with the einsum prefill.
-6. k3      -- flash_fwd (kernel K3) against its plain version (out and lse,
+8. serve_int4 -- the serve phase's workload on the same model with int4
+              weights (quantize_params4, group 64, int8 head): K6, K1 and K2
+              launched, every stream held to solo generate as in serve, in
+              bf16 and in f32.
+9. serve_moe -- the MoE decode model (the same widths with 8 experts,
+              top-2, capacity factor 2) served with int8 (K1, K1e, K2) and
+              int4 (K6, K6e, K1 head, K2) weights on 16 of the requests:
+              every stream complete, every decode logit finite, a second
+              serve bitwise the same; of the first 8 streams, those that
+              differ from solo generate are counted, not failed (capacity
+              is contested over each chunk, so chunked serving routes
+              otherwise).
+10. k3     -- flash_fwd (kernel K3) against its plain version (out and lse,
               each element to its own limit) at the train shapes (B=8
               S=1023 and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and
               not, plus a GQA and small head-dim cases; timed beside
               scaled_dot_product_attention.
-7. k4      -- flash_dq and flash_dkv (kernel K4) through the autograd
+11. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; timed beside SDPA's backward.
-8. train   -- the training slice end to end: make_train_step on the
+12. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -40,7 +63,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               dense core's within ATTN_GRAD_TOL while a broken attention's
               land outside it, 8 launches of each flash kernel per step; one
               profiled step; then two steps of train_loop.
-9. train_long -- the reference's long-context configuration (seq 8192,
+13. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer.
 
@@ -75,6 +98,27 @@ K1_SHAPES = {  # (K, N) of the decode model's int8 projections
     "wqkv": (1024, 3072), "wo": (1024, 1024), "w_up": (1024, 4096),
     "w_down": (4096, 1024), "lm_head": (1024, 32768)}
 K2_LENGTHS = (1, 63, 64, 65, 512, 200, 130, 7)
+# The decode model of bench.py:470-472 and its MoE variant (the expert
+# stack shape (8, 1024, 4096) bench.py:583-587 measures the expert kernel
+# at).
+DECODE_MODEL = dict(vocab_size=32768, num_layers=8, num_heads=16,
+                    head_dim=64, embed_dim=1024, mlp_dim=4096,
+                    max_seq_len=512)
+MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
+MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
+MOE_REQUESTS = 16
+MOE_SOLO = 8  # of them, compared with solo generate
+INT4_GROUP = 64
+# T of an expert launch is rows x capacity: 8 is a decode step at batch 8
+# (capacity 1 per expert per row), 32 the serve phases' 64-token prefill
+# chunk of one row (capacity 32), 256 64-token chunks of 4 rows.
+EXPERT_T = (1, 8, 32, 256)
+# K1e, K6 and K6e against their plain versions, |got - want| <= rtol *
+# |want| + atol. Both sides multiply the same bf16-rounded operands (each
+# product exact in f32) and sum in f32 in other orders: bf16 outputs may
+# differ by one bf16 rounding (2^-8 relative), f32 outputs by the order of
+# the f32 sums.
+MATMUL_TOL = {"bfloat16": (8e-3, 1e-3), "float32": (1e-4, 1e-4)}
 # Top-2 logit margins under which two greedy runs may fairly pick different
 # tokens. bf16: the gap that bf16 rounding (of the int8 matmul's activations,
 # and of the oracle's dequantized K/V and probabilities) can open between the
@@ -299,6 +343,113 @@ def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def _matmul_case(torch, timer, kernel, plain, library, x, weight_bytes: int,
+                 meta: dict) -> dict:
+    """One quantized-matmul launch ``kernel(x)`` held to ``plain(x)``; at
+    T = 8 every row (of every expert) launched alone must equal its row
+    of the batch bitwise. Timed beside the plain version and one PyTorch
+    call (``library``) on the bf16-dequantized weight, with the bound of
+    the weight, x and out bytes and 2 * K operations per output."""
+    got = kernel(x)
+    want = plain(x)
+    torch.cuda.synchronize()
+    dtype = str(x.dtype).removeprefix("torch.")
+    rtol, atol = MATMUL_TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    close = bool(torch.isfinite(got.float()).all()) and torch.allclose(
+        got.float(), want.float(), rtol=rtol, atol=atol)
+    invariant = None
+    if x.shape[-2] == 8:
+        alone = torch.cat([kernel(x[..., i:i + 1, :].contiguous())
+                           for i in range(8)], dim=-2)
+        invariant = bool(torch.equal(alone, got))
+    e = x.element_size()
+    bound_ms, bound_by = bound(weight_bytes + (x.numel() + got.numel()) * e,
+                               2 * got.numel() * x.shape[-1], BF16_FLOPS)
+    return {**meta, "x": dtype, "max_abs_err": err, "close": close,
+            "batch_invariant": invariant,
+            "kernel_ms": timer(lambda: kernel(x)),
+            "plain_ms": timer(lambda: plain(x)),
+            "library_ms": timer(lambda: library(x)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _matmul_phase(name: str, rows: list) -> dict:
+    failures = [r for r in rows
+                if not r["close"] or r["batch_invariant"] is False]
+    max_err = max(r["max_abs_err"] for r in rows)
+    emit({"phase": name, "tolerance": MATMUL_TOL, "max_abs_err": max_err,
+          "rows": rows})
+    if failures:
+        raise SystemExit(f"{name} failed: {failures}")
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def phase_k1e(torch, kernels, quant, timer, device) -> dict:
+    """K1e at the MoE decode model's expert stacks, and a ragged case (odd
+    T, N not a multiple of 8)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    cases = [(name, MOE_MODEL["num_experts"], k, n, t)
+             for name, (k, n) in MOE_SHAPES.items() for t in EXPERT_T]
+    cases.append(("ragged", 3, 1000, 1001, 5))
+    rows = []
+    for name, e, k, n, t in cases:
+        w = torch.randn(e, k, n, generator=gen, device=device) / math.sqrt(k)
+        qw = quant.quantize_expert_weight(w)
+        w_bf16 = quant.dequantize_weight(qw).to(torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(e, t, k, generator=gen, device=device).to(dtype)
+            rows.append(_matmul_case(
+                torch, timer,
+                lambda x: kernels.int8_expert_matmul(x, qw.q, qw.s),
+                lambda x: quant.int8_expert_matmul_plain(x, qw.q, qw.s),
+                lambda x: torch.bmm(x.to(torch.bfloat16), w_bf16), x,
+                quant.weight_stream_bytes(qw),
+                {"shape": name, "E": e, "K": k, "N": n, "T": t}))
+        del w, qw, w_bf16
+    return _matmul_phase("k1e", rows)
+
+
+def phase_k6(torch, kernels, quant, timer, device) -> dict:
+    """K6 at every (K, N) of the decode model with group 64 (lm_head as
+    head="int4" stores it), a K tail and an odd small group; K6e at the
+    two expert stacks."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    cases = [(name, 0, k, n, INT4_GROUP, t)
+             for name, (k, n) in K1_SHAPES.items() for t in (1, 8, 64)]
+    cases += [("tail", 0, 1000, 1024, INT4_GROUP, t) for t in (5, 8)]
+    cases += [("group6", 0, 1024, 1000, 6, t) for t in (5, 8)]
+    cases += [(name, MOE_MODEL["num_experts"], k, n, INT4_GROUP, t)
+              for name, (k, n) in MOE_SHAPES.items() for t in (1, 8, 32)]
+    rows = []
+    for name, e, k, n, group, t in cases:
+        lead = (e,) if e else ()
+        w = torch.randn(*lead, k, n, generator=gen, device=device) / math.sqrt(k)
+        if e:
+            qw = quant.quantize_expert_weight4(w, group=group)
+            kernel, plain = kernels.int4_expert_matmul, quant.int4_expert_matmul_plain
+            library = torch.bmm
+        else:
+            qw = quant.quantize_weight4(w, group=group)
+            kernel, plain = kernels.int4_matmul, quant.int4_matmul_plain
+            library = torch.matmul
+        w_bf16 = quant.dequantize_weight4(qw).to(torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(*lead, t, k, generator=gen, device=device).to(dtype)
+            rows.append(_matmul_case(
+                torch, timer,
+                lambda x: kernel(x, qw.q, qw.s, group, k),
+                lambda x: plain(x, qw.q, qw.s, group, k),
+                lambda x: library(x.to(torch.bfloat16), w_bf16), x,
+                quant.weight_stream_bytes(qw),
+                {"shape": name, "E": e or None, "K": k, "N": n, "group": group,
+                 "T": t}))
+        del w, qw, w_bf16
+    return _matmul_phase("k6", rows)
+
+
 def _serve_requests(serving, vocab: int, n: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     return [serving.Request(
@@ -327,8 +478,9 @@ def _profile(torch, run, tags: dict) -> dict:
     """``run()`` once under torch.profiler (device activity only: a full
     serve records some 600k kernels, which takes the profiler minutes to
     fold): device busy time (the sum of kernel times, one stream) against
-    the run's wall time, the device time of each kernel named in ``tags``
-    ({key: kernel-name fragment}), and the kernels that take most.
+    the run's wall time, the device time of the kernels named in ``tags``
+    ({key: kernel-name fragment, or a tuple of fragments that must all be
+    in the name}), and the kernels that take most.
     Profiling slows the host, so the idle share is an upper bound for the
     unprofiled run."""
     from torch.profiler import ProfilerActivity, profile
@@ -344,7 +496,9 @@ def _profile(torch, run, tags: dict) -> dict:
     top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:8]
 
     def share(tag):
-        return sum(e.self_device_time_total for e in gpu if tag in e.key) / 1e3
+        frags = (tag,) if isinstance(tag, str) else tag
+        return sum(e.self_device_time_total for e in gpu
+                   if all(f in e.key for f in frags)) / 1e3
 
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
@@ -411,9 +565,7 @@ def phase_serve(torch, kernels, device) -> dict:
 
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
-    cfg = model.ModelConfig(vocab_size=32768, num_layers=8, num_heads=16,
-                            head_dim=64, embed_dim=1024, mlp_dim=4096,
-                            max_seq_len=512, compute_dtype=torch.bfloat16)
+    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
     params = quant.quantize_params(model.init_params(cfg, seed=0,
                                                      device=device))
     kw = dict(paged=True, kv_quant=True, prefix_cache=False,
@@ -466,6 +618,180 @@ def phase_serve(torch, kernels, device) -> dict:
                          f"launches={launches}")
     _prefill_flash(torch, kernels, decode, params, cfg)
     return result
+
+
+SERVE_KW = dict(paged=True, kv_quant=True, prefix_cache=False,
+                overcommit=False)
+
+
+def _timed_serve(torch, kernels, serving, params, cfg, reqs) -> dict:
+    """One warm-up serve of two other requests, then ``reqs`` through
+    serve() at batch 8 with the launch counts set to 0 just before and
+    read just after; streams checked complete and in the vocabulary."""
+    serving.serve(params, cfg, _serve_requests(serving, cfg.vocab_size, 2,
+                                               seed=1), 8, **SERVE_KW)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = serving.serve(params, cfg, reqs, 8, **SERVE_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    tokens = sum(len(v) for v in done.values())
+    shape_ok = (sorted(done) == sorted(r.rid for r in reqs) and all(
+        len(done[r.rid]) == r.max_new
+        and all(0 <= t < cfg.vocab_size for t in done[r.rid])
+        for r in reqs))
+    return {"done": done, "requests": len(reqs), "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "launches": launches, "shape_ok": shape_ok}
+
+
+def _serve_profile(torch, serving, params, cfg, reqs, tags: dict) -> dict:
+    """_profile of serving the first PROFILED_REQUESTS requests, with the
+    device kernels per generated token."""
+    head = reqs[:PROFILED_REQUESTS]
+    out = _profile(torch, lambda: serving.serve(params, cfg, head, 8,
+                                                **SERVE_KW), tags)
+    out["kernels_per_token"] = (out["kernel_launches"]
+                                / sum(r.max_new for r in head))
+    return out
+
+
+def _path_launches_ok(launches: dict, path: tuple) -> bool:
+    return all(launches[k] > 0 for k in path)
+
+
+def phase_serve_int4(torch, kernels, device) -> dict:
+    """The serve phase's workload with int4 weights (quantize_params4,
+    group 64, int8 head, the reference's WORKLOAD_QUANT=int4): every block
+    projection on K6, the head on K1, attention on K2. Every stream is
+    held to the port's solo greedy generate, which runs the same K6
+    launches and differs only in how it attends, in bf16 and again in
+    f32: a divergence is accepted only at a near-tie (NEAR_TIE)."""
+    import dataclasses
+
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params4(
+        model.init_params(cfg, seed=0, device=device), group=INT4_GROUP,
+        head="int8")
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    run = _timed_serve(torch, kernels, serving, params, cfg, reqs)
+    path = ("int4_matmul", "int8_matmul", "paged_attention")
+    diverged = _diverged(decode, params, cfg, reqs, run["done"])
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    done32 = serving.serve(params, cfg32, reqs, 8, **SERVE_KW)
+    diverged32 = _diverged(decode, params, cfg32, reqs, done32)
+    profile = _serve_profile(torch, serving, params, cfg, reqs, {
+        "k6_ms": "int4_matmul_kernel", "k1_ms": "int8_matmul_kernel",
+        "k2_ms": "paged_attention_kernel"})
+    result = {"phase": "serve_int4", "group": INT4_GROUP, "head": "int8",
+              **{k: v for k, v in run.items() if k != "done"},
+              "decode_stream_bytes": quant.decode_stream_bytes(params),
+              "near_tie": NEAR_TIE,
+              "diverged": {"bfloat16": diverged, "float32": diverged32},
+              "profile": profile}
+    emit(result)
+    bad = [d for dt in NEAR_TIE for d in result["diverged"][dt]
+           if d["margin"] >= NEAR_TIE[dt]]
+    if not run["shape_ok"] or bad or not _path_launches_ok(run["launches"],
+                                                           path):
+        raise SystemExit(f"serve_int4 failed: shape_ok={run['shape_ok']} "
+                         f"bad={bad} launches={run['launches']}")
+    return result
+
+
+def _watched_serve(torch, kernels, serving, params, cfg, reqs) -> tuple:
+    """serve() once more, recording on the device whether every decode
+    step's logits were all finite, and the shape of every expert launch."""
+    finite = torch.ones((), dtype=torch.bool, device=params["embed"].device)
+    shapes = set()
+    step = serving.paged_decode_step
+    k8, k4 = kernels.int8_expert_matmul, kernels.int4_expert_matmul
+
+    def watched_step(*args, **kw):
+        logits, pools = step(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, pools
+
+    def watch(launch):
+        def wrapped(x, *rest):
+            shapes.add(tuple(x.shape))
+            return launch(x, *rest)
+        return wrapped
+
+    serving.paged_decode_step = watched_step
+    kernels.int8_expert_matmul, kernels.int4_expert_matmul = watch(k8), watch(k4)
+    try:
+        done = serving.serve(params, cfg, reqs, 8, **SERVE_KW)
+    finally:
+        serving.paged_decode_step = step
+        kernels.int8_expert_matmul, kernels.int4_expert_matmul = k8, k4
+    return done, bool(finite), sorted(shapes)
+
+
+def phase_serve_moe(torch, kernels, device) -> dict:
+    """The MoE decode model (the decode model's widths, 8 experts, top-2,
+    capacity factor 2, random weights from a seed) served with int8 and
+    with int4 weights on MOE_REQUESTS of the serve phase's requests. The
+    reference's MoE streams are not its solo generate's (capacity is
+    contested over each prefill chunk), so that is counted on the first
+    MOE_SOLO, not held;
+    held: every stream complete, every decode logit finite, a second serve
+    bitwise the same, and every kernel of the path launched."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**DECODE_MODEL, **MOE_MODEL,
+                            compute_dtype=torch.bfloat16)
+    params = model.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for b in params["blocks"] for p in b.values())
+    n_params += params["embed"].numel() + params["final_norm"].numel()
+    formats = {"int8": (quant.quantize_params(params), (
+                   "int8_matmul", "int8_expert_matmul", "paged_attention")),
+               "int4": (quant.quantize_params4(
+                   params, group=INT4_GROUP, head="int8"), (
+                   "int4_matmul", "int4_expert_matmul", "int8_matmul",
+                   "paged_attention"))}
+    del params
+    torch.cuda.empty_cache()
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)[:MOE_REQUESTS]
+    out, failed = {"phase": "serve_moe", "params": n_params}, []
+    for fmt, (qparams, path) in formats.items():
+        run = _timed_serve(torch, kernels, serving, qparams, cfg, reqs)
+        again, finite, shapes = _watched_serve(torch, kernels, serving,
+                                               qparams, cfg, reqs)
+        solo_differ = sum(
+            decode.generate(qparams, [r.tokens], cfg, r.max_new,
+                            kv_quant=True)[0].tolist() != run["done"][r.rid]
+            for r in reqs[:MOE_SOLO])
+        # A kernel's dense and expert forms are its <T, false> and
+        # <T, true> instantiations.
+        profile = _serve_profile(torch, serving, qparams, cfg, reqs, {
+            "k1_ms": ("int8_matmul_kernel<", ", false>"),
+            "k1e_ms": ("int8_matmul_kernel<", ", true>"),
+            "k6_ms": ("int4_matmul_kernel<", ", false>"),
+            "k6e_ms": ("int4_matmul_kernel<", ", true>"),
+            "k2_ms": "paged_attention_kernel"})
+        profile["expert_share"] = ((profile["k1e_ms"] + profile["k6e_ms"])
+                                   / profile["device_busy_ms"])
+        deterministic = again == run["done"]
+        out[fmt] = {**{k: v for k, v in run.items() if k != "done"},
+                    "decode_stream_bytes": quant.decode_stream_bytes(qparams),
+                    "logits_finite": finite, "deterministic": deterministic,
+                    "expert_launch_shapes": shapes,
+                    "differ_from_solo_generate": f"{solo_differ} of "
+                                                 f"{MOE_SOLO}",
+                    "profile": profile}
+        if not (run["shape_ok"] and finite and deterministic
+                and _path_launches_ok(run["launches"], path)):
+            failed.append(fmt)
+    emit(out)
+    if failed:
+        raise SystemExit(f"serve_moe failed for {failed}: "
+                         f"{ {f: out[f] for f in failed} }")
+    return out
 
 
 # Flash cases: (name, B, S, H, Hk, D, dtype, causal, dlse). The train shapes
@@ -863,18 +1189,29 @@ def phase_train_long(torch, kernels, device) -> dict:
     return out
 
 
-def k1_step_totals(k1: dict, layers: int = 8) -> dict:
-    """K1's numbers for one decode step at batch 8: four bf16 launches
-    per layer (wqkv, wo, w_up, w_down) plus the f32 lm_head launch."""
-    pick = {(r["shape"], r["x"]): r for r in k1["rows"] if r["T"] == 8}
-    step = [(layers, pick[(s, "bfloat16")])
-            for s in ("wqkv", "wo", "w_up", "w_down")]
-    step.append((1, pick[("lm_head", "float32")]))
+def step_totals(rows: list, per_step: list, layers: int = 8) -> dict:
+    """A kernel's numbers for one decode step at batch 8: ``per_step``
+    lists (shape, x dtype, launches per layer or None for once a step) of
+    the T = 8 rows."""
+    pick = {(r["shape"], r["x"]): r for r in rows if r["T"] == 8}
+    step = [(layers if per_layer else 1, pick[(shape, x)])
+            for shape, x, per_layer in per_step]
     out = {key: sum(m * r[key] for m, r in step)
            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
     out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
                                       for _, r in step) else "operations")
     return out
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 check: dict, step: dict, at: str) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"tpu_bootstrap_torch/workload/csrc/{source}",
+            "replaces": f"tpu_bootstrap/workload/{replaces}",
+            "launches": launches, "max_abs_err": check["max_abs_err"],
+            "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": step["library_ms"], "at": at}
 
 
 def main() -> int:
@@ -893,17 +1230,36 @@ def main() -> int:
     info = phase_device(torch)
     phase_build(kernels)
     timer = Timer(torch, device)
-    k1 = phase_k1(torch, kernels, quant, timer, device)
-    k2 = phase_k2(torch, kernels, decode, decode_attention, timer, device)
+    out = {"k1": phase_k1(torch, kernels, quant, timer, device),
+           "k2": phase_k2(torch, kernels, decode, decode_attention, timer,
+                          device),
+           "k1e": phase_k1e(torch, kernels, quant, timer, device),
+           "k6": phase_k6(torch, kernels, quant, timer, device)}
     del timer  # frees the L2-flush buffer
-    launches = phase_serve(torch, kernels, device)["launches"]
+    out["serve"] = phase_serve(torch, kernels, device)
     torch.cuda.empty_cache()
-    k3 = phase_k3(torch, fa, kernels, device)
-    k4 = phase_k4(torch, fa, kernels, device)
-    train_launches = phase_train(torch, kernels, device)["launches"]
+    out["serve_int4"] = phase_serve_int4(torch, kernels, device)
+    torch.cuda.empty_cache()
+    out["serve_moe"] = phase_serve_moe(torch, kernels, device)
+    torch.cuda.empty_cache()
+    out["k3"] = phase_k3(torch, fa, kernels, device)
+    out["k4"] = phase_k4(torch, fa, kernels, device)
+    out["train"] = phase_train(torch, kernels, device)
     phase_train_long(torch, kernels, device)
+    emit({"kernels": kernel_lines(out)})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                 "count": info["count"]}})
+    return 0
 
-    k1_step = k1_step_totals(k1)
+
+def kernel_lines(out: dict) -> list:
+    k1, k2, k3, k4 = out["k1"], out["k2"], out["k3"], out["k4"]
+    launches = out["serve"]["launches"]
+    train_launches = out["train"]["launches"]
+    k1_step = step_totals(k1["rows"], [
+        *((shape, "bfloat16", True)
+          for shape in ("wqkv", "wo", "w_up", "w_down")),
+        ("lm_head", "float32", False)])
     k2_main = next(r for r in k2["rows"] if r["Hk"] == 16
                    and r["q"] == "bfloat16")
     k3_main = next(r for r in k3["rows"] if r["case"] == "train"
@@ -914,7 +1270,11 @@ def main() -> int:
                 "bf16, causal")
     src = "tpu_bootstrap_torch/workload/csrc/flash_attention.cu"
     ref = "tpu_bootstrap/workload/flash_attention.py"
-    emit({"kernels": [
+    moe = [(shape, "bfloat16", True) for shape in MOE_SHAPES]
+    moe_at = ("one MoE decode step, T=8: 8 x (moe_up, moe_down) stacks of "
+              "E=8 experts, bf16; library: torch.bmm on the bf16-dequantized "
+              "stacks")
+    return [
         {"name": "int8_matmul", "route": "cuda",
          "source": "tpu_bootstrap_torch/workload/csrc/int8_matmul.cu",
          "replaces": "tpu_bootstrap/workload/quant.py:246",
@@ -963,10 +1323,25 @@ def main() -> int:
          "bound_by": k4_main["dkv_bound_by"],
          "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
          "at": flash_at},
-    ]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
-                                 "count": info["count"]}})
-    return 0
+        kernel_entry(
+            "int8_expert_matmul", "int8_matmul.cu", "quant.py:246",
+            out["serve_moe"]["int8"]["launches"]["int8_expert_matmul"],
+            out["k1e"], step_totals(out["k1e"]["rows"], moe), moe_at),
+        kernel_entry(
+            "int4_matmul", "int4_matmul.cu", "quant.py:268",
+            out["serve_int4"]["launches"]["int4_matmul"], out["k6"],
+            step_totals(out["k6"]["rows"], [
+                (shape, "bfloat16", True)
+                for shape in ("wqkv", "wo", "w_up", "w_down")]),
+            "one int4 decode step, T=8: 8 x (wqkv, wo, w_up, w_down), group "
+            "64, bf16; library: torch.matmul on the bf16-dequantized "
+            "weights"),
+        kernel_entry(
+            "int4_expert_matmul", "int4_matmul.cu", "quant.py:268",
+            out["serve_moe"]["int4"]["launches"]["int4_expert_matmul"],
+            out["k6"], step_totals(out["k6"]["rows"], moe),
+            moe_at + ", group 64"),
+    ]
 
 
 if __name__ == "__main__":

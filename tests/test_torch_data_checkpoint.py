@@ -97,7 +97,7 @@ def test_injected_save_fault_keeps_previous_checkpoint(tmp_path):
     mgr = tckpt.make_manager(str(tmp_path))
     assert tckpt.latest_step(mgr) == 2
     assert sorted(os.listdir(tmp_path)) == ["2"]
-    params, opt_state = tckpt.restore(mgr, 2)
+    params, opt_state = tckpt.restore(mgr, 2, device="cpu")
     assert opt_state["count"] == 2
     assert params["embed"].shape == (MODEL.vocab_size, MODEL.embed_dim)
 
@@ -109,7 +109,7 @@ def test_checkpoints_keep_the_newest_three(tmp_path):
         tckpt.save(mgr, step, state, {"count": step})
     (tmp_path / "9").mkdir()  # an unfinished step without its state file
     assert tckpt.steps(mgr) == [3, 4, 5] and tckpt.latest_step(mgr) == 5
-    params, opt = tckpt.restore(mgr, 4)
+    params, opt = tckpt.restore(mgr, 4, device="cpu")
     assert torch.equal(params["w"], state["w"]) and opt == {"count": 4}
 
 

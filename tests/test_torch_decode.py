@@ -32,7 +32,8 @@ def _setup(seed=0, **kw):
     tcfg = tmodel.ModelConfig(**{**BASE, **kw})
     jparams = jquant.quantize_params(
         jmodel.init_params(jcfg, jax.random.PRNGKey(seed)))
-    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
@@ -129,6 +130,61 @@ def test_paged_decode_step_matches_reference(kv_heads):
         tparams, torch.from_numpy(token).long(), torch.from_numpy(pos),
         tpools, torch.from_numpy(bt), tcfg)
     assert out_pools is tpools  # updated in place
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=LOGIT_ATOL)
+    _assert_pools_close(tpools, jpools)
+
+
+# The int4 and MoE weight formats: (model config, reference quantizer).
+FORMATS = {
+    "dense_int4": ({}, lambda p: jquant.quantize_params4(p, group=16)),
+    "moe_int8": ({"num_experts": 4}, jquant.quantize_params),
+    "moe_int4": ({"num_experts": 4},
+                 lambda p: jquant.quantize_params4(p, group=16, head="int4")),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_int4_and_moe_decode_match_reference(fmt):
+    """prefill on an int8 cache and one paged decode step on a dense int4
+    model (K6 projections, int8 head), a MoE int8 model (K1 projections,
+    K1e experts) and a MoE int4 model (K6, K6e, int4 head), on bridged
+    reference weights: logits to LOGIT_ATOL, KV as in the int8 test."""
+    kw, quantize = FORMATS[fmt]
+    jcfg = jmodel.ModelConfig(**{**BASE, **kw})
+    tcfg = tmodel.ModelConfig(**{**BASE, **kw})
+    # The reference jitted (both packages read the same bridged bytes, so
+    # XLA's rewrites of the quantizer do not matter here).
+    jparams = jax.jit(lambda key: quantize(jmodel.init_params(jcfg, key)))(
+        jax.random.PRNGKey(8))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       device="cpu")
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(1, BASE["vocab_size"], (2, 7)).astype(np.int32)
+    jlogits, jcaches = jax.jit(jdecode.prefill,
+                               static_argnames=("cfg", "kv_kernel"))(
+        jparams, jnp.asarray(tokens), jdecode.init_cache(jcfg, 2, 12, True),
+        cfg=jcfg, kv_kernel=False)
+    tcaches = tdecode.init_cache(tcfg, 2, 12, quantized=True, device="cpu")
+    tlogits, _ = tdecode.prefill(tparams, torch.from_numpy(tokens).long(),
+                                 tcaches, tcfg)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=LOGIT_ATOL)
+    _assert_pools_close(tcaches, jcaches)
+    bs = 8
+    pools = _random_kv(rng, (6, bs, tcfg.kv_heads, BASE["head_dim"]),
+                       BASE["num_layers"])
+    bt = np.asarray([[4, 2], [1, 0], [0, 0]], np.int32)
+    pos = np.asarray([11, 3, 0], np.int32)
+    token = np.asarray([5, 9, 0], np.int32)
+    jlogits, jpools = jax.jit(jdecode.paged_decode_step,
+                              static_argnames=("cfg",))(
+        jparams, jnp.asarray(token), jnp.asarray(pos), _to_jax(pools),
+        jnp.asarray(bt), cfg=jcfg)
+    tpools = _to_torch(pools)
+    tlogits, _ = tdecode.paged_decode_step(
+        tparams, torch.from_numpy(token).long(), torch.from_numpy(pos),
+        tpools, torch.from_numpy(bt), tcfg)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                rtol=0, atol=LOGIT_ATOL)
     _assert_pools_close(tpools, jpools)

@@ -180,7 +180,7 @@ def _models(seed=5):
     jcfg, tcfg = jmodel.ModelConfig(**CFG), tmodel.ModelConfig(**CFG)
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
     return jcfg, tcfg, jparams, bridge.params_from_numpy(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def test_flash_prefill_matches_reference_and_einsum_prefill():

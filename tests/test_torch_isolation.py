@@ -75,8 +75,20 @@ def test_kernel_wrappers_refuse_host_tensors():
         kernels.flash_dq(q, kv, kv, q, rows, rows, 0.125, True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.flash_dkv(q, kv, kv, q, rows, rows, 0.125, False)
-    assert set(kernels.LAUNCHES) == {"int8_matmul", "paged_attention",
-                                     "flash_fwd", "flash_dq", "flash_dkv"}
+    xe = torch.randn(2, 3, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.int8_expert_matmul(xe, torch.zeros(2, 16, 8, dtype=torch.int8),
+                                   torch.ones(2, 1, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.int4_matmul(x, torch.zeros(8, 8, dtype=torch.uint8),
+                            torch.ones(2, 8), 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.int4_expert_matmul(xe, torch.zeros(2, 8, 8, dtype=torch.uint8),
+                                   torch.ones(2, 2, 8), 8, 16)
+    assert set(kernels.LAUNCHES) == {
+        "int8_matmul", "int8_expert_matmul", "int4_matmul",
+        "int4_expert_matmul", "paged_attention", "flash_fwd", "flash_dq",
+        "flash_dkv"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -34,7 +34,7 @@ def test_bridge_round_trip_float_and_quantized():
     jparams = jquant.quantize_params(
         jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
     tree = jax.tree.map(np.asarray, jparams)
-    got = bridge.params_from_numpy(tree)
+    got = bridge.params_from_numpy(tree, device="cpu")
     jleaves = jax.tree.leaves(tree)
     # Quantized leaves come over as QuantizedWeight with the same shape
     # metadata; every array is bit-equal, leaf for leaf.
@@ -53,18 +53,37 @@ def test_bridge_round_trip_float_and_quantized():
 
 
 def test_bridge_refuses_int4_leaves():
-    jcfg, _ = _pair()
+    """int4 leaves (a ``group`` field) are carried, not refused: they
+    come over as Quantized4Weight with their group, kdim and shape, the
+    packed bytes and scales bit-equal; MoE expert stacks keep their
+    leading E axis."""
+    jcfg, _ = _pair(num_experts=4)
     jparams = jquant.quantize_params4(
-        jmodel.init_params(jcfg, jax.random.PRNGKey(0)), group=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+        jmodel.init_params(jcfg, jax.random.PRNGKey(0)), group=8,
+        head="int4")
+    tree = jax.tree.map(np.asarray, jparams)
+    got = bridge.params_from_numpy(tree, device="cpu")
+    for name in ("wq", "wo", "w_up", "w_down", "lm_head"):
+        want = (tree["lm_head"] if name == "lm_head"
+                else tree["blocks"][1][name])
+        leaf = got["lm_head"] if name == "lm_head" else got["blocks"][1][name]
+        assert isinstance(leaf, tquant.Quantized4Weight), name
+        assert (leaf.group, leaf.kdim, leaf.shape) == (
+            want.group, want.kdim, tuple(want.shape)), name
+        assert leaf.q.dtype == torch.uint8 and leaf.s.dtype == torch.float32
+        np.testing.assert_array_equal(leaf.q.numpy(), want.q)
+        np.testing.assert_array_equal(leaf.s.numpy(), want.s)
+    assert got["blocks"][0]["w_up"].q.shape == (4, BASE["embed_dim"] // 2,
+                                                BASE["mlp_dim"])
+    assert isinstance(got["blocks"][0]["router"], torch.Tensor)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_forward_logits_match_reference(name):
     jcfg, tcfg = _pair(**CONFIGS[name])
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
-    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       device="cpu")
     tokens = np.random.default_rng(2).integers(0, BASE["vocab_size"],
                                                (2, 11))
     want = np.asarray(jmodel.forward(jparams, jnp.asarray(tokens), jcfg))
@@ -134,5 +153,19 @@ def test_device_none_needs_cuda():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmodel.resolve_device(None)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmodel.init_params(tmodel.ModelConfig(num_experts=2), device="cpu")
+    # The entry points default to the card: the bridge too.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.params_from_numpy({"w": np.zeros(2, np.float32)})
+    # MoE blocks are built (on the CPU when asked): a float router and
+    # expert stacks in place of the dense FFN, the reference's shapes.
+    cfg = tmodel.ModelConfig(**{**BASE, "num_experts": 3})
+    block = tmodel.init_params(cfg, device="cpu")["blocks"][0]
+    jblock = jmodel.init_params(jmodel.ModelConfig(**{**BASE,
+                                                      "num_experts": 3}),
+                                jax.random.PRNGKey(0))["blocks"][0]
+    assert {k: tuple(v.shape) for k, v in block.items()} == {
+        k: tuple(v.shape) for k, v in jblock.items()}
+    assert block["router"].shape == (BASE["embed_dim"], 3)
+    with pytest.raises(ValueError, match="dense FFN only"):
+        tmodel.init_params(tmodel.ModelConfig(num_experts=2, mlp_gated=True),
+                           device="cpu")

@@ -51,8 +51,10 @@ def test_quantize_params_bit_equal_to_reference(gated):
     streamed-bytes accounting agrees."""
     jcfg, _ = _cfgs(mlp_gated=gated, num_kv_heads=2)
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(3))
-    want = bridge.params_from_numpy(_np_tree(jquant.quantize_params(jparams)))
-    got = tquant.quantize_params(bridge.params_from_numpy(_np_tree(jparams)))
+    want = bridge.params_from_numpy(_np_tree(jquant.quantize_params(jparams)),
+                                    device="cpu")
+    got = tquant.quantize_params(bridge.params_from_numpy(_np_tree(jparams),
+                                                          device="cpu"))
     names = {"wq", "wk", "wv", "wo", "w_up", "w_down", "wqkv"}
     if gated:
         names |= {"w_gate", "w_gateup"}
@@ -140,8 +142,26 @@ def test_weight_stream_bytes_float_and_quantized():
 
 
 def test_not_ported_weight_formats_raise():
-    block = {"router": torch.zeros(4, 2)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tquant.quantize_block(block)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    """Every weight format is ported now: a MoE block quantizes (its
+    projections int8, no fused wqkv, the router float), a float weight
+    handed to the quantized dispatch is refused by type, and expert
+    parallelism over several devices still raises naming its item."""
+    from tpu_bootstrap_torch.workload import moe as tmoe
+
+    rng = np.random.default_rng(8)
+    block = {name: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+        for name, shape in (("wq", (8, 2, 4)), ("wk", (8, 2, 4)),
+                            ("wv", (8, 2, 4)), ("wo", (2, 4, 8)),
+                            ("router", (8, 3)), ("w_up", (3, 8, 6)),
+                            ("w_down", (3, 6, 8)))}
+    q = tquant.quantize_block(block)
+    assert "wqkv" not in q and q["router"] is block["router"]
+    assert q["w_up"].s.shape == (3, 1, 6)
+    with pytest.raises(TypeError, match="Tensor"):
         tquant.quantized_matmul(torch.zeros(1, 4), torch.zeros(4, 4))
+    with pytest.raises(TypeError, match="Tensor"):
+        tquant.quantized_expert_matmul(torch.zeros(3, 1, 8), block["w_up"])
+    cfg = tmodel.ModelConfig(num_experts=3, embed_dim=8, mlp_dim=6)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        tmoe.moe_mlp_manual(block, torch.zeros(1, 2, 8), cfg, n_expert=2)

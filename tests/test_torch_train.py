@@ -46,7 +46,7 @@ def _params(seed=0, **kw):
     tcfg = tmodel.ModelConfig(**{**BASE, **kw})
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
     return jcfg, tcfg, jparams, bridge.params_from_numpy(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _tokens(seed, batch=2, length=BASE["max_seq_len"]):
@@ -189,7 +189,7 @@ def _reference_run(cfg_kw, attention, tokens, steps, block=16):
 def _port_run(start, cfg_kw, attention, tokens, steps, remat=False):
     cfg = ttrain.TrainConfig(model=tmodel.ModelConfig(**BASE),
                              attention=attention, remat=remat, **cfg_kw)
-    params = bridge.params_from_numpy(start)
+    params = bridge.params_from_numpy(start, device="cpu")
     opt_state = ttrain.make_optimizer(cfg).init(params)
     step = ttrain.make_train_step(cfg)
     losses = []

@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 from tpu_bootstrap_torch.workload import faults
+from tpu_bootstrap_torch.workload.model import resolve_device
 
 STATE_FILE = "state.pt"
 
@@ -68,10 +69,11 @@ def save(mgr: CheckpointManager, step: int, params, opt_state) -> None:
         shutil.rmtree(mgr.directory / str(old))
 
 
-def restore(mgr: CheckpointManager, step: int, device="cpu") -> tuple:
-    """(params, opt_state) saved at ``step``, loaded onto ``device``."""
+def restore(mgr: CheckpointManager, step: int, device=None) -> tuple:
+    """(params, opt_state) saved at ``step``, loaded onto ``device``
+    (None: the card)."""
     state = torch.load(mgr.directory / str(step) / STATE_FILE,
-                       map_location=device, weights_only=True)
+                       map_location=resolve_device(device), weights_only=True)
     return state["params"], state["opt_state"]
 
 

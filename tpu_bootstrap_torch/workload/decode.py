@@ -12,8 +12,9 @@ jitted steps and gets new arrays back): every function that writes KV
 writes into the tensors it was given and also returns them, so callers
 written against the reference's functional form keep working.
 
-``paged_decode_step`` runs attention through kernel K2 and every int8
-projection through kernel K1; ``prefill``, ``decode_step`` and
+``paged_decode_step`` runs attention through kernel K2, every int8
+projection through kernel K1 and every int4 projection through K6 (a
+MoE block's expert stacks through K1e / K6e); ``prefill``, ``decode_step`` and
 ``_block_step`` attend with the einsum path (the reference's
 ``kv_kernel=False``), which is also what the serving engine's prefill
 chunk uses. ``prefill(flash=True)`` / ``generate(prefill_flash=True)`` run
@@ -29,11 +30,11 @@ import torch
 from tpu_bootstrap_torch import telemetry
 from tpu_bootstrap_torch.workload import decode_attention, quant
 from tpu_bootstrap_torch.workload.flash_attention import flash_attention
+from tpu_bootstrap_torch.workload.moe import moe_mlp
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
     Params,
     _mlp,
-    _no_moe,
     _rms_norm,
     _rotary,
     resolve_device,
@@ -43,8 +44,8 @@ from tpu_bootstrap_torch.workload.model import (
 def _linear(x: torch.Tensor, w, contract_rank: int, dtype,
             tag: str = "") -> torch.Tensor:
     """Projection of x's trailing dims against w's leading dims, for
-    float or int8 weights (the seam through which K1 reaches every
-    block projection and the head)."""
+    float, int8 or int4 weights (the seam through which K1 and K6 reach
+    every block projection and the head)."""
     k = math.prod(w.shape[:contract_rank])
     x2 = x.reshape(-1, k).to(dtype)
     if quant.is_quantized(w):
@@ -100,7 +101,8 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
 
 def _qkv(block: Params, h: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig):
-    """Projections + rotary; the fused int8 ``wqkv`` is one K1 launch."""
+    """Projections + rotary; a quantized tree's fused ``wqkv`` is one K1
+    (int8) or K6 (int4) launch, MoE blocks project wq/wk/wv apart."""
     dtype = cfg.compute_dtype
     wqkv = block.get("wqkv")
     lead = h.shape[:-1]
@@ -252,8 +254,11 @@ def _block_step(block: Params, x: torch.Tensor, cache: dict,
 
 
 def _mlp_tail(block: Params, x: torch.Tensor, cfg: ModelConfig):
-    """The FFN half of a block (dense)."""
-    _no_moe(cfg)
+    """The FFN half of a block: the dense MLP through ``_linear``, or the
+    MoE layer, whose expert stacks launch K1e / K6e."""
+    if cfg.num_experts > 0:
+        out, _ = moe_mlp(block, _rms_norm(x, block["mlp_norm"]), cfg)
+        return x + out
     return x + _mlp(block, x, cfg, linear=_linear)
 
 

@@ -1,8 +1,9 @@
 """Build, binding and launch counters of the port's CUDA kernels.
 
-The sources are ``csrc/*.cu`` beside this file. On first use they are
-compiled for Hopper, each file by its own ``nvcc`` process (all started
-together), and linked into one shared library with a plain C interface:
+The sources are ``csrc/*.cu`` beside this file, with the ``csrc/*.cuh``
+headers they share. On first use they are compiled for Hopper, each file
+by its own ``nvcc`` process (all started together), and linked into one
+shared library with a plain C interface:
 
     build/kernels/libtpubc_torch_kernels-<sha of the sources>.so
 
@@ -39,7 +40,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Launches per kernel since the last reset_launches(); one tick where the
 # kernel is launched and nowhere else.
-LAUNCHES = {"int8_matmul": 0, "paged_attention": 0, "flash_fwd": 0,
+LAUNCHES = {"int8_matmul": 0, "int8_expert_matmul": 0, "int4_matmul": 0,
+            "int4_expert_matmul": 0, "paged_attention": 0, "flash_fwd": 0,
             "flash_dq": 0, "flash_dkv": 0}
 
 _lock = threading.Lock()
@@ -56,8 +58,9 @@ def sources() -> list:
 
 
 def source_digest() -> str:
+    """Hash of every source and the headers they include."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in [*sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -120,8 +123,12 @@ def build(verbose: bool = False) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpubc_int8_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+    # x, q, s, out, e, t, k, n, x_is_bf16, stream (e = 1: the dense form)
+    lib.tpubc_int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.tpubc_int8_matmul.restype = i
+    # x, q, s, out, e, t, kdim, Ks / 2, n, group, x_is_bf16, stream
+    lib.tpubc_int4_matmul.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.tpubc_int4_matmul.restype = i
     lib.tpubc_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, f, i, p]
     lib.tpubc_paged_attention.restype = i
@@ -170,27 +177,84 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _launch_int8(x, q, s, name: str, ndim: int) -> torch.Tensor:
+    """Validate and launch an int8 product (dense: ndim 2, s (N,);
+    expert: ndim 3, s (E, 1, N))."""
+    _need(x, "x", _FLOATS, ndim)
+    _need(q, "q", (torch.int8,), ndim)
+    _need(s, "s", (torch.float32,), 1 if ndim == 2 else 3)
+    e = x.shape[0] if ndim == 3 else 1
+    t, k = x.shape[-2:]
+    n = q.shape[-1]
+    if (q.shape[:-1] != (*x.shape[:-2], k)
+            or s.shape != ((n,) if ndim == 2 else (e, 1, n))
+            or min(t, k, n) < 1):
+        raise ValueError(f"{name} shapes: x {tuple(x.shape)}, "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)}")
+    if not (x.device == q.device == s.device):
+        raise ValueError(f"{name} operands on different devices")
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    rc = lib().tpubc_int8_matmul(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), e, t, k, n,
+        int(x.dtype == torch.bfloat16), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 s: torch.Tensor) -> torch.Tensor:
     """Kernel K1: x (T, K) bf16/f32 @ q (K, N) int8 * s (N,) f32 -> (T, N)
     in x.dtype."""
-    _need(x, "x", _FLOATS, 2)
-    _need(q, "q", (torch.int8,), 2)
-    _need(s, "s", (torch.float32,), 1)
-    t, k = x.shape
-    n = q.shape[1]
-    if q.shape[0] != k or s.shape[0] != n or t < 1 or k < 1 or n < 1:
-        raise ValueError(f"int8_matmul shapes: x {tuple(x.shape)}, "
-                         f"q {tuple(q.shape)}, s {tuple(s.shape)}")
+    return _launch_int8(x, q, s, "int8_matmul", 2)
+
+
+def int8_expert_matmul(x: torch.Tensor, q: torch.Tensor,
+                       s: torch.Tensor) -> torch.Tensor:
+    """Kernel K1e: x (E, T, K) bf16/f32 @ q (E, K, N) int8 * s (E, 1, N)
+    f32 -> (E, T, N) in x.dtype."""
+    return _launch_int8(x, q, s, "int8_expert_matmul", 3)
+
+
+def _launch_int4(x, q, s, group: int, kdim: int, name: str,
+                 ndim: int) -> torch.Tensor:
+    """Validate and launch an int4 product (dense: ndim 2; expert: 3)."""
+    _need(x, "x", _FLOATS, ndim)
+    _need(q, "q", (torch.uint8,), ndim)
+    _need(s, "s", (torch.float32,), ndim)
+    e = x.shape[0] if ndim == 3 else 1
+    t = x.shape[-2]
+    p, n = q.shape[-2:]
+    if (x.shape[-1] != kdim or q.shape[:-2] != x.shape[:-2]
+            or group < 2 or group % 2 or (2 * p) % group
+            or s.shape != (*q.shape[:-2], 2 * p // group, n)
+            or not 1 <= kdim <= 2 * p or min(t, n) < 1):
+        raise ValueError(f"{name} shapes: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, s {tuple(s.shape)}, group "
+                         f"{group}, kdim {kdim}")
     if not (x.device == q.device == s.device):
-        raise ValueError("int8_matmul operands on different devices")
-    out = torch.empty((t, n), dtype=x.dtype, device=x.device)
-    rc = lib().tpubc_int8_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), t, k, n,
-        int(x.dtype == torch.bfloat16), _stream())
-    _check(rc, "int8_matmul")
-    LAUNCHES["int8_matmul"] += 1
+        raise ValueError(f"{name} operands on different devices")
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    rc = lib().tpubc_int4_matmul(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), e, t, kdim,
+        p, n, group, int(x.dtype == torch.bfloat16), _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def int4_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                group: int, kdim: int) -> torch.Tensor:
+    """Kernel K6: x (T, kdim) bf16/f32 @ nibble-packed q (Ks/2, N) uint8
+    with group scales s (Ks/group, N) f32 -> (T, N) in x.dtype."""
+    return _launch_int4(x, q, s, group, kdim, "int4_matmul", 2)
+
+
+def int4_expert_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                       group: int, kdim: int) -> torch.Tensor:
+    """Kernel K6e: x (E, T, kdim) @ q (E, Ks/2, N) uint8 with s
+    (E, Ks/group, N) f32 -> (E, T, N) in x.dtype."""
+    return _launch_int4(x, q, s, group, kdim, "int4_expert_matmul", 3)
 
 
 # The kernel's own limits (csrc/paged_attention.cu): D a multiple of 16,

@@ -20,6 +20,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from tpu_bootstrap_torch.workload.moe import moe_mlp
+
 Params = dict[str, Any]
 
 
@@ -69,19 +71,17 @@ class ModelConfig:
         return kv
 
 
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP queue 1 item 9: int4 "
-            "and MoE)")
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Float32 params drawn from a seeded ``torch.Generator`` on
     ``device``: the reference's shapes and scales (normal / sqrt(fan_in),
     embed * 0.02), not its numbers. Tests carry the reference's own
-    params over with ``bridge.params_from_numpy`` instead."""
-    _no_moe(cfg)
+    params over with ``bridge.params_from_numpy`` instead. MoE configs
+    (``num_experts > 0``) get a float ``router`` (embed, E) and expert
+    stacks ``w_up`` (E, embed, mlp), ``w_down`` (E, mlp, embed) in place
+    of the dense FFN."""
+    if cfg.mlp_gated and cfg.num_experts > 0:
+        raise ValueError("mlp_gated applies to the dense FFN only "
+                         "(MoE experts keep the ungated two-matmul FFN)")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -108,10 +108,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
             "wo": dense((cfg.num_heads, cfg.head_dim, e), cfg.qkv_dim),
             "mlp_norm": torch.ones(e, device=device),
         }
-        if cfg.mlp_gated:
-            block["w_gate"] = dense((e, cfg.mlp_dim), e)
-        block["w_up"] = dense((e, cfg.mlp_dim), e)
-        block["w_down"] = dense((cfg.mlp_dim, e), cfg.mlp_dim)
+        if cfg.num_experts > 0:
+            n_exp = cfg.num_experts
+            block["router"] = dense((e, n_exp), e)
+            block["w_up"] = dense((n_exp, e, cfg.mlp_dim), e)
+            block["w_down"] = dense((n_exp, cfg.mlp_dim, e), cfg.mlp_dim)
+        else:
+            if cfg.mlp_gated:
+                block["w_gate"] = dense((e, cfg.mlp_dim), e)
+            block["w_up"] = dense((e, cfg.mlp_dim), e)
+            block["w_down"] = dense((cfg.mlp_dim, e), cfg.mlp_dim)
         params["blocks"].append(block)
     return params
 
@@ -262,21 +268,25 @@ def _mlp(block: Params, x: torch.Tensor, cfg: ModelConfig,
 def hidden_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                     attn_fn=None) -> tuple:
     """tokens (batch, seq) -> (final-normed hidden states (batch, seq,
-    embed), aux): the model up to the head. ``aux`` is the MoE
-    load-balancing loss, 0 for the dense model (MoE is not ported)."""
-    _no_moe(cfg)
+    embed), aux): the model up to the head. ``aux`` is the mean MoE
+    load-balancing loss over blocks, 0 for the dense model."""
     x = params["embed"][tokens].to(cfg.compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
         x = x + _attention(block, x, cfg, attn_fn)
-        x = x + _mlp(block, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.num_experts > 0:
+            out, aux_b = moe_mlp(block, _rms_norm(x, block["mlp_norm"]), cfg)
+            x = x + out
+            aux = aux + aux_b / len(params["blocks"])
+        else:
+            x = x + _mlp(block, x, cfg)
     return _rms_norm(x, params["final_norm"]), aux
 
 
 def hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
            attn_fn=None) -> torch.Tensor:
     """tokens (batch, seq) -> final-normed hidden states (batch, seq,
-    embed) of the dense model."""
+    embed)."""
     return hidden_with_aux(params, tokens, cfg, attn_fn)[0]
 
 
@@ -304,17 +314,23 @@ def loss_from_inputs(params: Params, inputs: torch.Tensor,
                      targets: torch.Tensor, cfg: ModelConfig,
                      attn_fn=None) -> torch.Tensor:
     """Mean cross-entropy of ``targets`` under the model run on
-    ``inputs``. ``cfg.vocab_chunk > 0`` streams the head over vocab chunks
-    (``xent.py``) without materializing the (batch, seq, vocab) logits."""
+    ``inputs``, plus ``moe_aux_coef`` times the MoE aux loss when the
+    model has experts. ``cfg.vocab_chunk > 0`` streams the head over vocab
+    chunks (``xent.py``) without materializing the (batch, seq, vocab)
+    logits."""
     if cfg.vocab_chunk > 0:
         from tpu_bootstrap_torch.workload.xent import chunked_mean_xent
 
-        x, _ = hidden_with_aux(params, inputs, cfg, attn_fn)
-        return chunked_mean_xent(x, params["embed"], targets, cfg.vocab_chunk)
-    logits, _ = forward_with_aux(params, inputs, cfg, attn_fn)
-    logprobs = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logprobs, -1, targets[..., None].long())[..., 0]
-    return nll.mean()
+        x, aux = hidden_with_aux(params, inputs, cfg, attn_fn)
+        loss = chunked_mean_xent(x, params["embed"], targets, cfg.vocab_chunk)
+    else:
+        logits, aux = forward_with_aux(params, inputs, cfg, attn_fn)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logprobs, -1, targets[..., None].long())[..., 0]
+        loss = nll.mean()
+    if cfg.num_experts > 0:
+        loss = loss + cfg.moe_aux_coef * aux
+    return loss
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -15,8 +15,9 @@ row, and chunked prefill interleaved into decode rounds:
   and the window is written back into the pool.
 * Then one decode chunk runs for the rows whose prompts are done: a
   Python loop of ``decode.paged_decode_step`` (kernel K2 for attention,
-  kernel K1 for every int8 projection), greedy ``argmax`` kept on the
-  card, and ONE host read of the chunk's tokens.
+  kernels K1 / K6 for every int8 / int4 projection and K1e / K6e for a
+  MoE model's expert stacks), greedy ``argmax`` kept on the card, and
+  ONE host read of the chunk's tokens.
 * The chunk is the largest power of two that at least half the cohort
   can consume (``_majority_chunk``); rows past their budget run on and
   their overshoot is discarded by the event fold.
@@ -307,8 +308,8 @@ class _PoolBase:
 
 
 class PagedPool(_PoolBase):
-    """Block-paged continuous batching over int8 weights and an int8 KV
-    pool: ``batch_size`` rows at most, ``kv_blocks`` blocks of
+    """Block-paged continuous batching over int8 or int4 weights (dense
+    or MoE) and an int8 KV pool: ``batch_size`` rows at most, ``kv_blocks`` blocks of
     ``block_size`` tokens (default: ``batch_size`` max-length rows'
     worth), prompts prefilled in chunks of at most ``prefill_budget``
     tokens per round. Drive it with ``admit`` and ``step_round``."""
