@@ -25,19 +25,30 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               int4_expert_matmul (kernel K6e) at the two expert stacks; the
               same checks, timed beside torch.matmul / torch.bmm on the
               bf16-dequantized weight.
-7. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
+7. k5      -- contiguous int8 decode attention (kernel K5) against its plain
+              version at the decode model's caches (B=8, H=16, D=64, Hk 16
+              and 4, L in {128, 256, 261, 512}), q in bf16 and f32, prefix
+              masks and a mask with holes: garbage at masked positions must
+              change no bit, and each row of a B=8 launch must equal, bitwise,
+              the row launched alone; timed beside scaled_dot_product_attention
+              on the bf16-dequantized cache with the boolean mask.
+8. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
               of 32 requests on the decode model at full width (8 layers,
               int8 weights from a seed), the launch counts of both kernels
               over that run (both must be > 0), and every stream held to the
-              port's solo greedy generate, in bf16 and again in f32: any
-              divergence must be a near-tie. Then the flash prefill:
-              generate(prefill_flash=True), whose prompt attention runs
-              through K3, against generate() with the einsum prefill.
-8. serve_int4 -- the serve phase's workload on the same model with int4
+              port's solo greedy generate (kv_kernel=False, the einsum
+              oracle), in bf16 and again in f32: any divergence must be a
+              near-tie. Then the replay-slot engine, serve(paged=False), on
+              the first 8 requests, with and without the int8 self-draft
+              (the speculative rounds), its streams held to the same solo
+              runs. Then the flash prefill: generate(prefill_flash=True),
+              whose prompt attention runs through K3, against generate()
+              with the einsum prefill.
+9. serve_int4 -- the serve phase's workload on the same model with int4
               weights (quantize_params4, group 64, int8 head): K6, K1 and K2
               launched, every stream held to solo generate as in serve, in
               bf16 and in f32.
-9. serve_moe -- the MoE decode model (the same widths with 8 experts,
+10. serve_moe -- the MoE decode model (the same widths with 8 experts,
               top-2, capacity factor 2) served with int8 (K1, K1e, K2) and
               int4 (K6, K6e, K1 head, K2) weights on 16 of the requests:
               every stream complete, every decode logit finite, a second
@@ -45,16 +56,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               differ from solo generate are counted, not failed (capacity
               is contested over each chunk, so chunked serving routes
               otherwise).
-10. k3     -- flash_fwd (kernel K3) against its plain version (out and lse,
+11. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+              decode model with int8 weights and an int8 KV cache, prompts
+              (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
+              (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
+              call; every stream of the kernel path held to the einsum
+              path's (near-ties allowed); two-point tokens/s of both; one
+              profiled call of each.
+12. speculative -- bench.py's self-speculation: the bf16 target drafted by
+              its own int8 copy, gamma 4, int8 KV caches (the draft's steps
+              on K5), prompts (8, 64), 64 steps; streams held to the
+              target's generate(kv_kernel=False) (near-ties allowed),
+              mean_committed, verify_rounds, tokens/s and K5's launches.
+13. k3     -- flash_fwd (kernel K3) against its plain version (out and lse,
               each element to its own limit) at the train shapes (B=8
               S=1023 and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and
               not, plus a GQA and small head-dim cases; timed beside
               scaled_dot_product_attention.
-11. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+14. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; timed beside SDPA's backward.
-12. train  -- the training slice end to end: make_train_step on the
+15. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -63,7 +86,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               dense core's within ATTN_GRAD_TOL while a broken attention's
               land outside it, 8 launches of each flash kernel per step; one
               profiled step; then two steps of train_loop.
-13. train_long -- the reference's long-context configuration (seq 8192,
+16. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer.
 
@@ -127,6 +150,22 @@ MATMUL_TOL = {"bfloat16": (8e-3, 1e-3), "float32": (1e-4, 1e-4)}
 # another order (5e-3, tests/test_torch_decode.py).
 NEAR_TIE = {"bfloat16": 0.05, "float32": 0.01}
 PROFILED_REQUESTS = 8
+# The slot engine's share of the serve phase: its first requests (each
+# round replays every active history, so it is the slower engine).
+SLOT_REQUESTS = 8
+GAMMA = 4  # draft proposals per verify round (bench.py:1666)
+# K5 at the decode model's caches: a 64-token prompt reaches 128 slots
+# after 64 steps and 256 after 192 (generate_int8kv), 261 has a partial
+# last tile, 512 is the model's max_seq_len.
+K5_LENGTHS = (128, 256, 261, 512)
+K5_TIMED_L = 256  # timed, with all slots valid: a 192-step call's last step
+# K5 against its plain version, as K2: both compute in f32 from the same
+# int8 values and sum in other orders; bf16 outputs may land one bf16 step
+# apart.
+K5_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-5)}
+# generate_int8kv and speculative: bench.py:481-483's batch and prompt
+# width and its two-point step counts.
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 64, (64, 192)
 
 
 def emit(obj: dict) -> None:
@@ -343,6 +382,111 @@ def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def _k5_masks(torch, length: int, device) -> dict:
+    """Validity rows for one cache length: the frontier of a decode step
+    three quarters in, all slots (the last step of a call), and at
+    K5_TIMED_L a mask with holes (slot 0 and the last slot valid, a masked run
+    across a tile boundary)."""
+    cols = torch.arange(length, device=device)
+    masks = {"prefix": cols <= (3 * length) // 4, "full": cols < length}
+    if length == K5_TIMED_L:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(6)
+        holes = torch.rand(length, generator=gen, device=device) < 0.6
+        holes[0] = holes[-1] = True
+        holes[100:160] = False
+        masks["holes"] = holes
+    return masks
+
+
+def phase_k5(torch, kernels, decode, decode_attention, timer, device) -> dict:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    for g in (1, 4):  # the wrapper's smem rule is the kernel's own layout
+        if (kernels.lib().tpubc_decode_attention_smem_bytes(64, g)
+                != kernels.decode_attention_smem_bytes(64, g)):
+            raise SystemExit(f"k5: smem layout mismatch at group {g}")
+    b, h, d = 8, 16, 64
+    rows, failures, max_err = [], [], 0.0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for hk in (16, 4):
+        g = h // hk
+        for length in K5_LENGTHS:
+            kq, ks = decode._quantize_kv(torch.randn(
+                b, length, hk, d, generator=gen, device=device))
+            vq, vs = decode._quantize_kv(torch.randn(
+                b, length, hk, d, generator=gen, device=device))
+            q32 = torch.randn(b, h, d, generator=gen, device=device)
+            for mask_name, valid in _k5_masks(torch, length, device).items():
+                hidden = ~valid
+                kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+                kq2[:, hidden] = 127
+                vq2[:, hidden] = -128
+                ks2[:, hidden] = float("nan")
+                vs2[:, hidden] = float("nan")
+                for dtype in (torch.bfloat16, torch.float32):
+                    q = q32.to(dtype)
+                    args = (kq, ks, vq, vs, valid)
+                    got = kernels.decode_attention(q, *args)
+                    want = decode_attention.decode_attention_int8_plain(
+                        q, *args)
+                    got_garbage = kernels.decode_attention(
+                        q, kq2, ks2, vq2, vs2, valid)
+                    alone = torch.cat([kernels.decode_attention(
+                        q[r:r + 1].contiguous(), kq[r:r + 1].contiguous(),
+                        ks[r:r + 1].contiguous(), vq[r:r + 1].contiguous(),
+                        vs[r:r + 1].contiguous(), valid) for r in range(b)])
+                    torch.cuda.synchronize()
+                    name = str(dtype).removeprefix("torch.")
+                    rtol, atol = K5_TOL[name]
+                    err = (got.float() - want.float()).abs().max().item()
+                    max_err = max(max_err, err)
+                    close = bool(torch.isfinite(got.float()).all()) and (
+                        torch.allclose(got.float(), want.float(), rtol=rtol,
+                                       atol=atol))
+                    row = {"Hk": hk, "L": length, "mask": mask_name,
+                           "q": name, "B": b, "H": h, "D": d,
+                           "valid": int(valid.sum()), "max_abs_err": err,
+                           "close": close,
+                           "garbage_invariant": bool(torch.equal(
+                               got_garbage, got)),
+                           "batch_invariant": bool(torch.equal(alone, got))}
+                    if mask_name == "full" and length == K5_TIMED_L and (
+                            dtype == torch.bfloat16):
+                        # The yardstick: SDPA over the cache dequantized to
+                        # bf16 beforehand, with the boolean mask.
+                        kd = (kq.float() * ks[..., None]).to(dtype)
+                        vd = (vq.float() * vs[..., None]).to(dtype)
+                        kd = kd.repeat_interleave(g, 2).transpose(1, 2)
+                        vd = vd.repeat_interleave(g, 2).transpose(1, 2)
+                        kd, vd = kd.contiguous(), vd.contiguous()
+                        qs = q[:, :, None, :]
+                        mask = valid[None, None, None, :]
+                        n = int(valid.sum())
+                        e = q.element_size()
+                        bound_ms, bound_by = bound(
+                            b * n * hk * (2 * d + 8) + 2 * b * h * d * e
+                            + length, 4 * b * n * h * d, F32_FLOPS)
+                        row.update({
+                            "kernel_ms": timer(lambda: kernels.decode_attention(
+                                q, *args)),
+                            "plain_ms": timer(
+                                lambda: decode_attention
+                                .decode_attention_int8_plain(q, *args)),
+                            "library_ms": timer(lambda: sdpa(
+                                qs, kd, vd, attn_mask=mask)),
+                            "bound_ms": bound_ms, "bound_by": bound_by})
+                    rows.append(row)
+                    if not (close and row["garbage_invariant"]
+                            and row["batch_invariant"]):
+                        failures.append(row)
+    emit({"phase": "k5", "tolerance": K5_TOL, "max_abs_err": max_err,
+          "rows": rows})
+    if failures:
+        raise SystemExit(f"k5 failed: {failures}")
+    return {"rows": rows, "max_abs_err": max_err}
+
+
 def _matmul_case(torch, timer, kernel, plain, library, x, weight_bytes: int,
                  meta: dict) -> dict:
     """One quantized-matmul launch ``kernel(x)`` held to ``plain(x)``; at
@@ -457,20 +601,40 @@ def _serve_requests(serving, vocab: int, n: int, seed: int) -> list:
         .tolist(), max_new=int(rng.integers(8, 65))) for i in range(n)]
 
 
-def _diverged(decode, params, cfg, reqs, done) -> list:
-    """Requests whose stream differs from the port's solo greedy generate
-    (einsum attention over a contiguous int8 cache), each with the solo
-    run's top-2 logit margin at the first divergent step."""
+def _solo_streams(decode, params, cfg, reqs) -> dict:
+    """Each request's solo greedy generate on the einsum path
+    (kv_kernel=False) over a contiguous int8 cache: the oracle the
+    serving engines are held to."""
+    return {r.rid: decode.generate(params, [r.tokens], cfg, r.max_new,
+                                   kv_quant=True,
+                                   kv_kernel=False)[0].tolist()
+            for r in reqs}
+
+
+def _first_divergence(decode, params, cfg, prompt: list, got: list,
+                      want: list):
+    """(step, the oracle's top-2 logit margin there) of the first token
+    where ``got`` leaves ``want``, or None when they are equal."""
+    if got == want:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:  # one stream is a prefix of the other: never a near-tie
+        return min(len(got), len(want)), float("inf")
+    margin = decode.greedy_margins(params, prompt, want[:j + 1], cfg,
+                                   kv_quant=True)[j]
+    return j, margin
+
+
+def _diverged(decode, params, cfg, reqs, done, solo: dict) -> list:
+    """Requests whose stream differs from its solo greedy generate
+    (``solo``), each with the solo run's top-2 logit margin at the first
+    divergent step."""
     out = []
     for r in reqs:
-        solo = decode.generate(params, [r.tokens], cfg, r.max_new,
-                               kv_quant=True)[0].tolist()
-        got = done[r.rid]
-        if got != solo:
-            j = next(i for i, (a, b) in enumerate(zip(got, solo)) if a != b)
-            margin = decode.greedy_margins(params, r.tokens, solo[:j + 1],
-                                           cfg, kv_quant=True)[j]
-            out.append({"rid": r.rid, "step": j, "margin": margin})
+        first = _first_divergence(decode, params, cfg, r.tokens,
+                                  done[r.rid], solo[r.rid])
+        if first is not None:
+            out.append({"rid": r.rid, "step": first[0], "margin": first[1]})
     return out
 
 
@@ -589,11 +753,13 @@ def phase_serve(torch, kernels, device) -> dict:
         and all(0 <= t < cfg.vocab_size for t in done[r.rid])
         for r in reqs))
     t1 = time.perf_counter()
-    diverged = _diverged(decode, params, cfg, reqs, done)
+    solo = _solo_streams(decode, params, cfg, reqs)
+    diverged = _diverged(decode, params, cfg, reqs, done, solo)
     solo_s = time.perf_counter() - t1
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     done32 = serving.serve(params, cfg32, reqs, 8, **kw)
-    diverged32 = _diverged(decode, params, cfg32, reqs, done32)
+    diverged32 = _diverged(decode, params, cfg32, reqs, done32,
+                           _solo_streams(decode, params, cfg32, reqs))
     profile = _profile(torch, lambda: serving.serve(
         params, cfg, reqs[:PROFILED_REQUESTS], 8, **kw),
         {"k1_ms": "int8_matmul_kernel", "k2_ms": "paged_attention_kernel"})
@@ -616,8 +782,52 @@ def phase_serve(torch, kernels, device) -> dict:
             or launches["paged_attention"] < 1):
         raise SystemExit(f"serve failed: shape_ok={shape_ok} bad={bad} "
                          f"launches={launches}")
+    result["slot"] = _slot_serve(torch, kernels, decode, serving, params, cfg,
+                                 reqs[:SLOT_REQUESTS], solo)
     _prefill_flash(torch, kernels, decode, params, cfg)
     return result
+
+
+def _slot_serve(torch, kernels, decode, serving, params, cfg, reqs,
+                solo: dict) -> dict:
+    """The replay-slot engine, serve(paged=False), on ``reqs`` at batch 8:
+    plain rounds (generate over the replayed histories, K1 and the einsum
+    attention of per-row masks), then speculative rounds drafted by the
+    int8 model itself. Every stream held to solo generate (near-ties
+    allowed); the speculative streams also compared with the plain ones
+    (equal wherever the two paths agree bitwise)."""
+    out, bad = {"phase": "serve_slot", "requests": len(reqs)}, []
+    for mode, kw in (("plain", {}), ("speculative", {
+            "draft_params": params, "draft_cfg": cfg, "gamma": GAMMA})):
+        stats: dict = {}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = serving.serve(params, cfg, reqs, 8, kv_quant=True,
+                             paged=False, stats=stats, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(v) for v in done.values())
+        diverged = _diverged(decode, params, cfg, reqs, done, solo)
+        bad += [d for d in diverged if d["margin"] >= NEAR_TIE["bfloat16"]]
+        out[mode] = {"tokens": tokens, "wall_s": wall,
+                     "tokens_per_s": tokens / wall,
+                     "launches": dict(kernels.LAUNCHES),
+                     "stats": {k: v for k, v in stats.items()
+                               if k != "scheduler"},
+                     "diverged": diverged}
+        out[mode]["done"] = done
+        if mode == "speculative" and stats["verify_rounds"]:
+            out[mode]["committed_per_round"] = (stats["committed_tokens"]
+                                                / stats["verify_rounds"])
+    out["speculative_equals_plain"] = (out["speculative"].pop("done")
+                                       == out["plain"].pop("done"))
+    emit(out)
+    complete = all(out[m]["tokens"] == sum(r.max_new for r in reqs)
+                   for m in ("plain", "speculative"))
+    if bad or not complete or out["plain"]["launches"]["int8_matmul"] < 1:
+        raise SystemExit(f"serve_slot failed: bad={bad} complete={complete}")
+    return out
 
 
 SERVE_KW = dict(paged=True, kv_quant=True, prefix_cache=False,
@@ -680,10 +890,12 @@ def phase_serve_int4(torch, kernels, device) -> dict:
     reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
     run = _timed_serve(torch, kernels, serving, params, cfg, reqs)
     path = ("int4_matmul", "int8_matmul", "paged_attention")
-    diverged = _diverged(decode, params, cfg, reqs, run["done"])
+    diverged = _diverged(decode, params, cfg, reqs, run["done"],
+                         _solo_streams(decode, params, cfg, reqs))
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     done32 = serving.serve(params, cfg32, reqs, 8, **SERVE_KW)
-    diverged32 = _diverged(decode, params, cfg32, reqs, done32)
+    diverged32 = _diverged(decode, params, cfg32, reqs, done32,
+                           _solo_streams(decode, params, cfg32, reqs))
     profile = _serve_profile(torch, serving, params, cfg, reqs, {
         "k6_ms": "int4_matmul_kernel", "k1_ms": "int8_matmul_kernel",
         "k2_ms": "paged_attention_kernel"})
@@ -762,10 +974,9 @@ def phase_serve_moe(torch, kernels, device) -> dict:
         run = _timed_serve(torch, kernels, serving, qparams, cfg, reqs)
         again, finite, shapes = _watched_serve(torch, kernels, serving,
                                                qparams, cfg, reqs)
-        solo_differ = sum(
-            decode.generate(qparams, [r.tokens], cfg, r.max_new,
-                            kv_quant=True)[0].tolist() != run["done"][r.rid]
-            for r in reqs[:MOE_SOLO])
+        solo = _solo_streams(decode, qparams, cfg, reqs[:MOE_SOLO])
+        solo_differ = sum(solo[r.rid] != run["done"][r.rid]
+                          for r in reqs[:MOE_SOLO])
         # A kernel's dense and expert forms are its <T, false> and
         # <T, true> instantiations.
         profile = _serve_profile(torch, serving, qparams, cfg, reqs, {
@@ -792,6 +1003,161 @@ def phase_serve_moe(torch, kernels, device) -> dict:
         raise SystemExit(f"serve_moe failed for {failed}: "
                          f"{ {f: out[f] for f in failed} }")
     return out
+
+
+def _gen_prompt(torch, cfg, device):
+    """bench.py:483's decode prompt shape, (8, 64) tokens from a seed."""
+    rng = np.random.default_rng(1)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (GEN_BATCH, GEN_PROMPT)),
+                           device=device)
+
+
+def _timed(torch, kernels, fn) -> tuple:
+    """fn() once with the launch counts set to 0 just before and read just
+    after: (its output, host seconds ending in a synchronize, launches)."""
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def _row_divergences(decode, params, cfg, prompt, got, want) -> list:
+    """Rows of ``got`` (B, steps) that leave ``want``, each with the
+    oracle's top-2 margin at the first divergent step."""
+    out = []
+    for r in range(got.shape[0]):
+        first = _first_divergence(decode, params, cfg, prompt[r].tolist(),
+                                  got[r].tolist(), want[r].tolist())
+        if first is not None:
+            out.append({"row": r, "step": first[0], "margin": first[1]})
+    return out
+
+
+def phase_generate_int8kv(torch, kernels, device) -> dict:
+    """bench.py:470-505 and :664 (decode_int8kv_tokens_per_sec): generate on
+    the decode model at full width, int8 weights from seed 0, an int8 KV
+    cache, prompts (8, 64), 64 and 192 steps. With kv_kernel AUTO every
+    decode step of every layer attends through K5 ((steps - 1) x 8
+    launches a call, held exactly); with kv_kernel=False the einsum path.
+    Every stream of the kernel path is held to the einsum path's: equal,
+    or the first divergence a near-tie. Tokens/s by the two-point rule
+    (8 x 128 tokens over the time between the 64- and the 192-step call),
+    after one warm-up pair; one profiled 64-step call of each path."""
+    from tpu_bootstrap_torch.workload import decode, model, quant
+
+    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    prompt = _gen_prompt(torch, cfg, device)
+    paths, failed = {}, []
+    for path, kv_kernel in (("kernel", None), ("einsum", False)):
+        def run(steps, kv_kernel=kv_kernel):
+            return decode.generate(params, prompt, cfg, steps, kv_quant=True,
+                                   kv_kernel=kv_kernel)
+        for steps in GEN_STEPS:  # warm-up pair
+            run(steps)
+        calls = {steps: _timed(torch, kernels, lambda: run(steps))
+                 for steps in GEN_STEPS}
+        d1, d2 = GEN_STEPS
+        step_s = (calls[d2][1] - calls[d1][1]) / (d2 - d1)
+        paths[path] = {
+            "seconds": {str(st): c[1] for st, c in calls.items()},
+            "step_ms": step_s * 1e3,
+            "tokens_per_s": GEN_BATCH / step_s,
+            "k5_launches": {str(st): c[2]["decode_attention"]
+                            for st, c in calls.items()},
+            "int8_matmul_launches": {str(st): c[2]["int8_matmul"]
+                                     for st, c in calls.items()},
+            "profile": _profile(torch, lambda: run(d1), {
+                "k5_ms": "decode_attention_kernel",
+                "k1_ms": "int8_matmul_kernel"}),
+            "outputs": {st: c[0] for st, c in calls.items()}}
+        paths[path]["profile"]["kernels_per_token"] = (
+            paths[path]["profile"]["kernel_launches"] / (GEN_BATCH * d1))
+        want = {st: (st - 1) * cfg.num_layers if path == "kernel" else 0
+                for st in GEN_STEPS}
+        if any(calls[st][2]["decode_attention"] != want[st]
+               for st in GEN_STEPS):
+            failed.append(f"{path} K5 launches {paths[path]['k5_launches']}"
+                          f" != {want}")
+    diverged = {str(st): _row_divergences(
+        decode, params, cfg, prompt, paths["kernel"]["outputs"][st],
+        paths["einsum"]["outputs"][st]) for st in GEN_STEPS}
+    shape_ok = all(o.shape == (GEN_BATCH, st) and bool(
+        ((o >= 0) & (o < cfg.vocab_size)).all())
+        for p in paths.values() for st, o in p["outputs"].items())
+    for p in paths.values():
+        del p["outputs"]
+    bad = [d for rows in diverged.values() for d in rows
+           if d["margin"] >= NEAR_TIE["bfloat16"]]
+    result = {"phase": "generate_int8kv", "batch": GEN_BATCH,
+              "prompt": GEN_PROMPT, "steps": list(GEN_STEPS),
+              **paths, "near_tie": NEAR_TIE["bfloat16"],
+              "diverged": diverged, "shape_ok": shape_ok,
+              "speedup": (paths["kernel"]["tokens_per_s"]
+                          / paths["einsum"]["tokens_per_s"])}
+    emit(result)
+    if failed or bad or not shape_ok:
+        raise SystemExit(f"generate_int8kv failed: {failed} bad={bad} "
+                         f"shape_ok={shape_ok}")
+    return result
+
+
+def phase_speculative(torch, kernels, device) -> dict:
+    """bench.py:1654-1680's self-speculation with kv_quant=True: the decode
+    model's bf16 target (weights stored in bf16, bench.py:473-480) drafted
+    by its own int8 copy, gamma 4, prompts (8, 64), 64 steps; the draft's
+    single-query steps attend through K5. Streams held to the target's
+    generate(kv_kernel=False): the verify chunk and the single-query steps
+    reach torch.matmul and einsum at other shapes, which are not
+    batch-invariant, so a divergence is allowed at a near-tie and counted.
+    One warm-up call and one timed call of each."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, speculative
+
+    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    master = model.init_params(cfg, seed=0, device=device)
+    draft = quant.quantize_params(master)
+    target = {"embed": master["embed"].bfloat16(),
+              "final_norm": master["final_norm"].bfloat16(),
+              "blocks": [{n: w.bfloat16() for n, w in b.items()}
+                         for b in master["blocks"]]}
+    del master
+    prompt = _gen_prompt(torch, cfg, device)
+    steps = GEN_STEPS[0]
+
+    def spec():
+        return speculative.speculative_generate(
+            target, draft, prompt, cfg, cfg, steps, gamma=GAMMA,
+            kv_quant=True, with_stats=True)
+
+    def plain():
+        return decode.generate(target, prompt, cfg, steps, kv_quant=True,
+                               kv_kernel=False)
+
+    spec()
+    (got, stats), spec_s, launches = _timed(torch, kernels, spec)
+    plain()
+    want, plain_s, _ = _timed(torch, kernels, plain)
+    diverged = _row_divergences(decode, target, cfg, prompt, got, want)
+    bad = [d for d in diverged if d["margin"] >= NEAR_TIE["bfloat16"]]
+    tokens = GEN_BATCH * steps
+    result = {"phase": "speculative", "gamma": GAMMA, "batch": GEN_BATCH,
+              "prompt": GEN_PROMPT, "steps": steps,
+              "verify_rounds": stats["verify_rounds"],
+              "mean_committed": stats["mean_committed"],
+              "seconds": spec_s, "tokens_per_s": tokens / spec_s,
+              "plain_seconds": plain_s, "plain_tokens_per_s": tokens / plain_s,
+              "k5_launches": launches["decode_attention"],
+              "int8_matmul_launches": launches["int8_matmul"],
+              "near_tie": NEAR_TIE["bfloat16"], "diverged": diverged,
+              "equal_rows": GEN_BATCH - len(diverged)}
+    emit(result)
+    if bad or launches["decode_attention"] < 1 or got.shape != want.shape:
+        raise SystemExit(f"speculative failed: bad={bad} launches={launches}")
+    return result
 
 
 # Flash cases: (name, B, S, H, Hk, D, dtype, causal, dlse). The train shapes
@@ -1234,13 +1600,19 @@ def main() -> int:
            "k2": phase_k2(torch, kernels, decode, decode_attention, timer,
                           device),
            "k1e": phase_k1e(torch, kernels, quant, timer, device),
-           "k6": phase_k6(torch, kernels, quant, timer, device)}
+           "k6": phase_k6(torch, kernels, quant, timer, device),
+           "k5": phase_k5(torch, kernels, decode, decode_attention, timer,
+                          device)}
     del timer  # frees the L2-flush buffer
     out["serve"] = phase_serve(torch, kernels, device)
     torch.cuda.empty_cache()
     out["serve_int4"] = phase_serve_int4(torch, kernels, device)
     torch.cuda.empty_cache()
     out["serve_moe"] = phase_serve_moe(torch, kernels, device)
+    torch.cuda.empty_cache()
+    out["generate_int8kv"] = phase_generate_int8kv(torch, kernels, device)
+    torch.cuda.empty_cache()
+    out["speculative"] = phase_speculative(torch, kernels, device)
     torch.cuda.empty_cache()
     out["k3"] = phase_k3(torch, fa, kernels, device)
     out["k4"] = phase_k4(torch, fa, kernels, device)
@@ -1261,6 +1633,9 @@ def kernel_lines(out: dict) -> list:
           for shape in ("wqkv", "wo", "w_up", "w_down")),
         ("lm_head", "float32", False)])
     k2_main = next(r for r in k2["rows"] if r["Hk"] == 16
+                   and r["q"] == "bfloat16")
+    k5_main = next(r for r in out["k5"]["rows"] if r["Hk"] == 16
+                   and r["L"] == K5_TIMED_L and r["mask"] == "full"
                    and r["q"] == "bfloat16")
     k3_main = next(r for r in k3["rows"] if r["case"] == "train"
                    and r["dtype"] == "bfloat16")
@@ -1341,6 +1716,16 @@ def kernel_lines(out: dict) -> list:
             out["serve_moe"]["int4"]["launches"]["int4_expert_matmul"],
             out["k6"], step_totals(out["k6"]["rows"], moe),
             moe_at + ", group 64"),
+        kernel_entry(
+            "decode_attention_int8", "decode_attention.cu",
+            "decode_attention.py:75",
+            out["generate_int8kv"]["kernel"]["k5_launches"][
+                str(GEN_STEPS[1])],
+            out["k5"], k5_main,
+            "one launch, B=8 L=256 H=Hk=16 D=64, all slots valid, bf16 q "
+            "(the last step of a 192-step generate); launches: that "
+            "generate call; library: scaled_dot_product_attention on the "
+            "bf16-dequantized cache with the boolean mask"),
     ]
 
 

@@ -1,8 +1,10 @@
 """The port's decode paths (tpu_bootstrap_torch/workload/decode.py and
 speculative._verify_chunk) held to the JAX reference on the CPU, on the
 same bridged int8 params: one paged decode step (logits and the pools it
-writes), the vector-position prefill chunk, and greedy generation with
-an int8 KV cache (the solo oracle the serving engine is held to)."""
+writes), the vector-position prefill chunk, greedy generation with an
+int8 KV cache on the einsum path (``kv_kernel=False``, the solo oracle the
+serving engines are held to), and the same generation on the kernel path
+(K5's plain version here), routed as the reference routes it."""
 
 import warnings
 
@@ -13,11 +15,13 @@ import pytest
 import torch
 
 from tpu_bootstrap.workload import decode as jdecode
+from tpu_bootstrap.workload import decode_attention as jda
 from tpu_bootstrap.workload import model as jmodel
 from tpu_bootstrap.workload import quant as jquant
 from tpu_bootstrap.workload import speculative as jspec
 from tpu_bootstrap_torch.workload import bridge
 from tpu_bootstrap_torch.workload import decode as tdecode
+from tpu_bootstrap_torch.workload import decode_attention as tda
 from tpu_bootstrap_torch.workload import model as tmodel
 from tpu_bootstrap_torch.workload import speculative as tspec
 
@@ -231,7 +235,8 @@ def test_greedy_generate_int8_kv_matches_reference(ragged):
         kv_kernel=False,
         prompt_lengths=None if lengths is None else jnp.asarray(lengths)))
     got = tdecode.generate(tparams, prompt, tcfg, steps, kv_quant=True,
-                           prompt_lengths=lengths, device="cpu")
+                           kv_kernel=False, prompt_lengths=lengths,
+                           device="cpu")
     assert got.shape == (3, steps)
     prompts = {row: prompt[row, 9 - (9 if lengths is None else lengths[row]):]
                .tolist() for row in range(3)}
@@ -245,7 +250,7 @@ def test_greedy_margins_replay_generate():
     _, tcfg, _, tparams = _setup(seed=6)
     prompt = [3, 14, 15, 9, 2]
     toks = tdecode.generate(tparams, [prompt], tcfg, 6, kv_quant=True,
-                            device="cpu")[0].tolist()
+                            kv_kernel=False, device="cpu")[0].tolist()
     margins = tdecode.greedy_margins(tparams, prompt, toks, tcfg,
                                      kv_quant=True, device="cpu")
     assert len(margins) == 6 and min(margins) >= 0.0
@@ -253,7 +258,110 @@ def test_greedy_margins_replay_generate():
 
 def test_generate_options_not_ported_raise():
     _, tcfg, _, tparams = _setup()
-    for kw, item in (({"temperature": 0.7}, "item 5"),
-                     ({"kv_kernel": True}, "item 8")):
+    for kw, item in (({"temperature": 0.7}, "item 5"),):
         with pytest.raises(NotImplementedError, match=item):
             tdecode.generate(tparams, [[1, 2]], tcfg, 2, device="cpu", **kw)
+
+
+def _counting(monkeypatch):
+    """Count the calls to decode_attention_int8 (the K5 wrapper) that the
+    decode paths make."""
+    calls = {"n": 0}
+    real = tda.decode_attention_int8
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tda, "decode_attention_int8", counting)
+    return calls
+
+
+def test_generate_int8kv_routes_through_kernel(monkeypatch):
+    """generate(kv_quant=True) takes the kernel on every decode step of
+    every layer (AUTO is on) and kv_kernel=False never does; ragged
+    prompts (per-row masks) and a float cache never do either."""
+    _, tcfg, _, tparams = _setup(seed=10)
+    prompt = np.random.default_rng(11).integers(1, 64, (2, 5))
+    steps = 9
+    calls = _counting(monkeypatch)
+    with_kernel = tdecode.generate(tparams, prompt, tcfg, steps,
+                                   kv_quant=True, device="cpu")
+    assert calls["n"] == (steps - 1) * BASE["num_layers"]
+    for kw in ({"kv_kernel": False}, {"prompt_lengths": [5, 3]},
+               {"kv_quant": False}):
+        calls["n"] = 0
+        tdecode.generate(tparams, prompt, tcfg, steps,
+                         **{"kv_quant": True, **kw}, device="cpu")
+        assert calls["n"] == 0, kw
+    # The kernel's online softmax and the einsum's softmax round alike
+    # here: greedy tokens equal.
+    without = tdecode.generate(tparams, prompt, tcfg, steps, kv_quant=True,
+                               kv_kernel=False, device="cpu")
+    assert torch.equal(with_kernel, without)
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_generate_int8kv_kernel_matches_reference(monkeypatch, kv_heads):
+    """The kernel path on both sides: the cache (9 + 15 = 24 slots) is a
+    multiple of 8, so the reference's generate takes its Pallas kernel
+    (interpret mode) on every decode step as the port takes K5's plain
+    version. Greedy streams through assert_greedy_equal; one decode step's
+    logits over the same caches to LOGIT_ATOL."""
+    jcfg, tcfg, jparams, tparams = _setup(seed=12, num_kv_heads=kv_heads)
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(1, BASE["vocab_size"], (3, 9)).astype(np.int32)
+    steps = 15
+    assert jda.supports(9 + steps, tcfg.kv_heads, BASE["head_dim"])
+    want = np.asarray(jdecode.generate(jparams, jnp.asarray(prompt), jcfg,
+                                       steps, kv_quant=True))
+    calls = _counting(monkeypatch)
+    got = tdecode.generate(tparams, prompt, tcfg, steps, kv_quant=True,
+                           device="cpu")
+    assert calls["n"] == (steps - 1) * BASE["num_layers"]
+    assert_greedy_equal(dict(enumerate(got.tolist())),
+                        dict(enumerate(want.tolist())),
+                        {row: prompt[row].tolist() for row in range(3)},
+                        tparams, tcfg)
+    # One kernel step on both sides over the same prefilled caches.
+    length = 24
+    jcaches = jdecode.init_cache(jcfg, 3, length, True)
+    _, jcaches = jdecode.prefill(jparams, jnp.asarray(prompt), jcaches, jcfg)
+    token = np.array(want[:, 0])
+    jlogits, _ = jdecode.decode_step(jparams, jnp.asarray(token),
+                                     jnp.asarray(9), jcaches, jcfg)
+    tcaches = tdecode.init_cache(tcfg, 3, length, quantized=True,
+                                 device="cpu")
+    tdecode.prefill(tparams, torch.from_numpy(prompt).long(), tcaches, tcfg)
+    calls["n"] = 0
+    tlogits, _ = tdecode.decode_step(tparams, torch.from_numpy(token).long(),
+                                     9, tcaches, tcfg)
+    assert calls["n"] == BASE["num_layers"]
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=LOGIT_ATOL)
+
+
+def test_bf16_stored_weights_match_reference():
+    """Weights stored in bf16 (bench.py's bf16 baseline and speculative
+    target): the f32 head promotes the bf16 embedding as the reference
+    does. Prefill logits over the same bf16 values to 1e-4 (f32 compute,
+    sums in other orders)."""
+    jcfg = jmodel.ModelConfig(**BASE)
+    tcfg = tmodel.ModelConfig(**BASE)
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(14))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       device="cpu")
+    jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    tparams = {"embed": tparams["embed"].bfloat16(),
+               "final_norm": tparams["final_norm"].bfloat16(),
+               "blocks": [{n: w.bfloat16() for n, w in b.items()}
+                          for b in tparams["blocks"]]}
+    tokens = np.random.default_rng(15).integers(1, 64, (2, 6)).astype(np.int32)
+    jlogits, _ = jdecode.prefill(jparams, jnp.asarray(tokens),
+                                 jdecode.init_cache(jcfg, 2, 8), jcfg)
+    tlogits, _ = tdecode.prefill(tparams, torch.from_numpy(tokens).long(),
+                                 tdecode.init_cache(tcfg, 2, 8, device="cpu"),
+                                 tcfg)
+    assert tlogits.dtype == torch.float32
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-4)

@@ -85,10 +85,16 @@ def test_kernel_wrappers_refuse_host_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.int4_expert_matmul(xe, torch.zeros(2, 8, 8, dtype=torch.uint8),
                                    torch.ones(2, 2, 8), 8, 16)
+    kc = torch.zeros(1, 16, 2, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.decode_attention(torch.randn(1, 2, 16), kc,
+                                 torch.ones(1, 16, 2), kc,
+                                 torch.ones(1, 16, 2),
+                                 torch.ones(16, dtype=torch.bool))
     assert set(kernels.LAUNCHES) == {
         "int8_matmul", "int8_expert_matmul", "int4_matmul",
-        "int4_expert_matmul", "paged_attention", "flash_fwd", "flash_dq",
-        "flash_dkv"}
+        "int4_expert_matmul", "paged_attention", "decode_attention",
+        "flash_fwd", "flash_dq", "flash_dkv"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -114,3 +120,7 @@ def test_smem_rule_mirrors_the_kernel_layout():
         2 * 256 + 256 + 3 * 16 + 2 * 256 + 64 * 68 + 64 * 64)
     assert kernels.paged_attention_smem_bytes(64, 64, 4) < (
         kernels.PAGED_SMEM_LIMIT)
+    # K5 shares the layout at its fixed tile of 128 positions.
+    assert kernels.decode_attention_smem_bytes(64, 1) == (
+        kernels.paged_attention_smem_bytes(kernels.DECODE_TILE, 64, 1)) == (
+        2 * 256 + 512 + 3 * 16 + 2 * 512 + 128 * 68 + 128 * 64)

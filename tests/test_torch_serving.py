@@ -2,9 +2,12 @@
 (tpu_bootstrap_torch/workload/serving.py) held to the JAX reference's
 serve(paged=True, kv_quant=True, prefix_cache=False, overcommit=False)
 on the same bridged int8 weights and requests, and to its own solo
-greedy generate; the allocator and scheduling helpers held to the
-reference's by differential tests; and the options this slice does not
-port refusing loudly."""
+greedy generate (kv_kernel=False: the einsum oracle); the replay-slot
+engine (serve(paged=False)) held likewise to the reference's
+serve(paged=False), to solo generate, and with a draft model to its own
+plain rounds; the allocator and scheduling helpers held to the
+reference's by differential tests; and the options the port does not
+have yet refusing loudly."""
 
 import jax
 import numpy as np
@@ -17,7 +20,9 @@ from tpu_bootstrap.workload import quant as jquant
 from tpu_bootstrap.workload import serving as jserving
 from tpu_bootstrap_torch.workload import bridge
 from tpu_bootstrap_torch.workload import decode as tdecode
+from tpu_bootstrap_torch.workload import faults
 from tpu_bootstrap_torch.workload import model as tmodel
+from tpu_bootstrap_torch.workload import quant as tquant
 from tpu_bootstrap_torch.workload import serving as tserving
 
 torch.set_num_threads(2)
@@ -44,9 +49,10 @@ def _port_requests(specs):
             for i, t, m in specs]
 
 
-def _solo(tokens, max_new):
-    return tdecode.generate(TPARAMS, [tokens], TCFG, max_new, kv_quant=True,
-                            device="cpu")[0].tolist()
+def _solo(tokens, max_new, params=None, kv_quant=True):
+    return tdecode.generate(TPARAMS if params is None else params, [tokens],
+                            TCFG, max_new, kv_quant=kv_quant,
+                            kv_kernel=False, device="cpu")[0].tolist()
 
 
 @pytest.mark.parametrize("pool", [
@@ -143,7 +149,7 @@ def test_int4_and_moe_serve_streams_equal_reference(reference_streams, name):
     assert again == got
     if tcfg.num_experts == 0:
         assert got == {i: tdecode.generate(tparams, [t], tcfg, m,
-                                           kv_quant=True,
+                                           kv_quant=True, kv_kernel=False,
                                            device="cpu")[0].tolist()
                        for i, t, m in specs}
 
@@ -278,7 +284,10 @@ def test_scheduling_helpers_equal_reference():
     ({"draft_params": TPARAMS}, "spec rounds"),
     ({"spec_lookup": True}, "spec rounds"),
     ({"resident": True}, "item 8"),
-    ({"paged": False}, "item 8"),
+    # serve(paged=False) is the slot engine now; with resident=True it is
+    # still the unported resident engine.
+    pytest.param({"paged": False, "resident": True}, "item 8",
+                 id="paged-item 8"),
     ({"kv_quant": False}, "float KV pool"),
 ], ids=lambda v: v if isinstance(v, str) else "-".join(v))
 def test_options_not_ported_raise(kw, item):
@@ -306,3 +315,133 @@ def test_device_none_raises_without_cuda():
         tserving.serve(TPARAMS, TCFG, reqs, 2, paged=True, kv_quant=True)
     with pytest.raises(ValueError, match="params live on"):
         tserving.PagedPool(TPARAMS, TCFG, 1, kv_quant=True, device="meta")
+
+
+# ---- the replay-slot engine (serve(paged=False)) ----------------------
+
+SLOT_SPECS = [(i, t, m) for i, (t, m) in enumerate(
+    [([3, 14, 15], 5), ([9, 2, 6, 5, 3, 5, 8], 1), ([9, 7], 9),
+     ([3, 2, 3, 8, 4], 3), ([6, 2, 6, 4], 6)])]
+
+
+@pytest.mark.parametrize("kv_quant", [True, False], ids=["int8kv", "fkv"])
+def test_slot_serve_matches_reference_and_solo(kv_quant):
+    """serve(paged=False) through a 2-slot pool (rows admitted at different
+    rounds, ragged histories replayed left-padded): the port's streams
+    equal the reference's serve(paged=False) on the same bridged int8
+    weights, and each equals the port's solo generate(kv_kernel=False).
+    The schedule's accounting equals the reference's."""
+    want_stats, stats = {}, {}
+    want = jserving.serve(
+        JPARAMS, JCFG, [jserving.Request(rid=i, tokens=t, max_new=m)
+                        for i, t, m in SLOT_SPECS],
+        batch_size=2, kv_quant=kv_quant, stats=want_stats)
+    got = tserving.serve(TPARAMS, TCFG, _port_requests(SLOT_SPECS), 2,
+                         kv_quant=kv_quant, stats=stats, device="cpu")
+    assert set(got) == set(want)
+    assert_greedy_equal(got, want, {i: t for i, t, _ in SLOT_SPECS},
+                        TPARAMS, TCFG)
+    assert got == {i: _solo(t, m, kv_quant=kv_quant)
+                   for i, t, m in SLOT_SPECS}
+    for key in ("rounds", "slot_steps", "active_slot_steps",
+                "replayed_tokens"):
+        assert stats[key] == want_stats[key], key
+    assert stats["active_slot_steps"] <= stats["slot_steps"]
+
+
+def test_slot_eos_finishes_rows_early():
+    """eos_id retires a slot row at its first emission, inclusive."""
+    prompt = [5, 1, 4, 9]
+    full = _solo(prompt, 12)
+    eos = full[2]
+    got = tserving.serve(TPARAMS, TCFG,
+                         [tserving.Request(rid=0, tokens=prompt,
+                                           max_new=12)],
+                         1, kv_quant=True, eos_id=eos, device="cpu")
+    assert got[0] == full[:full.index(eos) + 1]
+
+
+def test_slot_replayed_tokens_accounting():
+    """Every round re-prefills each active row's history: round 1 chunk 2
+    (the smallest budget) over histories 3 and 2; round 2 rid 0 alone,
+    history 5, chunk 2: 10 tokens replayed in 2 rounds."""
+    reqs = [tserving.Request(rid=0, tokens=[1, 2, 3], max_new=4),
+            tserving.Request(rid=1, tokens=[4, 5], max_new=2)]
+    stats: dict = {}
+    tserving.serve(TPARAMS, TCFG, reqs, 2, kv_quant=True, stats=stats,
+                   device="cpu")
+    assert stats["replayed_tokens"] == 10 and stats["rounds"] == 2
+
+
+@pytest.fixture(scope="module")
+def float_target():
+    """A float target (the reference's init, bridged) and its int8 copy,
+    the self-speculation draft."""
+    params = bridge.params_from_numpy(jax.tree.map(
+        np.asarray, jmodel.init_params(JCFG, jax.random.PRNGKey(7))),
+        device="cpu")
+    return params, tquant.quantize_params(params)
+
+
+def test_slot_speculative_serve_bit_matches_plain_and_solo(float_target):
+    """Speculative rounds commit the target's own argmaxes: the streams
+    equal the plain rounds' and solo generate's, and the schedule (rounds,
+    slot steps) is the same."""
+    params, draft = float_target
+    specs = _requests(8, seed=3)
+    plain_stats, spec_stats = {}, {}
+    plain = tserving.serve(params, TCFG, _port_requests(specs), 4,
+                           stats=plain_stats, device="cpu")
+    spec = tserving.serve(params, TCFG, _port_requests(specs), 4,
+                          stats=spec_stats, draft_params=draft,
+                          draft_cfg=TCFG, gamma=3, device="cpu")
+    assert plain == spec
+    assert plain == {i: _solo(t, m, params=params, kv_quant=False)
+                     for i, t, m in specs}
+    for key in ("rounds", "slot_steps", "active_slot_steps"):
+        assert spec_stats[key] == plain_stats[key], key
+
+
+def test_slot_speculative_serve_commits_more_than_one_token_per_stream(
+        float_target):
+    """The lever: committed tokens per target weight stream (verify
+    round) above 1, and gamma + 1 draft steps per verify round."""
+    params, draft = float_target
+    stats: dict = {}
+    tserving.serve(params, TCFG, _port_requests(_requests(8, seed=3)), 4,
+                   stats=stats, draft_params=draft, draft_cfg=TCFG, gamma=3,
+                   device="cpu")
+    assert stats["verify_rounds"] > 0
+    assert stats["committed_tokens"] / stats["verify_rounds"] > 1.0, stats
+    assert stats["draft_steps"] == stats["verify_rounds"] * 4
+
+
+def test_slot_pool_refusals_and_fault_seam():
+    """What the slot engine refuses (sampling, a draft without its config,
+    gamma < 1, prompt lookup), and the pool.device seam failing a round
+    before it dispatches."""
+    reqs = [tserving.Request(rid=0, tokens=[1, 2], max_new=2)]
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tserving.serve(TPARAMS, TCFG, reqs, 2, temperature=0.5,
+                       device="cpu")
+    with pytest.raises(ValueError, match="draft_cfg"):
+        tserving.SlotPool(TPARAMS, TCFG, 2, draft_params=TPARAMS,
+                          device="cpu")
+    with pytest.raises(ValueError, match="gamma"):
+        tserving.SlotPool(TPARAMS, TCFG, 2, draft_params=TPARAMS,
+                          draft_cfg=TCFG, gamma=0, device="cpu")
+    with pytest.raises(ValueError, match="spec_lookup"):
+        tserving.serve(TPARAMS, TCFG, reqs, 2, spec_lookup=True,
+                       device="cpu")
+    pool = tserving.SlotPool(TPARAMS, TCFG, 2, kv_quant=True, device="cpu")
+    pool.admit(tserving.Request(rid=0, tokens=[1, 2], max_new=3))
+    assert pool.admits(reqs[0])
+    faults.install("pool.device:1:1")
+    try:
+        assert pool.step_round()[0]["new"]  # call 1 passes
+        with pytest.raises(faults.InjectedFault):
+            pool.step_round()  # call 2 fires
+    finally:
+        faults.install(None)
+    pool.reset()
+    assert not pool.has_active()

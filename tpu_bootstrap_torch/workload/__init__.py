@@ -1,6 +1,7 @@
-"""The port's workload modules: model, quantization, the two CUDA
-kernels (int8 matmul, paged int8 decode attention), paged decode and
-the block-paged serving engine.
+"""The port's workload modules: model, quantization, decoding
+(``generate`` on contiguous caches, paged decode, greedy speculative
+decoding), the serving engines (block-paged and replay-slot), training,
+and the CUDA kernels behind them (``kernels.py``, sources in ``csrc/``).
 
 Import the modules directly (``from tpu_bootstrap_torch.workload import
 serving``); this package file imports nothing, so importing it does not

@@ -12,13 +12,18 @@ jitted steps and gets new arrays back): every function that writes KV
 writes into the tensors it was given and also returns them, so callers
 written against the reference's functional form keep working.
 
-``paged_decode_step`` runs attention through kernel K2, every int8
-projection through kernel K1 and every int4 projection through K6 (a
-MoE block's expert stacks through K1e / K6e); ``prefill``, ``decode_step`` and
-``_block_step`` attend with the einsum path (the reference's
-``kv_kernel=False``), which is also what the serving engine's prefill
-chunk uses. ``prefill(flash=True)`` / ``generate(prefill_flash=True)`` run
-the prompt's causal self-attention through the flash kernel K3 instead.
+Every int8 projection runs through kernel K1 and every int4 projection
+through K6 (a MoE block's expert stacks through K1e / K6e).
+``paged_decode_step`` attends through kernel K2. ``_block_step`` (and so
+``prefill``, ``decode_step`` and ``generate``) attends a single query over
+an int8 cache with one shared mask row through kernel K5 when
+``kv_kernel`` is on (the default, as in the reference; ``generate``'s
+AUTO resolves to on, the port's params being on one device), and
+everything else -- multi-query chunks, per-row masks, float caches,
+``kv_kernel=False`` -- on the einsum path, which is the solo oracle the
+serving engines are held to. ``prefill(flash=True)`` /
+``generate(prefill_flash=True)`` run the prompt's causal self-attention
+through the flash kernel K3 instead.
 """
 
 from __future__ import annotations
@@ -212,17 +217,21 @@ def _attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 def _block_step(block: Params, x: torch.Tensor, cache: dict,
                 positions: torch.Tensor, valid: torch.Tensor,
-                cfg: ModelConfig, slot=None, prefill_flash: bool = False):
+                cfg: ModelConfig, slot=None, prefill_flash: bool = False,
+                kv_kernel: bool = True):
     """One block over x (B, S, E): its KV written into ``cache`` (in
-    place) at ``positions`` and attention over the whole cache, on the
-    einsum path. ``slot`` as a (B,) tensor writes each row at its own
-    start (per-row frontiers); otherwise the chunk starts at ``slot`` or
-    at positions[0] for every row. On an int8 cache the chunk's quantized
-    K/V are written first and attention reads the dequantized cache, so
-    the chunk sees its own KV at int8 precision, as in the reference.
-    ``prefill_flash`` on a multi-token chunk attends causally over the
-    chunk's own (q, k, v) through the flash kernel, never reading the
-    cache (a fresh prefill's attention is exactly that)."""
+    place) at ``positions`` and attention over the whole cache. ``slot``
+    as a (B,) tensor writes each row at its own start (per-row
+    frontiers); otherwise the chunk starts at ``slot`` or at positions[0]
+    for every row. On an int8 cache the chunk's quantized K/V are written
+    first, so the chunk sees its own KV at int8 precision, as in the
+    reference; then a single query (S == 1) under one shared mask row
+    ((1, L) ``valid``) attends through kernel K5 when ``kv_kernel`` is on
+    and ``decode_attention.supports`` the cache, and anything else reads
+    the dequantized cache on the einsum path. ``prefill_flash`` on a
+    multi-token chunk attends causally over the chunk's own (q, k, v)
+    through the flash kernel, never reading the cache (a fresh prefill's
+    attention is exactly that)."""
     dtype = cfg.compute_dtype
     h = _rms_norm(x, block["attn_norm"])
     q, k, v = _qkv(block, h, positions, cfg)
@@ -240,6 +249,16 @@ def _block_step(block: Params, x: torch.Tensor, cache: dict,
             _row_scatter(cache[name], arr, start)
         else:
             _slice_write(cache[name], arr, start)
+    if (quantized and kv_kernel and q.shape[1] == 1 and valid.ndim == 2
+            and decode_attention.supports(cache["k"].shape[1],
+                                          cache["k"].shape[2],
+                                          cache["k"].shape[3],
+                                          q.shape[2])):
+        out = decode_attention.decode_attention_int8(
+            q[:, 0].contiguous(), cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], valid[0].contiguous())
+        x = x + _linear(out[:, None], block["wo"], 2, dtype)
+        return _mlp_tail(block, x, cfg), cache
     if prefill_flash and q.shape[1] > 1:
         out = flash_attention(q, k, v, causal=True)
     else:
@@ -267,12 +286,14 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params.get("lm_head")
     if head is not None and quant.is_quantized(head):
         return _linear(x, head, 1, torch.float32, tag="head")
-    return torch.einsum("bse,ve->bsv", x.float(), params["embed"])
+    # f32 x f32, as the reference promotes a bf16-stored embedding.
+    return torch.einsum("bse,ve->bsv", x.float(), params["embed"].float())
 
 
 def prefill(params: Params, tokens: torch.Tensor, caches: list,
             cfg: ModelConfig, lengths: torch.Tensor | None = None,
-            all_logits: bool = False, flash: bool = False):
+            all_logits: bool = False, flash: bool = False,
+            kv_kernel: bool = True):
     """Run the prompt (B, S) into cache slots [0, S) (in place). Returns
     (logits of the last position (B, vocab), caches), or all positions'
     logits with ``all_logits``. ``lengths`` (B,) are the true lengths of
@@ -280,7 +301,8 @@ def prefill(params: Params, tokens: torch.Tensor, caches: list,
     phases count from each row's first real token. ``flash`` runs the
     prompt's causal self-attention through kernel K3, in O(S) memory: the
     long-prompt path (not with ``lengths``: its causal mask cannot
-    exclude per-row pads)."""
+    exclude per-row pads). ``kv_kernel`` as in ``_block_step`` (only a
+    one-token prompt is a single query)."""
     if flash and lengths is not None:
         raise ValueError(
             "ragged prompts (lengths) do not compose with the flash "
@@ -303,18 +325,21 @@ def prefill(params: Params, tokens: torch.Tensor, caches: list,
     x = params["embed"][tokens].to(cfg.compute_dtype)
     for block, cache in zip(params["blocks"], caches):
         x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot,
-                           prefill_flash=flash)
+                           prefill_flash=flash, kv_kernel=kv_kernel)
     if all_logits:
         return _logits(params, x), caches
     return _logits(params, x[:, -1:])[:, 0], caches
 
 
 def decode_step(params: Params, token: torch.Tensor, pos, caches: list,
-                cfg: ModelConfig, pad: torch.Tensor | None = None):
+                cfg: ModelConfig, pad: torch.Tensor | None = None,
+                kv_kernel: bool = True):
     """One token (B,) at cache slot ``pos`` (an int); returns (logits
     (B, vocab), caches). ``pad`` (B,) are the left-pad widths of a ragged
-    batch. The reference's per-row frontier mode (``pos`` a vector) serves
-    the resident engine and comes with it."""
+    batch (per-row masks: the einsum path). Without ``pad``, an int8
+    cache attends through kernel K5 unless ``kv_kernel`` is off. The
+    reference's per-row frontier mode (``pos`` a vector) serves the
+    resident engine and comes with it."""
     max_len = caches[0]["k"].shape[1]
     dev = token.device
     cols = torch.arange(max_len, device=dev)
@@ -328,28 +353,28 @@ def decode_step(params: Params, token: torch.Tensor, pos, caches: list,
                  )[:, None, :]
     x = params["embed"][token[:, None]].to(cfg.compute_dtype)
     for block, cache in zip(params["blocks"], caches):
-        x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot)
+        x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot,
+                           kv_kernel=kv_kernel)
     return _logits(params, x)[:, 0], caches
 
 
 def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
              temperature: float = 0.0, kv_quant: bool = False,
-             kv_kernel: bool = False, prefill_flash: bool = False,
+             kv_kernel: bool | None = None, prefill_flash: bool = False,
              prompt_lengths=None, device=None) -> torch.Tensor:
     """Greedy generation: prompt (B, S) -> (B, steps) continuations. The
-    cache is sized S + steps; attention runs on the einsum path (the
-    reference's ``kv_kernel=False``), which makes this the solo oracle
-    the serving engine is held to. ``prefill_flash`` runs the prompt
-    through kernel K3 (not with ``prompt_lengths``). The decode loop keeps
-    tokens on the device and reads them back once at the end."""
+    cache is sized S + steps. ``kv_kernel`` defaults to AUTO, which is on
+    (the port's params live on one device): with ``kv_quant`` every decode
+    step attends through kernel K5. ``kv_kernel=False`` keeps attention on
+    the einsum path, which makes this the solo oracle the serving engines
+    are held to; ``prompt_lengths`` (a ragged, left-padded batch: per-row
+    masks) forces it off. ``prefill_flash`` runs the prompt through kernel
+    K3 (not with ``prompt_lengths``). The decode loop keeps tokens on the
+    device and reads them back once at the end."""
     if temperature != 0.0:
         raise NotImplementedError(
             "sampling is not ported yet (ROADMAP queue 1 item 5: sampling "
             "with threefry bit-parity)")
-    if kv_kernel:
-        raise NotImplementedError(
-            "generate's int8 kernel path (kernel K5) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
     if prefill_flash and prompt_lengths is not None:
         raise ValueError(
             "prompt_lengths does not compose with prefill_flash (the "
@@ -365,17 +390,20 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
         if int(lengths.min()) < 1 or int(lengths.max()) > s:
             raise ValueError(f"prompt_lengths must be in [1, {s}]")
         pad = s - lengths
+        kv_kernel = False  # per-row masks: the einsum path
+    elif kv_kernel is None:
+        kv_kernel = True
     with telemetry.span("decode.generate", steps=steps, batch=b,
                         kv_quant=int(kv_quant)):
         caches = init_cache(cfg, b, s + steps, quantized=kv_quant,
                             device=device)
         logits, caches = prefill(params, prompt, caches, cfg, lengths=lengths,
-                                 flash=prefill_flash)
+                                 flash=prefill_flash, kv_kernel=kv_kernel)
         token = torch.argmax(logits, dim=-1)
         toks = [token]
         for i in range(steps - 1):
             logits, caches = decode_step(params, token, s + i, caches, cfg,
-                                         pad=pad)
+                                         pad=pad, kv_kernel=kv_kernel)
             token = torch.argmax(logits, dim=-1)
             toks.append(token)
         return torch.stack(toks, dim=1).cpu()
@@ -386,21 +414,21 @@ def greedy_margins(params: Params, prompt: list, tokens: list,
                    device=None) -> list:
     """Top-2 logit margin of every step of a greedy run over one prompt
     that emitted ``tokens``: the same prefill and decode steps as
-    ``generate(steps=len(tokens))``, fed ``tokens`` instead of its own
-    argmaxes, so on ``generate``'s own output the logits are the ones it
-    saw. A small margin marks a step where another run may fairly pick
-    the other token (a near-tie)."""
+    ``generate(steps=len(tokens), kv_kernel=False)`` (the einsum oracle),
+    fed ``tokens`` instead of its own argmaxes, so on that run's own
+    output the logits are the ones it saw. A small margin marks a step
+    where another run may fairly pick the other token (a near-tie)."""
     device = resolve_device(device)
     s, steps = len(prompt), len(tokens)
     fed = torch.as_tensor(tokens, device=device).long()
     caches = init_cache(cfg, 1, s + steps, quantized=kv_quant, device=device)
     logits, caches = prefill(params, torch.as_tensor([prompt], device=device)
-                             .long(), caches, cfg)
+                             .long(), caches, cfg, kv_kernel=False)
     margins = []
     for i in range(steps):
         if i:
             logits, caches = decode_step(params, fed[i - 1:i], s + i - 1,
-                                         caches, cfg)
+                                         caches, cfg, kv_kernel=False)
         top2 = torch.topk(logits[0].float(), 2).values
         margins.append(top2[0] - top2[1])
     return torch.stack(margins).tolist()

@@ -1,15 +1,22 @@
-"""Single-query attention over the block-paged int8 KV pool, the
-counterpart of ``tpu_bootstrap/workload/decode_attention.py`` (paged
-half).
+"""Single-query attention over an int8 KV cache, the counterpart of
+``tpu_bootstrap/workload/decode_attention.py``.
 
 A decode step's attention reads every cached vector of the row to score
-one query, so it streams the cache. ``paged_decode_attention_int8`` runs
-kernel K2 (``csrc/paged_attention.cu``, the port of the reference's
-``_paged_kernel``) on the card: each row reads only its own blocks
-through its block table, dequantizes them in registers and keeps an
-online softmax in f32. On a CPU tensor it runs
-``paged_decode_attention_int8_plain``, the same function in plain
-PyTorch; on a CUDA tensor it launches the kernel or raises.
+one query, so it streams the cache. Two kernels do it on the card, on
+one shared tile body (``csrc/decode_attention.cuh``) that dequantizes in
+registers and keeps an online softmax in f32:
+
+* ``decode_attention_int8`` runs kernel K5 (``csrc/decode_attention.cu``,
+  the port of the reference's ``_kernel``) over a contiguous
+  ``(B, L, Hk, D)`` cache masked by one validity row shared by the batch:
+  ``generate``'s decode steps and the speculative draft's;
+* ``paged_decode_attention_int8`` runs kernel K2
+  (``csrc/paged_attention.cu``, the port of ``_paged_kernel``) over the
+  block-paged pool: each row reads only its own blocks through its block
+  table, up to its own length.
+
+On a CPU tensor each runs its ``*_plain`` version, the same function in
+plain PyTorch; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +26,67 @@ import torch
 from tpu_bootstrap_torch.workload import kernels
 
 _NEG = -1e30
+
+
+def supports(length: int, kv_heads: int, head_dim: int,
+             num_heads: int | None = None) -> bool:
+    """Whether K5 takes this cache geometry. The port's own rule, from the
+    kernel's limits (the reference's Mosaic tiling rules do not apply):
+    any length >= 1, head_dim a multiple of 16 (16-byte loads), and the
+    kernel's shared memory for a tile of ``kernels.DECODE_TILE`` positions
+    and a query group of ``num_heads / kv_heads`` heads (1 when not
+    given) within 48 KB."""
+    group = (num_heads // kv_heads) if num_heads else 1
+    return (length >= 1 and head_dim % 16 == 0
+            and kernels.decode_attention_smem_bytes(head_dim, group)
+            <= kernels.PAGED_SMEM_LIMIT)
+
+
+def decode_attention_int8_plain(q, kq, ks, vq, vs, valid) -> torch.Tensor:
+    """K5's function in plain PyTorch: dequantize in f32, zero the values
+    at masked positions (so garbage there cannot reach the result), f32
+    softmax of (q * D^-0.5) . k with masked scores at -1e30, then p . v in
+    q.dtype."""
+    b, h, d = q.shape
+    _, length, hk, _ = kq.shape
+    g = h // hk
+    vmask = valid[None, :, None, None]
+    zero = torch.zeros((), device=q.device)
+    k = torch.where(vmask, kq.float() * ks.float()[..., None], zero)
+    v = torch.where(vmask, vq.float() * vs.float()[..., None], zero)
+    qg = q.float().reshape(b, hk, g, d) * (d ** -0.5)
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k)
+    s = s.masked_fill(~valid[None, None, None, :], _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", p, v)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,
+                          ks: torch.Tensor, vq: torch.Tensor,
+                          vs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Single-position attention over a contiguous quantized cache.
+
+    q: (B, H, D), any float dtype the kernel takes (bf16, f32);
+    kq/vq: (B, L, Hk, D) int8; ks/vs: (B, L, Hk) f32 per-vector scales
+    (``decode.init_cache(quantized=True)``'s layout, H % Hk == 0);
+    valid: (L,) bool, the cache slots every row's query may see. Returns
+    (B, H, D) in q.dtype: kernel K5 on the card, the plain version on the
+    CPU. The contract covers masks with at least one valid slot (every
+    mask ``generate`` and the speculative draft build: slot 0 is always
+    valid). An all-masked row gives zeros in both versions (the
+    reference's kernel gives the mean of the row's values there)."""
+    b, h, d = q.shape
+    length, hk = kq.shape[1], kq.shape[2]
+    if not supports(length, hk, d, h):
+        raise ValueError(
+            f"cache (length={length}, kv_heads={hk}, head_dim={d}, "
+            f"heads={h}) is outside the kernel's limits; see supports")
+    if q.is_cuda:
+        return kernels.decode_attention(q, kq, ks, vq, vs, valid)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode attention: no kernel for device {q.device}")
+    return decode_attention_int8_plain(q, kq, ks, vq, vs, valid)
 
 
 def paged_supports(block_size: int, kv_heads: int, head_dim: int,

@@ -41,8 +41,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Launches per kernel since the last reset_launches(); one tick where the
 # kernel is launched and nowhere else.
 LAUNCHES = {"int8_matmul": 0, "int8_expert_matmul": 0, "int4_matmul": 0,
-            "int4_expert_matmul": 0, "paged_attention": 0, "flash_fwd": 0,
-            "flash_dq": 0, "flash_dkv": 0}
+            "int4_expert_matmul": 0, "paged_attention": 0,
+            "decode_attention": 0, "flash_fwd": 0, "flash_dq": 0,
+            "flash_dkv": 0}
 
 _lock = threading.Lock()
 _lib = None  # guarded-by: _lock
@@ -134,6 +135,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tpubc_paged_attention.restype = i
     lib.tpubc_paged_attention_smem_bytes.argtypes = [i, i, i]
     lib.tpubc_paged_attention_smem_bytes.restype = i
+    lib.tpubc_decode_attention.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
+    lib.tpubc_decode_attention.restype = i
+    lib.tpubc_decode_attention_smem_bytes.argtypes = [i, i]
+    lib.tpubc_decode_attention_smem_bytes.restype = i
     dims = [i, i, i, i, i, f, i, i, p]  # b, s, h, hk, d, scale, causal, bf16
     lib.tpubc_flash_fwd.argtypes = [p] * 5 + dims
     lib.tpubc_flash_fwd.restype = i
@@ -257,9 +262,12 @@ def int4_expert_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return _launch_int4(x, q, s, group, kdim, "int4_expert_matmul", 3)
 
 
-# The kernel's own limits (csrc/paged_attention.cu): D a multiple of 16,
-# its shared-memory layout within the 48 KB a CTA gets without opting in.
+# The decode-attention kernels' own limits (csrc/decode_attention.cuh): D
+# a multiple of 16, the shared-memory layout within the 48 KB a CTA gets
+# without opting in.
 PAGED_SMEM_LIMIT = 48 * 1024
+# K5's tile: positions staged per step of its loop (csrc/decode_attention.cu).
+DECODE_TILE = 128
 
 
 def _align16(v: int) -> int:
@@ -267,8 +275,9 @@ def _align16(v: int) -> int:
 
 
 def paged_attention_smem_bytes(bs: int, d: int, g: int) -> int:
-    """The kernel's shared-memory layout size (mirrors ``make_layout`` in
-    csrc/paged_attention.cu; ``chip_smoke.py`` checks the two agree)."""
+    """The shared-memory layout size for tiles of ``bs`` positions (mirrors
+    ``make_layout`` in csrc/decode_attention.cuh; ``chip_smoke.py`` checks
+    the two agree)."""
     return (2 * _align16(g * d * 4) + _align16(g * bs * 4)
             + 3 * _align16(g * 4) + 2 * _align16(bs * 4)
             + _align16(bs * (d + 4)) + _align16(bs * d))
@@ -314,6 +323,55 @@ def paged_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         int(q.dtype == torch.bfloat16), _stream())
     _check(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def decode_attention_smem_bytes(d: int, g: int) -> int:
+    """K5's shared-memory layout size: the shared layout for a tile of
+    DECODE_TILE positions (``chip_smoke.py`` checks it against the CUDA
+    side)."""
+    return paged_attention_smem_bytes(DECODE_TILE, d, g)
+
+
+def decode_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                     vq: torch.Tensor, vs: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Kernel K5: q (B, H, D) over contiguous int8 caches (B, L, Hk, D)
+    with scales (B, L, Hk), attending where the shared row valid (L,)
+    bool is set -> (B, H, D) in q.dtype."""
+    _need(q, "q", _FLOATS, 3)
+    _need(kq, "kq", (torch.int8,), 4)
+    _need(vq, "vq", (torch.int8,), 4)
+    _need(ks, "ks", (torch.float32,), 3)
+    _need(vs, "vs", (torch.float32,), 3)
+    _need(valid, "valid", (torch.bool,), 1)
+    b, h, d = q.shape
+    bk, length, hk, dk = kq.shape
+    if (bk != b or dk != d or vq.shape != kq.shape
+            or ks.shape != (b, length, hk) or vs.shape != ks.shape
+            or valid.shape != (length,) or h % hk != 0 or length < 1):
+        raise ValueError(
+            f"decode_attention shapes: q {tuple(q.shape)}, kq "
+            f"{tuple(kq.shape)}, ks {tuple(ks.shape)}, vq {tuple(vq.shape)}, "
+            f"vs {tuple(vs.shape)}, valid {tuple(valid.shape)}")
+    g = h // hk
+    if d % 16 != 0 or decode_attention_smem_bytes(d, g) > PAGED_SMEM_LIMIT:
+        raise ValueError(
+            f"decode_attention does not take head_dim={d}, group={g} (see "
+            "decode_attention.supports)")
+    for t in (kq, ks, vq, vs, valid):
+        if t.device != q.device:
+            raise ValueError("decode_attention operands on different devices")
+    for name, t in (("kq", kq), ("vq", vq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    rc = lib().tpubc_decode_attention(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), valid.data_ptr(), out.data_ptr(), b, length, hk, g,
+        d, float(d) ** -0.5, int(q.dtype == torch.bfloat16), _stream())
+    _check(rc, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
     return out
 
 

@@ -1,9 +1,19 @@
-"""Block-paged continuous batching, the counterpart of
-``tpu_bootstrap/workload/serving.py`` (the ``PagedPool`` engine behind
-``serve(paged=True)``, its ``BlockAllocator`` and the ``Scheduler``).
+"""Continuous batching, the counterpart of
+``tpu_bootstrap/workload/serving.py``: the ``PagedPool`` engine behind
+``serve(paged=True)`` with its ``BlockAllocator``, the replay-slot
+``SlotPool`` behind ``serve(paged=False)``, and the ``Scheduler`` in front
+of either.
 
-One shared pool of fixed-size KV blocks per layer, a block table per
-row, and chunked prefill interleaved into decode rounds:
+``SlotPool`` keeps no KV cache between rounds: each round left-pads every
+active row's whole history into one batch and runs ``decode.generate``
+with ``prompt_lengths`` (or, with a draft model,
+``speculative.speculative_generate``) for a chunk of the largest power of
+two within every row's remaining budget. Free slots ride as length-1
+dummy rows whose output is discarded. Re-prefilling the histories each
+round (``replayed_tokens``) is the engine's price of admission.
+
+``PagedPool`` keeps one shared pool of fixed-size KV blocks per layer, a
+block table per row, and chunked prefill interleaved into decode rounds:
 
 * Admission reserves a request's WHOLE footprint,
   ceil((prompt + max_new) / block_size) blocks, and is refused when the
@@ -26,14 +36,17 @@ The pools are updated IN PLACE (the reference donates them to its
 jitted rounds): the frontier write, the prefill window scatter and
 defrag's relocation all write into the tensors the pool holds.
 
-Exactness: a request's tokens equal its solo greedy ``generate``, up to
-the order of float sums inside the kernels.
+Exactness: a request's tokens equal its solo greedy
+``generate(kv_kernel=False)``, up to the order of float sums inside the
+kernels (the slot engine's speculative rounds commit the target's own
+argmaxes, so they equal its plain rounds).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item): the prefix cache, the host tier, overcommit admission and
-preemption, sampling, speculative drafts and prompt lookup, the resident
-and slot engines, the float-pool gather path, the request log, the
-device ledger, fault seams and deadlines.
+preemption, sampling, the paged engine's speculative rounds and prompt
+lookup, the resident engine, the float-pool gather path, the request
+log, the device ledger, the fault seams other than ``pool.device`` and
+deadlines.
 """
 
 from __future__ import annotations
@@ -44,8 +57,9 @@ import heapq
 import torch
 
 from tpu_bootstrap_torch import telemetry
-from tpu_bootstrap_torch.workload import decode_attention, quant
+from tpu_bootstrap_torch.workload import decode_attention, faults, quant
 from tpu_bootstrap_torch.workload.decode import (
+    generate,
     init_paged_cache,
     paged_decode_step,
 )
@@ -55,7 +69,10 @@ from tpu_bootstrap_torch.workload.model import (
     kv_bytes_per_token,
     resolve_device,
 )
-from tpu_bootstrap_torch.workload.speculative import _verify_chunk
+from tpu_bootstrap_torch.workload.speculative import (
+    _verify_chunk,
+    speculative_generate,
+)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -305,6 +322,109 @@ class _PoolBase:
                 self._on_retire(i, s)
                 self.slots[i] = None
         return events
+
+
+class SlotPool(_PoolBase):
+    """The replay-slot engine: ``batch_size`` decode slots, no KV cache
+    kept between rounds, every round a ragged left-padded replay of the
+    active histories through ``generate`` (greedy, the einsum path: per-row
+    masks). With ``draft_params`` each round runs the speculative
+    verify-commit loop instead, which commits the target's own argmaxes,
+    so the streams are unchanged. Drive it with ``admit`` and
+    ``step_round``."""
+
+    def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
+                 kv_quant: bool = False, eos_id: int | None = None,
+                 temperature: float = 0.0,
+                 draft_params: Params | None = None,
+                 draft_cfg: ModelConfig | None = None, gamma: int = 4,
+                 device=None):
+        if temperature != 0.0:
+            raise _not_ported("sampling (temperature > 0)",
+                              "5: sampling with threefry bit-parity")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+        self.device = resolve_device(device)
+        for name, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is not None and tree["embed"].device != self.device:
+                raise ValueError(f"{name} live on {tree['embed'].device}, "
+                                 f"the pool on {self.device}")
+        self.params, self.cfg = params, cfg
+        self.batch_size = batch_size
+        self.kv_quant = kv_quant
+        self.eos_id = eos_id
+        self.draft_params, self.draft_cfg, self.gamma = (
+            draft_params, draft_cfg, gamma)
+        self.slots: list = [None] * batch_size
+        self.stats = {"rounds": 0, "slot_steps": 0, "active_slot_steps": 0,
+                      "replayed_tokens": 0}
+        if draft_params is not None:
+            self.stats.update({"verify_rounds": 0, "committed_tokens": 0,
+                               "draft_steps": 0})
+        telemetry.metrics().set_gauge("serve_target_stream_bytes",
+                                      quant.decode_stream_bytes(params))
+
+    def reset(self) -> None:
+        """Abandon every in-flight row; the pool keeps no device state
+        beyond its slots."""
+        self.slots = [None] * self.batch_size
+
+    def admits(self, r: Request) -> bool:
+        """Capacity is slots, not blocks."""
+        return self.free_slots() > 0
+
+    def admit(self, r: Request) -> None:
+        """Place a validated request in a free slot (raises when full:
+        callers check ``admits``)."""
+        self.validate(r, self.cfg)
+        self.slots[self._free_index()] = _Slot(
+            rid=r.rid, history=list(r.tokens), remaining=r.max_new,
+            generated=[])
+
+    def step_round(self) -> dict:
+        """One round over the active slots; returns the event fold's
+        {rid: {"new", "done", "generated"}}."""
+        active = [s for s in self.slots if s is not None]
+        if not active:
+            return {}
+        # A device fault or abort: fires only when a round would dispatch.
+        faults.fire("pool.device")
+        # The largest power of two within every active row's budget: each
+        # round retires a row or at least halves the smallest budget.
+        chunk = _bucket_down(min(s.remaining for s in active))
+        lens = [len(s.history) if s is not None else 1 for s in self.slots]
+        width = _bucket_up(max(lens))
+        batch = torch.zeros((self.batch_size, width), dtype=torch.long)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                batch[i, width - len(s.history):] = torch.tensor(s.history)
+        batch = batch.to(self.device)
+        if self.draft_params is None:
+            out = generate(self.params, batch, self.cfg, chunk,
+                           kv_quant=self.kv_quant, prompt_lengths=lens,
+                           device=self.device)
+        else:
+            out, spec = speculative_generate(
+                self.params, self.draft_params, batch, self.cfg,
+                self.draft_cfg, chunk, gamma=self.gamma,
+                kv_quant=self.kv_quant, with_stats=True, prompt_lengths=lens,
+                device=self.device)
+            self.stats["verify_rounds"] += spec["verify_rounds"]
+            # gamma + 1 draft steps a verify round (speculative.py's
+            # draft-cache-hole note).
+            self.stats["draft_steps"] += (spec["verify_rounds"]
+                                          * (self.gamma + 1))
+            self.stats["committed_tokens"] += len(active) * chunk
+        self.stats["rounds"] += 1
+        self.stats["replayed_tokens"] += sum(len(s.history) for s in active)
+        self.stats["slot_steps"] += self.batch_size * chunk
+        self.stats["active_slot_steps"] += len(active) * chunk
+        return self._emit_events(out.tolist(), [chunk] * self.batch_size)
 
 
 class PagedPool(_PoolBase):
@@ -571,14 +691,16 @@ class PagedPool(_PoolBase):
 
 
 class Scheduler:
-    """Admission and queueing for the paged pool: a waiting queue ordered
-    by priority class (higher first), then arrival, with whole-footprint
-    admission at every round boundary (head-of-line: a small request does
-    not overtake a big one that does not fit yet). Overcommit with
+    """Admission and queueing for a pool (``PagedPool`` or ``SlotPool``): a
+    waiting queue ordered by priority class (higher first), then arrival,
+    with admission at every round boundary by the pool's ``admits`` (the
+    paged pool's whole footprint, the slot pool's free slots;
+    head-of-line: a small request does not overtake a big one that does
+    not fit yet). Overcommit with
     preemption, deadlines (their EDF order and shedding), the request log
     and the device ledger of the reference are not ported."""
 
-    def __init__(self, pool: PagedPool, *, overcommit: bool = False):
+    def __init__(self, pool, *, overcommit: bool = False):
         if overcommit:
             raise _not_ported("overcommit admission and preemption",
                               "5: overcommit and preemption")
@@ -628,34 +750,50 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
           batch_size: int, *, kv_quant: bool = False,
           eos_id: int | None = None, temperature: float = 0.0,
           stats: dict | None = None, draft_params: Params | None = None,
+          draft_cfg: ModelConfig | None = None, gamma: int = 4,
           resident: bool = False, paged: bool = False,
           kv_blocks: int | None = None, block_size: int = 64,
           prefill_budget: int = 64, prefix_cache: bool = False,
           overcommit: bool = False, spec_lookup: bool = False,
           device=None) -> dict:
-    """Run every request through a ``batch_size``-row paged pool; returns
-    {rid: generated token list}. Greedy; ``eos_id`` finishes a row at the
-    first emission of that token (inclusive). ``stats``, if given, is
-    filled with the pool's accounting (rounds, slot_steps,
-    active_slot_steps, prefill_tokens, prefill_chunks, blocks_total,
-    blocks_peak, ...) plus a ``"scheduler"`` sub-dict.
+    """Run every request through a ``batch_size``-row pool; returns {rid:
+    generated token list}. Greedy; ``eos_id`` finishes a row at the first
+    emission of that token (inclusive). ``paged=True`` is the block-paged
+    engine (``kv_quant=True`` only; ``kv_blocks``, ``block_size``,
+    ``prefill_budget`` go to it); ``paged=False`` the replay-slot engine,
+    whose rounds run the speculative verify-commit loop when
+    ``draft_params``/``draft_cfg``/``gamma`` are given (greedy: the
+    streams are unchanged). ``stats``, if given, is filled with the
+    pool's accounting (rounds, slot_steps, active_slot_steps, and the
+    engine's own: prefill_tokens, blocks_peak, ... or replayed_tokens,
+    verify_rounds, committed_tokens, draft_steps) plus a
+    ``"scheduler"`` sub-dict.
 
     ``device`` None means the card (and raises without CUDA); ``params``
-    must already live there. Only ``paged=True, kv_quant=True`` is
-    ported; the reference's other engines and options raise
-    ``NotImplementedError``."""
-    if not paged or resident:
-        raise _not_ported("the slot and resident engines (serve with "
-                          "paged=False or resident=True)",
+    must already live there. The resident engine and the reference's
+    other options raise ``NotImplementedError``."""
+    if resident:
+        raise _not_ported("the resident engine (serve with resident=True)",
                           "8: the other engines")
     if len({r.rid for r in requests}) != len(requests):
         raise ValueError("duplicate request rids (results key by rid)")
-    pool = PagedPool(params, cfg, batch_size, kv_blocks=kv_blocks,
-                     block_size=block_size, prefill_budget=prefill_budget,
-                     kv_quant=kv_quant, eos_id=eos_id,
-                     temperature=temperature, draft_params=draft_params,
-                     spec_lookup=spec_lookup, prefix_cache=prefix_cache,
-                     device=device)
+    if paged:
+        pool = PagedPool(params, cfg, batch_size, kv_blocks=kv_blocks,
+                         block_size=block_size,
+                         prefill_budget=prefill_budget, kv_quant=kv_quant,
+                         eos_id=eos_id, temperature=temperature,
+                         draft_params=draft_params, spec_lookup=spec_lookup,
+                         prefix_cache=prefix_cache, device=device)
+    else:
+        if spec_lookup:
+            raise ValueError(
+                "spec_lookup rides the resident/paged engines' split "
+                "draft/verify seam; the replay pool has no per-row "
+                "frontier to verify from")
+        pool = SlotPool(params, cfg, batch_size, kv_quant=kv_quant,
+                        eos_id=eos_id, temperature=temperature,
+                        draft_params=draft_params, draft_cfg=draft_cfg,
+                        gamma=gamma, device=device)
     sched = Scheduler(pool, overcommit=overcommit)
     for r in requests:
         pool.validate(r, cfg)  # every request fails loudly before compute
