@@ -6,7 +6,9 @@
 Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device  -- the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build   -- nvcc builds every kernel under tpu_bootstrap_torch/workload/csrc.
+2. build   -- nvcc builds every kernel under tpu_bootstrap_torch/workload/csrc;
+              each bf16 flash kernel's registers and spills (-Xptxas -v)
+              and its HGMMA count (cuobjdump -sass), which must not be 0.
 3. k1      -- int8_matmul (kernel K1) against its plain version at every
               (K, N) of the decode model, T in {1, 8, 64}, x in bf16 and f32;
               each row of a T=8 launch must equal, bitwise, the row alone.
@@ -68,15 +70,21 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-13. k3     -- flash_fwd (kernel K3) against its plain version (out and lse,
-              each element to its own limit) at the train shapes (B=8
-              S=1023 and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and
-              not, plus a GQA and small head-dim cases; timed beside
+13. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+              CUDA cores) against its plain version (out and lse, each
+              element to its own limit) at the train shapes (B=8 S=1023
+              and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
+              plus a GQA and small head-dim cases (D 32 in both dtypes, 128
+              in bf16); in bf16 a control (one KV tile skipped) must land
+              outside the limits; the kernels' shared memory against
+              kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
 14. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
-              equal; timed beside SDPA's backward.
+              equal; in bf16 the controls (a skipped KV tile, delta'
+              dropped, the lse cotangent ignored) must land outside the
+              limit; timed beside SDPA's backward.
 15. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
@@ -85,24 +93,30 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               FLASH_DENSE_TOL, the attention weights' gradients equal to the
               dense core's within ATTN_GRAD_TOL while a broken attention's
               land outside it, 8 launches of each flash kernel per step; one
-              profiled step; then two steps of train_loop.
+              profiled step, in which each flash role's device time must
+              be above 0; then two steps of train_loop.
 16. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
-              steps; with remat the forward kernel runs twice per layer.
+              steps; with remat the forward kernel runs twice per layer;
+              the same profiled-step check.
 
-Then one ``{"kernels": [...]}`` line and, last, the device line the caller
-reads. Times are medians of CUDA-event timings after warm-up, with the 50 MB
-L2 cache flushed before every timed launch (the serving path streams more
-than L2 holds between two launches of one weight). ``bound_ms`` is the larger
-of the bytes the function must move (each input read once, each output
-written once) over the H100 SXM's 3.35 TB/s and its operations over the
-card's peak for their type. The script imports nothing of JAX.
+Then one ``{"phase_seconds": {...}}`` line (each phase's wall time), one
+``{"kernels": [...]}`` line and, last, the device line the caller reads.
+Times are medians of CUDA-event timings after warm-up, with the 50 MB L2
+cache flushed before every timed launch (the serving path streams more than
+L2 holds between two launches of one weight). ``bound_ms`` is the larger of
+the bytes the function must move (each input read once, each output written
+once) over the H100 SXM's 3.35 TB/s and its operations over the card's peak
+for their type. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -224,11 +238,56 @@ def phase_device(torch) -> dict:
     return info
 
 
+SM90_KERNEL = re.compile(r"flash_(fwd|dq|dkv)_sm90_kernelILi(\d+)E")
+
+
+def _sm90_report(log: str, sass: str) -> dict:
+    """Per bf16 flash kernel: registers and spill bytes from the build's
+    ``-Xptxas -v`` lines, and its HGMMA (wgmma) instructions from
+    ``cuobjdump -sass`` of the library."""
+    report, name = {}, None
+    for line in log.splitlines():
+        found = SM90_KERNEL.search(line)
+        if found and "Compiling entry function" in line:
+            name = f"flash_{found[1]}_sm90<{found[2]}>"
+            report[name] = {"hgmma": 0}
+        elif name and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            report[name].update({f"spill_{k}": int(v) for v, k in nums})
+        elif name and "registers" in line:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            name = None
+    for line in sass.splitlines():
+        found = SM90_KERNEL.search(line)
+        if "Function :" in line:
+            name = f"flash_{found[1]}_sm90<{found[2]}>" if found else None
+            if name:
+                report.setdefault(name, {"hgmma": 0})
+        elif name and "HGMMA" in line:
+            report[name]["hgmma"] += 1
+    return report
+
+
 def phase_build(kernels) -> None:
+    """Builds every kernel (``-Xptxas -v``, shown on stderr) and checks that
+    each bf16 flash kernel computes on the tensor cores: HGMMA in its
+    SASS."""
     t0 = time.perf_counter()
-    path = kernels.build(verbose=True)
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": str(path.name)})
+    log = io.StringIO()
+    with contextlib.redirect_stderr(log):
+        path = kernels.build(verbose=True)
+    print(log.getvalue(), file=sys.stderr, flush=True)
+    seconds = round(time.perf_counter() - t0, 3)
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    sm90 = _sm90_report(log.getvalue(), sass)
+    emit({"phase": "build", "seconds": seconds, "library": str(path.name),
+          "sm90": sm90})
+    if len(sm90) != 9 or any(r["hgmma"] == 0 for r in sm90.values()):
+        raise SystemExit(f"build: the bf16 flash kernels' SASS: {sm90}")
 
 
 def phase_k1(torch, kernels, quant, timer, device) -> dict:
@@ -644,7 +703,8 @@ def _profile(torch, run, tags: dict) -> dict:
     fold): device busy time (the sum of kernel times, one stream) against
     the run's wall time, the device time of the kernels named in ``tags``
     ({key: kernel-name fragment, or a tuple of fragments that must all be
-    in the name}), and the kernels that take most.
+    in the name, or a list of those, summed}), and the kernels that take
+    most.
     Profiling slows the host, so the idle share is an upper bound for the
     unprofiled run."""
     from torch.profiler import ProfilerActivity, profile
@@ -660,9 +720,11 @@ def _profile(torch, run, tags: dict) -> dict:
     top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:8]
 
     def share(tag):
-        frags = (tag,) if isinstance(tag, str) else tag
+        alts = tag if isinstance(tag, list) else [tag]
+        alts = [(a,) if isinstance(a, str) else a for a in alts]
         return sum(e.self_device_time_total for e in gpu
-                   if all(f in e.key for f in frags)) / 1e3
+                   if any(all(f in e.key for f in frags)
+                          for frags in alts)) / 1e3
 
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
@@ -1163,7 +1225,9 @@ def phase_speculative(torch, kernels, device) -> dict:
 # Flash cases: (name, B, S, H, Hk, D, dtype, causal, dlse). The train shapes
 # (B=8, S=1023 and B=2, S=8191, H=16, D=64: the train and train_long phases'
 # attention), a GQA and a non-causal case, and small cases for the other
-# head dims the kernels instantiate.
+# head dims the kernels instantiate. bf16 runs the tensor-core kernels
+# (csrc/flash_attention_sm90.cu), f32 the CUDA-core ones
+# (csrc/flash_attention.cu).
 FLASH_CASES = (
     ("train", 8, 1023, 16, 16, 64, "bfloat16", True, False),
     ("train", 8, 1023, 16, 16, 64, "float32", True, False),
@@ -1173,22 +1237,34 @@ FLASH_CASES = (
     ("full", 8, 1023, 16, 16, 64, "bfloat16", False, False),
     ("full", 8, 1023, 16, 16, 64, "float32", False, False),
     ("d32", 2, 333, 8, 2, 32, "float32", True, True),
+    ("d32", 2, 333, 8, 2, 32, "bfloat16", True, True),
     ("d128", 2, 333, 8, 4, 128, "bfloat16", False, True),
 )
 # K3 against its plain version, element by element: |got - want| <=
-# rtol * |want| + atol. Both compute in f32 from the same inputs and differ
-# only in the order of f32 sums over up to 8191 terms (about 1e-6 here), so:
-# lse, f32 in every dtype, and out in f32 to 1e-5 relative plus 1e-5; out
-# in bf16 also to one bf16 step (2^-7 relative at most), for the elements
-# whose two f32 values straddle a bf16 rounding boundary. One step at the
-# bottom of a binade reads just under 1 (0.99 on an NVIDIA H100 80GB HBM3,
-# 700 W); two steps, or a skipped KV tile, read far above it.
-K3_OUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+# rtol * |want| + atol. lse is f32 in every dtype and both sides compute it
+# in f32 from the same scores, apart in the order of f32 sums (about 1e-6
+# here): 1e-5 relative plus 1e-5. out in f32: the same, 1e-5 plus 1e-5.
+# out in bf16: the tensor-core kernel rounds P to bf16 (2^-9 relative a
+# term) before P V, and the sums stay f32, so out moves by up to 2^-9 *
+# sum(p |v|) / l, about 2^-8 where p sits on a few rows of randn v; out
+# itself is rounded to bf16, one step (2^-7 relative at most) where the
+# two f32 values straddle a rounding boundary: 2^-7 relative plus 2^-7.
+# The rounding emulated on the CPU reads at most half of it against the
+# reference (tests/test_torch_flash_attention.py); on an NVIDIA H100 80GB
+# HBM3 (700 W) the worst element read 0.67 of it, and the control below,
+# one KV tile masked out of the plain version, 31 times it or more.
+K3_OUT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -7)}
 K3_LSE_TOL = (1e-5, 1e-5)
 # K4 against its plain backward, as max |got - want| / max |want|. f32: the
-# order of f32 sums. bf16: dq, dk and dv are rounded to bf16 (2^-8
-# relative) after sums in f32 that differ in order.
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# order of f32 sums. bf16: the kernels round P and dS to bf16 (2^-9
+# relative a term) before P^T dO, dS^T Q and dS K, with f32 sums, and dq,
+# dk and dv to bf16 (2^-9 of the largest): on an NVIDIA H100 80GB HBM3
+# (700 W) the cases read 0.0078 at most (the CPU emulation under 0.007),
+# and the controls, a skipped KV tile, a dropped delta' or an ignored lse
+# cotangent, 0.12 or more.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The controls' KV tile: keys [64, 128) masked out as well.
+CONTROL_SKIP = (64, 128)
 
 
 def _flash_inputs(torch, device, case, seed: int):
@@ -1233,9 +1309,47 @@ def _sdpa_layout(torch, *ts):
     return [t.detach().transpose(1, 2).contiguous() for t in ts]
 
 
+def _skipped_tile(torch, q, k, v, w, wl, scale: float, causal: bool,
+                  grads: bool) -> tuple:
+    """A control: the plain attention in f32 with the keys of CONTROL_SKIP
+    masked out too, as a kernel that skipped one KV tile would compute;
+    (out, lse) and, if ``grads``, the gradients of sum(out * w) + sum(lse *
+    wl) with respect to q, k and v."""
+    b, s, h, _ = q.shape
+    g = h // k.shape[2]
+    qf, kf, vf = (t.detach().float().requires_grad_(grads) for t in (q, k, v))
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril()
+    keep[:, CONTROL_SKIP[0]:CONTROL_SKIP[1]] = False
+    with torch.set_grad_enabled(grads):
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf * scale,
+                          torch.repeat_interleave(kf, g, dim=2))
+        sc = sc.masked_fill(~keep, -1e30)
+        lse = torch.logsumexp(sc, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(sc - lse[..., None]),
+                           torch.repeat_interleave(vf, g, dim=2))
+        lse = lse.transpose(1, 2)
+        if not grads:
+            return out, lse
+        loss = (out * w.float()).sum() + (lse * wl).sum()
+        return out, lse, *torch.autograd.grad(loss, (qf, kf, vf))
+
+
 def phase_k3(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
-    """flash_fwd (kernel K3) against its plain version: out and lse."""
+    """flash_fwd (kernel K3) against its plain version: out and lse; in
+    bf16 (below the long shape) a control, one KV tile skipped, must land
+    outside the limits."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    for r, role in enumerate(kernels.FLASH_ROLES):
+        for d in kernels.FLASH_HEAD_DIMS:
+            for dt in (torch.float32, torch.bfloat16):
+                got = kernels.lib().tpubc_flash_smem_bytes(
+                    r, d, int(dt == torch.bfloat16))
+                want = kernels.flash_smem_bytes(role, d, dt)
+                if got != want:
+                    raise SystemExit(f"k3: flash_smem_bytes({role}, {d}, "
+                                     f"{dt}) = {want}, the kernels say {got}")
     rows, failures = [], []
     for n, case in enumerate(cases):
         name, b, s, h, hk, d, dtype, causal, _ = case
@@ -1255,6 +1369,16 @@ def phase_k3(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
                "lse_max_abs_err": (lse - want_lse).abs().max().item(),
                "out_tol_ratio": out_ratio, "lse_tol_ratio": lse_ratio,
                "close": finite and out_ratio <= 1 and lse_ratio <= 1}
+        if dtype == "bfloat16" and s < 4096:
+            c_out, c_lse = _skipped_tile(torch, q, k, v, None, None, scale,
+                                         causal, grads=False)
+            row["control_out_tol_ratio"] = _tol_ratio(
+                torch, c_out.to(q.dtype), want, K3_OUT_TOL[dtype])
+            row["control_lse_tol_ratio"] = _tol_ratio(torch, c_lse, want_lse,
+                                                      K3_LSE_TOL)
+            row["close"] &= (row["control_out_tol_ratio"] > 1
+                             and row["control_lse_tol_ratio"] > 1)
+            del c_out, c_lse
         del want, want_lse, out, lse
         if name in ("train", "long", "gqa", "full"):
             timer = Timer(torch, device, reps=10 if s > 4096 else 25)
@@ -1290,7 +1414,9 @@ def phase_k4(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
     """flash_dq and flash_dkv (kernel K4) through the autograd function,
     against the plain backward of the plain forward, on a weighted sum of
     out plus (where the case says so) of lse; two backward runs must be
-    bitwise equal."""
+    bitwise equal. In bf16 (below the long shape) the controls must land
+    outside the limit: one KV tile skipped (dq, dk, dv), delta' dropped (dq,
+    dk) and, with an lse cotangent, that cotangent ignored (dq, dk)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows, failures = [], []
     for n, case in enumerate(cases):
@@ -1321,6 +1447,22 @@ def phase_k4(torch, fa, kernels, device, cases=FLASH_CASES) -> dict:
                "bitwise_repeat": all(torch.equal(a, c)
                                      for a, c in zip(got, again))}
         row["close"] = finite and max(errs) <= FLASH_TOL[dtype]
+        if dtype == "bfloat16" and s < 4096:
+            args = (q, k, v, w, lse_p)
+            controls = {
+                "skipped_tile": _skipped_tile(torch, q, k, v, w, wl, scale,
+                                              causal, grads=True)[2:],
+                "no_delta": fa.attention_bwd_plain(
+                    *args, torch.zeros_like(delta_p), scale, causal)[:2]}
+            if dlse:
+                controls["no_dlse"] = fa.attention_bwd_plain(
+                    *args, delta_p + wl, scale, causal)[:2]
+            row["control_rel_err"] = {
+                name: [_rel_err(torch, g, x) for g, x in zip(c, want)]
+                for name, c in controls.items()}
+            row["close"] &= all(min(e) > FLASH_TOL[dtype]
+                                for e in row["control_rel_err"].values())
+            del controls, args
         del got, again, want, out_p
         if name in ("train", "long", "gqa", "full"):
             timer = Timer(torch, device, reps=10 if s > 4096 else 25)
@@ -1383,9 +1525,11 @@ FLASH_DENSE_TOL = 1e-3
 # read 0.009-0.015 and the control 1.0-1.31; the limit sits between.
 ATTN_GRAD_TOL = 0.1
 ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
-FLASH_TAGS = {"flash_fwd_ms": "flash_fwd_kernel",
-              "flash_dq_ms": "flash_dq_kernel",
-              "flash_dkv_ms": "flash_dkv_kernel"}
+# Device time of each flash role: the f32 kernel and the bf16 one summed (a
+# list of name fragments sums the kernels that match any of them).
+FLASH_TAGS = {"flash_fwd_ms": ["flash_fwd_kernel", "flash_fwd_sm90_kernel"],
+              "flash_dq_ms": ["flash_dq_kernel", "flash_dq_sm90_kernel"],
+              "flash_dkv_ms": ["flash_dkv_kernel", "flash_dkv_sm90_kernel"]}
 
 
 def _bench_mfu(cfg, n_params: int, batch: int, step_s: float) -> float:
@@ -1523,12 +1667,14 @@ def phase_train(torch, kernels, device) -> dict:
           and out["flash_dense_diff"] <= FLASH_DENSE_TOL
           and max(out["attn_grad_err"].values()) <= ATTN_GRAD_TOL
           and min(out["control_attn_grad_err"].values()) > ATTN_GRAD_TOL
-          and all(per_step[k] == layers for k in per_step))
+          and all(per_step[k] == layers for k in per_step)
+          and all(out["profile"][k] > 0 for k in FLASH_TAGS))
     if not ok:
         raise SystemExit(
             f"train failed: losses={losses} loop={loop} "
             f"dense={out['dense_loss']} grads={out['attn_grad_err']} "
-            f"control={out['control_attn_grad_err']} launches={per_step}")
+            f"control={out['control_attn_grad_err']} launches={per_step} "
+            f"profile={[out['profile'][k] for k in FLASH_TAGS]}")
     return out
 
 
@@ -1549,9 +1695,11 @@ def phase_train_long(torch, kernels, device) -> dict:
     layers = cfg.model.num_layers
     if not (all(math.isfinite(x) for x in out["losses"])
             and per_step["flash_fwd"] == 2 * layers
-            and per_step["flash_dq"] == per_step["flash_dkv"] == layers):
+            and per_step["flash_dq"] == per_step["flash_dkv"] == layers
+            and all(out["profile"][k] > 0 for k in FLASH_TAGS)):
         raise SystemExit(f"train_long failed: losses={out['losses']} "
-                         f"launches={per_step}")
+                         f"launches={per_step} "
+                         f"profile={[out['profile'][k] for k in FLASH_TAGS]}")
     return out
 
 
@@ -1594,30 +1742,37 @@ def main() -> int:
 
     device = torch.device("cuda")
     info = phase_device(torch)
-    phase_build(kernels)
+    seconds = {}  # wall time of each phase, printed before the kernels line
+
+    def run(name, phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    run("build", phase_build, kernels)
     timer = Timer(torch, device)
-    out = {"k1": phase_k1(torch, kernels, quant, timer, device),
-           "k2": phase_k2(torch, kernels, decode, decode_attention, timer,
-                          device),
-           "k1e": phase_k1e(torch, kernels, quant, timer, device),
-           "k6": phase_k6(torch, kernels, quant, timer, device),
-           "k5": phase_k5(torch, kernels, decode, decode_attention, timer,
-                          device)}
+    out = {"k1": run("k1", phase_k1, torch, kernels, quant, timer, device),
+           "k2": run("k2", phase_k2, torch, kernels, decode,
+                     decode_attention, timer, device),
+           "k1e": run("k1e", phase_k1e, torch, kernels, quant, timer,
+                      device),
+           "k6": run("k6", phase_k6, torch, kernels, quant, timer, device),
+           "k5": run("k5", phase_k5, torch, kernels, decode,
+                     decode_attention, timer, device)}
     del timer  # frees the L2-flush buffer
-    out["serve"] = phase_serve(torch, kernels, device)
-    torch.cuda.empty_cache()
-    out["serve_int4"] = phase_serve_int4(torch, kernels, device)
-    torch.cuda.empty_cache()
-    out["serve_moe"] = phase_serve_moe(torch, kernels, device)
-    torch.cuda.empty_cache()
-    out["generate_int8kv"] = phase_generate_int8kv(torch, kernels, device)
-    torch.cuda.empty_cache()
-    out["speculative"] = phase_speculative(torch, kernels, device)
-    torch.cuda.empty_cache()
-    out["k3"] = phase_k3(torch, fa, kernels, device)
-    out["k4"] = phase_k4(torch, fa, kernels, device)
-    out["train"] = phase_train(torch, kernels, device)
-    phase_train_long(torch, kernels, device)
+    for name, phase in (("serve", phase_serve),
+                        ("serve_int4", phase_serve_int4),
+                        ("serve_moe", phase_serve_moe),
+                        ("generate_int8kv", phase_generate_int8kv),
+                        ("speculative", phase_speculative)):
+        out[name] = run(name, phase, torch, kernels, device)
+    out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
+    out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
+    out["train"] = run("train", phase_train, torch, kernels, device)
+    run("train_long", phase_train_long, torch, kernels, device)
+    emit({"phase_seconds": seconds})
     emit({"kernels": kernel_lines(out)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
@@ -1637,13 +1792,18 @@ def kernel_lines(out: dict) -> list:
     k5_main = next(r for r in out["k5"]["rows"] if r["Hk"] == 16
                    and r["L"] == K5_TIMED_L and r["mask"] == "full"
                    and r["q"] == "bfloat16")
-    k3_main = next(r for r in k3["rows"] if r["case"] == "train"
-                   and r["dtype"] == "bfloat16")
-    k4_main = next(r for r in k4["rows"] if r["case"] == "train"
-                   and r["dtype"] == "bfloat16")
+    k3_main, k3_f32 = (next(r for r in k3["rows"] if r["case"] == "train"
+                            and r["dtype"] == dt)
+                       for dt in ("bfloat16", "float32"))
+    k4_main, k4_f32 = (next(r for r in k4["rows"] if r["case"] == "train"
+                            and r["dtype"] == dt)
+                       for dt in ("bfloat16", "float32"))
     flash_at = ("one launch at the train shape: B=8 S=1023 H=Hk=16 D=64, "
                 "bf16, causal")
-    src = "tpu_bootstrap_torch/workload/csrc/flash_attention.cu"
+    # The bf16 route (the train phases' path) is the sm90 source; f32_ms is
+    # the f32 route's time at the same shape (csrc/flash_attention.cu).
+    src = "tpu_bootstrap_torch/workload/csrc/flash_attention_sm90.cu"
+    f32_src = "tpu_bootstrap_torch/workload/csrc/flash_attention.cu"
     ref = "tpu_bootstrap/workload/flash_attention.py"
     moe = [(shape, "bfloat16", True) for shape in MOE_SHAPES]
     moe_at = ("one MoE decode step, T=8: 8 x (moe_up, moe_down) stacks of "
@@ -1677,6 +1837,7 @@ def kernel_lines(out: dict) -> list:
          "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": k3_main["library_ms"],
+         "f32_ms": k3_f32["kernel_ms"], "f32_source": f32_src,
          "at": flash_at + "; library: scaled_dot_product_attention"},
         # No one PyTorch call computes dq alone or dk/dv alone: SDPA's
         # backward (all three) is given beside them, not as library_ms.
@@ -1688,7 +1849,7 @@ def kernel_lines(out: dict) -> list:
          "bound_ms": k4_main["dq_bound_ms"],
          "bound_by": k4_main["dq_bound_by"],
          "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
-         "at": flash_at},
+         "f32_ms": k4_f32["dq_ms"], "f32_source": f32_src, "at": flash_at},
         {"name": "flash_dkv", "route": "cuda", "source": src,
          "replaces": f"{ref}:267",
          "launches": train_launches["flash_dkv"],
@@ -1697,7 +1858,7 @@ def kernel_lines(out: dict) -> list:
          "bound_ms": k4_main["dkv_bound_ms"],
          "bound_by": k4_main["dkv_bound_by"],
          "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
-         "at": flash_at},
+         "f32_ms": k4_f32["dkv_ms"], "f32_source": f32_src, "at": flash_at},
         kernel_entry(
             "int8_expert_matmul", "int8_matmul.cu", "quant.py:246",
             out["serve_moe"]["int8"]["launches"]["int8_expert_matmul"],

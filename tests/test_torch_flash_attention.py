@@ -9,7 +9,13 @@ Pallas kernels run in interpret mode.
 Tolerances: f32 on both sides, so the two differ only in the order of f32
 sums (the reference folds 16-row tiles online, the plain version sums
 whole rows): gradients to 5e-5, as the reference's own flash-vs-dense
-tests; out and lse against a float64 evaluation (see the forward test)."""
+tests; out and lse against a float64 evaluation (see the forward test).
+
+The bf16 kernels round P and dS to bf16 before their second products; a
+test-local emulation of that arithmetic is held to the reference in bf16
+under the limits ``chip_smoke.py`` holds the card to, and controls (a KV
+tile skipped, delta' dropped, the lse cotangent ignored) must land outside
+them."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tpu_bootstrap.workload import decode as jdecode
 from tpu_bootstrap.workload import flash_attention as jfa
 from tpu_bootstrap.workload import model as jmodel
@@ -134,6 +141,107 @@ def test_lse_cotangent_changes_the_gradients_as_autograd_says():
     dq, dk, dv = (a - b for a, b in zip(results["with"], results["without"]))
     assert dq.abs().max() > 1e-3 and dk.abs().max() > 1e-3
     assert dv.abs().max() < 1e-6
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _kernel_rounding(q, k, v, w, wl, causal, skip=None, delta_term=True,
+                     dlse_term=True):
+    """The bf16 kernels' arithmetic in whole-matrix form (a model of
+    csrc/flash_attention_sm90.cu, not a path of the package): bf16
+    operands, f32 scores scaled after the product, P (unnormalised, against
+    the row max) and dS rounded to bf16 before P V, P^T dO, dS^T Q and
+    dS K, every sum in f32, outputs rounded to bf16. Controls: ``skip``
+    masks the KV columns [skip, skip + 16) as a kernel that skipped a tile
+    would; ``delta_term`` False drops delta', ``dlse_term`` False ignores
+    the lse cotangent. Returns (out, lse, dq, dk, dv)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    scale = d ** -0.5
+    kr, vr = (torch.repeat_interleave(t, g, dim=2) for t in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kr) * scale
+    keep = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    if skip is not None:
+        keep[:, skip:skip + 16] = False
+    sc = sc.masked_fill(~keep, -1e30)
+    m = sc.max(-1, keepdim=True).values
+    pt = torch.exp(sc - m)
+    l = pt.sum(-1, keepdim=True)
+    out = (torch.einsum("bhqk,bkhd->bhqd", _bf16(pt), vr) / l).transpose(1, 2)
+    lse = (m + torch.log(l))[..., 0].transpose(1, 2)
+    out = _bf16(out)
+    delta = (w * out).sum(-1) * delta_term - wl * (delta_term and dlse_term)
+    p = torch.exp(sc - lse.transpose(1, 2)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", w, vr)
+    ds = _bf16(p * (dp - delta.transpose(1, 2)[..., None]))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), w)
+    dk, dv = (t.reshape(b, s, -1, g, d).sum(3) for t in (dk, dv))
+    return out, lse, _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+def _tol_ratio(got, want, tol) -> float:
+    rtol, atol = tol
+    return float(np.max(np.abs(got - want) / (rtol * np.abs(want) + atol)))
+
+
+def _rel_err(got, want) -> float:
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("hk,causal", [(4, True), (4, False), (2, True),
+                                       (2, False)])
+def test_bf16_rounding_scheme_within_the_card_limits(hk, causal):
+    """The bf16 kernels' rounding (emulated) against the reference's Pallas
+    kernels (interpret mode) on the same bf16 inputs, at an unaligned
+    length and a head dim whose scale is not a power of two: out, lse and
+    the gradients of sum(out * w) + sum(lse * wl) stay within half of
+    chip_smoke's bf16 limits, and each control lands above them."""
+    s, d = 77, 32
+    rng = np.random.default_rng(9)
+    # bf16-representable inputs, the same on both sides.
+    q, k, v, w = (_bf16(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32))).numpy() for shape in ((2, s, HEADS, d), (2, s, hk, d),
+                                            (2, s, hk, d), (2, s, HEADS, d)))
+    wl = rng.standard_normal((2, s, HEADS)).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                              block_size=BLOCK)
+        return jnp.sum(o.astype(jnp.float32) * w) + jnp.sum(lse * wl)
+
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    jo, jl = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal,
+                                          block_size=BLOCK)
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ref = [np.asarray(x.astype(jnp.float32)) for x in (jo, jl, *grads)]
+    args = [torch.from_numpy(a) for a in (q, k, v, w, wl)]
+    out_tol = chip_smoke.K3_OUT_TOL["bfloat16"]
+    lse_tol = chip_smoke.K3_LSE_TOL
+    grad_tol = chip_smoke.FLASH_TOL["bfloat16"]
+
+    def errors(got):
+        got = [t.numpy() for t in got]
+        return (_tol_ratio(got[0], ref[0], out_tol),
+                _tol_ratio(got[1], ref[1], lse_tol),
+                [_rel_err(g, x) for g, x in zip(got[2:], ref[2:])])
+
+    out_r, lse_r, grad_e = errors(_kernel_rounding(*args, causal))
+    assert out_r <= 0.5 and lse_r <= 0.5, (out_r, lse_r)
+    assert max(grad_e) <= grad_tol / 2, grad_e
+    # A skipped KV tile moves out, lse and every gradient past its limit.
+    out_r, lse_r, grad_e = errors(_kernel_rounding(*args, causal, skip=32))
+    assert out_r > 1 and lse_r > 1 and min(grad_e) > grad_tol, (
+        out_r, lse_r, grad_e)
+    # Without delta', or without the lse cotangent, dq and dk leave theirs.
+    for control in ({"delta_term": False}, {"dlse_term": False}):
+        _, _, grad_e = errors(_kernel_rounding(*args, causal, **control))
+        assert min(grad_e[:2]) > grad_tol, (control, grad_e)
 
 
 def test_tiling_arguments_do_not_change_the_result():

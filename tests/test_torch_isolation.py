@@ -124,3 +124,65 @@ def test_smem_rule_mirrors_the_kernel_layout():
     assert kernels.decode_attention_smem_bytes(64, 1) == (
         kernels.paged_attention_smem_bytes(kernels.DECODE_TILE, 64, 1)) == (
         2 * 256 + 512 + 3 * 16 + 2 * 512 + 128 * 68 + 128 * 64)
+
+
+def test_flash_smem_fits_a_cta_and_follows_the_tiles():
+    # Every (kernel, head dim, dtype) the flash kernels instantiate fits
+    # the shared memory an H100 gives one CTA (232,448 bytes).
+    for role in kernels.FLASH_ROLES:
+        for d in kernels.FLASH_HEAD_DIMS:
+            for dt in (torch.float32, torch.bfloat16):
+                assert 0 < kernels.flash_smem_bytes(role, d, dt) <= 232_448
+    # f32 (CUDA cores): 64 x 64 tiles staged as (64, D + 4) f32 with a
+    # (64, 72) score tile, D = 64.
+    assert kernels.flash_tiles("fwd", 64, torch.float32) == (64, 64)
+    assert kernels.flash_smem_bytes("fwd", 64, torch.float32) == (
+        4 * (3 * 64 * 68 + 64 * 72))
+    assert kernels.flash_smem_bytes("dkv", 64, torch.float32) == (
+        4 * (4 * 64 * 68 + 2 * 64 * 72 + 2 * 64))
+    # bf16 (tensor cores), D = 64: the CTA's own 128-row bf16 tiles, a
+    # two-stage ring of the step's tiles, five 8-byte barriers and 1024
+    # bytes to align the start.
+    tiles = {role: kernels.flash_tiles(role, 64, torch.bfloat16)
+             for role in kernels.FLASH_ROLES}
+    assert tiles == {"fwd": (128, 64), "dq": (128, 32), "dkv": (128, 64)}
+    rest = 5 * 8 + 1024
+    assert kernels.flash_smem_bytes("fwd", 64, torch.bfloat16) == (
+        128 * 64 * 2 + 2 * 2 * 64 * 64 * 2 + rest)  # Q; K, V
+    assert kernels.flash_smem_bytes("dq", 64, torch.bfloat16) == (
+        2 * 128 * 64 * 2 + 2 * 2 * 32 * 64 * 2 + rest)  # Q, dO; K, V
+    assert kernels.flash_smem_bytes("dkv", 64, torch.bfloat16) == (
+        2 * 128 * 64 * 2 + 2 * (2 * 64 * 64 * 2 + 2 * 64 * 4) + rest)
+    # Steps are whole 16-row wgmma reductions; D = 128 narrows them.
+    for role in kernels.FLASH_ROLES:
+        for d in kernels.FLASH_HEAD_DIMS:
+            rows, step = kernels.flash_tiles(role, d, torch.bfloat16)
+            assert rows == 128 and step % 16 == 0
+    assert kernels.flash_tiles("dkv", 128, torch.bfloat16) == (128, 32)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        kernels.flash_tiles("fwd", 48, torch.bfloat16)
+
+
+def test_build_report_reads_registers_spills_and_hgmma():
+    # chip_smoke's build phase reads ptxas's -v lines and cuobjdump's SASS
+    # for each bf16 flash kernel; an f32 kernel is left out.
+    import chip_smoke
+
+    log = ("ptxas info    : Compiling entry function '_ZN11tpubc_flash21flash_"
+           "fwd_sm90_kernelILi64EEEv14CUtensorMap_st' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN11tpubc_flash21flash_"
+           "fwd_sm90_kernelILi64EEEv14CUtensorMap_st\n"
+           "    40 bytes stack frame, 44 bytes spill stores, 68 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 96 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN16flash_fwd_kernelIf"
+           "Li64EEEvPKT_' for 'sm_90a'\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n")
+    sass = ("\tFunction : _ZN11tpubc_flash21flash_fwd_sm90_kernelILi64EEEv14C\n"
+            "  /*26e0*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR56], RZ, !UPT ;\n"
+            "  /*2850*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR56], R24 ;\n"
+            "\tFunction : _ZN16flash_fwd_kernelIfLi64EEEvPKT_\n"
+            "  /*0100*/  FFMA R1, R2, R3, R4 ;\n")
+    assert chip_smoke._sm90_report(log, sass) == {
+        "flash_fwd_sm90<64>": {"hgmma": 2, "spill_stores": 44,
+                               "spill_loads": 68, "registers": 96}}

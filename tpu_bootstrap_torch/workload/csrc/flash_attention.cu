@@ -1,4 +1,7 @@
-// Kernels K3 and K4: flash attention, forward and backward.
+// Kernels K3 and K4: flash attention, forward and backward; f32 inputs here,
+// bf16 inputs on the tensor cores in csrc/flash_attention_sm90.cu. The C
+// entries at the end serve both: they route by dtype, so a bf16 tensor
+// never reaches the kernels of this file.
 //
 // Replaces the Pallas kernels of tpu_bootstrap/workload/flash_attention.py:
 //   flash_fwd  <- `_fwd_kernel` (launched by `_fwd`)
@@ -7,7 +10,7 @@
 //                 reference's separate f32 sum of dk/dv over the query group
 // Same functions: q (B, S, H, D), k/v (B, S, Hk, D) with H % Hk == 0 (query
 // head h reads KV head h / (H / Hk), the contiguous grouping of repeat_kv),
-// bf16 or f32. Every operand is cast to f32 and q is scaled by sm_scale in
+// f32 here. Every operand is f32 and q is scaled by sm_scale in
 // f32 before the dot; scores of masked pairs are -1e30; the softmax is online
 // in f32. Forward: O = softmax(q k^T) v in q's dtype and LSE = m + log(l),
 // (B, S, H) f32. Backward, with delta' = rowsum(dO * O) - dlse given (B, S, H)
@@ -21,10 +24,9 @@
 // What bounds them on the H100: operations. At the train shapes (S = 1023
 // and 8191, D = 64) attention does 2*S*D operations per score for
 // 2 * D * (bytes per element) bytes per row, far above the card's ~295
-// operations per byte. This first port computes in f32 on the CUDA cores,
-// as the Pallas bodies are written, so its ceiling is the 67 TFLOP/s f32
-// rate, not the 989 TFLOP/s bf16 tensor-core rate its bound is quoted
-// against; a wgmma + TMA redesign is later work. What the design does:
+// operations per byte. These kernels compute in f32 on the CUDA cores, as
+// the Pallas bodies are written, so their ceiling is the 67 TFLOP/s f32
+// rate. What the design does:
 //   * tiles of 64 query rows by 64 KV rows, staged in shared memory as f32;
 //     each thread owns a 4 x 8 block of the score tile (rows w*16 + rg + 4i,
 //     columns cg + 8j) and a 4 x D/8 block of the output (columns
@@ -47,16 +49,18 @@
 // shared memory of a CTA above 48 KB is requested with
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
+
+using namespace tpubc_flash;
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;            // query rows and KV rows of a tile
 constexpr int kPStride = kTile + 8;  // row stride of a (64, 64) f32 tile
-constexpr float kNeg = -1e30f;
 
 template <int D>
 struct Dims {
@@ -97,41 +101,25 @@ __device__ __forceinline__ float row_sum(float v) {
 // Stage rows [row_begin, row_begin + 64) of one head into a (64, D + 4) f32
 // tile, times `scale`; rows at or past `s` are zero. `src` points at row 0
 // of the head; rows are `row_stride` elements apart. 16-byte loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           size_t row_stride, int row_begin,
                                           int s, float scale) {
-  constexpr int kPer = 16 / sizeof(T);
-  constexpr int kChunks = D / kPer;
+  constexpr int kChunks = D / 4;
   constexpr int S = Dims<D>::kStride;
   for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const int gr = row_begin + r;
-    float* out = dst + r * S + c * kPer;
+    float* out = dst + r * S + c * 4;
     if (gr >= s) {
-#pragma unroll
-      for (int e = 0; e < kPer; e += 4)
-        *reinterpret_cast<float4*>(out + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(out) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
     const uint4 raw =
         __ldg(reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride) + c);
-    if constexpr (sizeof(T) == 2) {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 t = __bfloat1622float2(h[e]);
-        f[2 * e] = t.x * scale;
-        f[2 * e + 1] = t.y * scale;
-      }
-      *reinterpret_cast<float4*>(out) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(out + 4) = make_float4(f[4], f[5], f[6], f[7]);
-    } else {
-      const float4 t = *reinterpret_cast<const float4*>(&raw);
-      *reinterpret_cast<float4*>(out) =
-          make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale);
-    }
+    const float4 t = *reinterpret_cast<const float4*>(&raw);
+    *reinterpret_cast<float4*>(out) =
+        make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale);
   }
 }
 
@@ -212,17 +200,10 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c,
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(a, b);
-  h[1] = __floats2bfloat162_rn(c, d);
-}
-
 // Rows [row_begin + row0 + 4i] of a (64, D) register block, times `scale`,
 // into the model-layout output; rows at or past s are not written.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, size_t row_stride,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, size_t row_stride,
                                            int row_begin, int s,
                                            const float (&o)[4][Dims<D>::kOut],
                                            const float (&scale)[4],
@@ -231,7 +212,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, size_t row_strid
   for (int i = 0; i < 4; ++i) {
     const int gr = row_begin + t.row0 + 4 * i;
     if (gr >= s) continue;
-    T* row = dst + (size_t)gr * row_stride;
+    float* row = dst + (size_t)gr * row_stride;
 #pragma unroll
     for (int v = 0; v < Dims<D>::kVec; ++v)
       store4(row + t.cg * 4 + 32 * v, o[i][4 * v] * scale[i],
@@ -240,41 +221,13 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, size_t row_strid
   }
 }
 
-// Geometry shared by the three kernels: strides of the model layout and the
-// base pointers of one (batch, head) row.
-struct Heads {
-  int b, hq, kh;          // batch, query head, KV head
-  size_t q_stride, kv_stride, lse_stride;
-  size_t q_base, kv_base, lse_base;
-};
-
-__device__ __forceinline__ Heads heads(int b, int hq, int s, int h, int hk,
-                                       int d) {
-  Heads g;
-  g.b = b;
-  g.hq = hq;
-  g.kh = hq / (h / hk);
-  g.q_stride = (size_t)h * d;
-  g.kv_stride = (size_t)hk * d;
-  g.lse_stride = (size_t)h;
-  g.q_base = (size_t)b * s * g.q_stride + (size_t)hq * d;
-  g.kv_base = (size_t)b * s * g.kv_stride + (size_t)g.kh * d;
-  g.lse_base = (size_t)b * s * h + hq;
-  return g;
-}
-
-// Masked score: column at or past s, or (causal) a row before its column.
-__device__ __forceinline__ bool masked(int row, int col, int s, int causal) {
-  return col >= s || (causal && row < col);
-}
-
 // ------------------------------------------------------------------ forward
 // Grid (B * H, number of q tiles); q tile = num_tiles - 1 - blockIdx.y, so
 // under causal the longest loops start first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int s, int h, int hk,
                  float sm_scale, int causal) {
   constexpr int F = Dims<D>::kTileFloats;
@@ -288,7 +241,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = nt - 1 - blockIdx.y;
   const Heads g = heads(blockIdx.x / h, blockIdx.x % h, s, h, hk, D);
   const Coords t = coords();
-  load_tile<T, D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
+  load_tile<D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
 
   float m[4], l[4], acc[4][Dims<D>::kOut];
 #pragma unroll
@@ -301,8 +254,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_tiles = causal ? qi + 1 : nt;
   for (int kj = 0; kj < kv_tiles; ++kj) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_s, k + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
-    load_tile<T, D>(v_s, v + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
+    load_tile<D>(k_s, k + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
+    load_tile<D>(v_s, v + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
     __syncthreads();
     float sc[4][8];
     tile_dot<D>(sc, q_s, k_s, t);
@@ -344,7 +297,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < Dims<D>::kOut; ++c) acc[i][c] /= l[i];
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(o + g.q_base, g.q_stride, qi * kTile, s, acc, one, t);
+  store_rows<D>(o + g.q_base, g.q_stride, qi * kTile, s, acc, one, t);
   if (t.cg == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -355,12 +308,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------- dq
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int s, int h, int hk, float sm_scale,
+                float* __restrict__ dq, int s, int h, int hk, float sm_scale,
                 int causal) {
   constexpr int F = Dims<D>::kTileFloats;
   extern __shared__ float4 smem4[];
@@ -376,8 +329,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = nt - 1 - blockIdx.y;
   const Heads g = heads(blockIdx.x / h, blockIdx.x % h, s, h, hk, D);
   const Coords t = coords();
-  load_tile<T, D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
-  load_tile<T, D>(do_s, dout + g.q_base, g.q_stride, qi * kTile, s, 1.f);
+  load_tile<D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
+  load_tile<D>(do_s, dout + g.q_base, g.q_stride, qi * kTile, s, 1.f);
   load_rows(lse_s, lse + g.lse_base, g.lse_stride, qi * kTile, s);
   load_rows(dl_s, delta + g.lse_base, g.lse_stride, qi * kTile, s);
 
@@ -389,8 +342,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_tiles = causal ? qi + 1 : nt;
   for (int kj = 0; kj < kv_tiles; ++kj) {
     __syncthreads();
-    load_tile<T, D>(k_s, k + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
-    load_tile<T, D>(v_s, v + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
+    load_tile<D>(k_s, k + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
+    load_tile<D>(v_s, v + g.kv_base, g.kv_stride, kj * kTile, s, 1.f);
     __syncthreads();
     float p[4][8], dp[4][8];
     tile_dot<D>(p, q_s, k_s, t);
@@ -418,18 +371,18 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_acc<D>(acc, ds_s, k_s, t);
   }
   const float scale[4] = {sm_scale, sm_scale, sm_scale, sm_scale};
-  store_rows<T, D>(dq + g.q_base, g.q_stride, qi * kTile, s, acc, scale, t);
+  store_rows<D>(dq + g.q_base, g.q_stride, qi * kTile, s, acc, scale, t);
 }
 
 // ---------------------------------------------------------------------- dkv
 // Grid (B * Hk, number of KV tiles); KV tile = blockIdx.y, so under causal
 // the tiles that see every query tile start first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int s, int h, int hk,
+                 float* __restrict__ dk, float* __restrict__ dv, int s, int h, int hk,
                  float sm_scale, int causal) {
   constexpr int F = Dims<D>::kTileFloats;
   extern __shared__ float4 smem4[];
@@ -448,8 +401,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int group = h / hk;
   const Coords t = coords();
   const Heads g0 = heads(b, kh * group, s, h, hk, D);
-  load_tile<T, D>(k_s, k + g0.kv_base, g0.kv_stride, kj * kTile, s, 1.f);
-  load_tile<T, D>(v_s, v + g0.kv_base, g0.kv_stride, kj * kTile, s, 1.f);
+  load_tile<D>(k_s, k + g0.kv_base, g0.kv_stride, kj * kTile, s, 1.f);
+  load_tile<D>(v_s, v + g0.kv_base, g0.kv_stride, kj * kTile, s, 1.f);
 
   float dk_acc[4][Dims<D>::kOut], dv_acc[4][Dims<D>::kOut];
 #pragma unroll
@@ -463,8 +416,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const Heads g = heads(b, kh * group + gi, s, h, hk, D);
     for (int qi = causal ? kj : 0; qi < nt; ++qi) {
       __syncthreads();
-      load_tile<T, D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
-      load_tile<T, D>(do_s, dout + g.q_base, g.q_stride, qi * kTile, s, 1.f);
+      load_tile<D>(q_s, q + g.q_base, g.q_stride, qi * kTile, s, sm_scale);
+      load_tile<D>(do_s, dout + g.q_base, g.q_stride, qi * kTile, s, 1.f);
       load_rows(lse_s, lse + g.lse_base, g.lse_stride, qi * kTile, s);
       load_rows(dl_s, delta + g.lse_base, g.lse_stride, qi * kTile, s);
       __syncthreads();
@@ -497,8 +450,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, D>(dk + g0.kv_base, g0.kv_stride, kj * kTile, s, dk_acc, one, t);
-  store_rows<T, D>(dv + g0.kv_base, g0.kv_stride, kj * kTile, s, dv_acc, one, t);
+  store_rows<D>(dk + g0.kv_base, g0.kv_stride, kj * kTile, s, dk_acc, one, t);
+  store_rows<D>(dv + g0.kv_base, g0.kv_stride, kj * kTile, s, dv_acc, one, t);
 }
 
 // ------------------------------------------------------------------ launch
@@ -525,69 +478,71 @@ bool bad_dims(int b, int s, int h, int hk) {
          (long long)b * h > 0x7fffffffLL || (s + kTile - 1) / kTile > 65535;
 }
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
         int s, int h, int hk, float sm_scale, int causal, cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t e = prepare(kernel, fwd_smem<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(b * h, (s + kTile - 1) / kTile);
   kernel<<<grid, kThreads, fwd_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), s,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), s,
       h, hk, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int b, int s, int h,
        int hk, float sm_scale, int causal, cudaStream_t st) {
-  auto kernel = flash_dq_kernel<T, D>;
+  auto kernel = flash_dq_kernel<D>;
   cudaError_t e = prepare(kernel, dq_smem<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(b * h, (s + kTile - 1) / kTile);
   kernel<<<grid, kThreads, dq_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq_out), s, h, hk, sm_scale, causal);
+      static_cast<float*>(dq_out), s, h, hk, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int b, int s,
         int h, int hk, float sm_scale, int causal, cudaStream_t st) {
-  auto kernel = flash_dkv_kernel<T, D>;
+  auto kernel = flash_dkv_kernel<D>;
   cudaError_t e = prepare(kernel, dkv_smem<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(b * hk, (s + kTile - 1) / kTile);
   kernel<<<grid, kThreads, dkv_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), s, h, hk, sm_scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), s, h, hk, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
-// Calls fn<T, D>() for the runtime (dtype, head dim), or reports an invalid
-// value.
+// Calls fn<D>() for the runtime head dim, or reports an invalid value.
 #define TPUBC_FLASH_DISPATCH(FN, ...)                                        \
   do {                                                                        \
-    if (is_bf16) {                                                            \
-      if (d == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
-      if (d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
-      if (d == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
-    } else {                                                                  \
-      if (d == 32) return FN<float, 32>(__VA_ARGS__);                         \
-      if (d == 64) return FN<float, 64>(__VA_ARGS__);                         \
-      if (d == 128) return FN<float, 128>(__VA_ARGS__);                       \
-    }                                                                         \
+    if (d == 32) return FN<32>(__VA_ARGS__);                           \
+    if (d == 64) return FN<64>(__VA_ARGS__);                           \
+    if (d == 128) return FN<128>(__VA_ARGS__);                         \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 
+template <int D>
+int smem_bytes(int role) {
+  return role == kFwd ? fwd_smem<D>() : role == kDq ? dq_smem<D>()
+         : role == kDkv ? dkv_smem<D>() : 0;
+}
+
 }  // namespace
+
+// The entries route by dtype: bf16 to the tensor-core kernels of
+// csrc/flash_attention_sm90.cu, f32 to the kernels above.
 
 extern "C" int tpubc_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int b, int s, int h, int hk,
@@ -595,6 +550,9 @@ extern "C" int tpubc_flash_fwd(const void* q, const void* k, const void* v,
                                void* stream) {
   if (bad_dims(b, s, h, hk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return tpubc_flash::fwd_sm90(q, k, v, o, lse, b, s, h, hk, d, sm_scale,
+                                 causal, st);
   TPUBC_FLASH_DISPATCH(fwd, q, k, v, o, lse, b, s, h, hk, sm_scale, causal, st);
 }
 
@@ -605,6 +563,9 @@ extern "C" int tpubc_flash_dq(const void* q, const void* k, const void* v,
                               int is_bf16, void* stream) {
   if (bad_dims(b, s, h, hk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return tpubc_flash::dq_sm90(q, k, v, dout, lse, delta, dq_out, b, s, h,
+                                hk, d, sm_scale, causal, st);
   TPUBC_FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, b, s, h, hk,
                        sm_scale, causal, st);
 }
@@ -616,6 +577,20 @@ extern "C" int tpubc_flash_dkv(const void* q, const void* k, const void* v,
                                int causal, int is_bf16, void* stream) {
   if (bad_dims(b, s, h, hk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return tpubc_flash::dkv_sm90(q, k, v, dout, lse, delta, dk, dv, b, s, h,
+                                 hk, d, sm_scale, causal, st);
   TPUBC_FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dk, dv, b, s, h, hk,
                        sm_scale, causal, st);
+}
+
+// Dynamic shared memory of a flash kernel (0: fwd, 1: dq, 2: dkv) at head
+// dim d for the dtype (kernels.flash_smem_bytes mirrors it); 0 for a head
+// dim the kernels do not take.
+extern "C" int tpubc_flash_smem_bytes(int role, int d, int is_bf16) {
+  if (is_bf16) return tpubc_flash::smem_bytes_sm90(role, d);
+  if (d == 32) return smem_bytes<32>(role);
+  if (d == 64) return smem_bytes<64>(role);
+  if (d == 128) return smem_bytes<128>(role);
+  return 0;
 }

@@ -13,17 +13,19 @@ differentiable, as the reference's ``custom_vjp`` is: its backward forms
 an lse consumer (the ring's logaddexp merge) gets the right gradients.
 
 On a CUDA tensor the forward launches ``kernels.flash_fwd`` and the
-backward ``kernels.flash_dq`` and ``kernels.flash_dkv``
-(``csrc/flash_attention.cu``); they raise on what they do not take and
-nothing falls back. On a CPU tensor the plain versions below run: dense
+backward ``kernels.flash_dq`` and ``kernels.flash_dkv``: bf16 inputs run
+the tensor-core kernels (``csrc/flash_attention_sm90.cu``, P and dS rounded
+to bf16 before their second products), f32 inputs the CUDA-core kernels
+(``csrc/flash_attention.cu``, all f32). They raise on what they do not take
+and nothing falls back. On a CPU tensor the plain versions below run: dense
 masked f32 attention and its hand-written backward, the same arithmetic in
 whole-matrix form. The kernels mask the ragged edge themselves, so no
 sequence padding is made on either path.
 
 ``block_size`` and ``block_k`` are validated exactly as the reference
 validates them (same errors, same messages), but they do not change the
-tiling: the CUDA kernels choose their own tiles (64 x 64), and the plain
-versions have none. The reference's ``interpret`` switch has no
+tiling: the CUDA kernels choose their own tiles (``kernels.flash_tiles``),
+and the plain versions have none. The reference's ``interpret`` switch has no
 counterpart.
 """
 

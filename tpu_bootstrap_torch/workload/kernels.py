@@ -146,6 +146,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tpubc_flash_dq.restype = i
     lib.tpubc_flash_dkv.argtypes = [p] * 8 + dims
     lib.tpubc_flash_dkv.restype = i
+    lib.tpubc_flash_smem_bytes.argtypes = [i, i, i]  # role, d, bf16
+    lib.tpubc_flash_smem_bytes.restype = i
     return lib
 
 
@@ -375,8 +377,44 @@ def decode_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return out
 
 
-# The flash kernels' head dims (csrc/flash_attention.cu instantiates these).
+# The flash kernels' head dims (csrc/flash_attention.cu instantiates these
+# for f32, csrc/flash_attention_sm90.cu for bf16).
 FLASH_HEAD_DIMS = (32, 64, 128)
+# Their roles, numbered as the C entry tpubc_flash_smem_bytes takes them.
+FLASH_ROLES = ("fwd", "dq", "dkv")
+FLASH_STAGES = 2  # depth of the bf16 kernels' ring of tiles
+
+
+def flash_tiles(role: str, d: int, dtype: torch.dtype) -> tuple:
+    """(rows a CTA owns, rows a step of its inner loop) of a flash kernel:
+    query rows for fwd and dq, KV rows for dkv, and the other way round
+    for the step. f32 (csrc/flash_attention.cu): 64 x 64. bf16
+    (csrc/flash_attention_sm90.cu): 128 rows, two consumer warpgroups of
+    64, by steps that keep each warpgroup's accumulators in registers."""
+    if role not in FLASH_ROLES or d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"no flash kernel {role!r} at head_dim {d}")
+    if dtype == torch.float32:
+        return 64, 64
+    step = {"fwd": 64, "dq": 64 if d == 128 else 32,
+            "dkv": 32 if d == 128 else 64}[role]
+    return 128, step
+
+
+def flash_smem_bytes(role: str, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a flash kernel, from its tiles (mirrors
+    fwd_smem / dq_smem / dkv_smem of csrc/flash_attention.cu and the
+    *Layout structs of csrc/flash_attention_sm90.cu; ``chip_smoke.py``
+    checks it against tpubc_flash_smem_bytes)."""
+    rows, step = flash_tiles(role, d, dtype)
+    if dtype == torch.float32:  # f32 tiles of D + 4 and 72 columns
+        tile, p = rows * (d + 4), rows * (rows + 8)
+        return 4 * {"fwd": 3 * tile + p, "dq": 4 * tile + p + 2 * rows,
+                    "dkv": 4 * tile + 2 * p + 2 * rows}[role]
+    own = (1 if role == "fwd" else 2) * rows * d * 2  # Q; Q, dO; K, V
+    ring = FLASH_STAGES * 2 * step * d * 2  # K, V; or Q, dO
+    row_vals = FLASH_STAGES * 2 * step * 4 if role == "dkv" else 0
+    barriers = 8 * (1 + 2 * FLASH_STAGES)
+    return own + ring + row_vals + barriers + 1024  # + alignment slack
 
 
 def _flash_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
