@@ -7,8 +7,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device  -- the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build   -- nvcc builds every kernel under tpu_bootstrap_torch/workload/csrc;
-              each bf16 flash kernel's registers and spills (-Xptxas -v)
-              and its HGMMA count (cuobjdump -sass), which must not be 0.
+              the registers and spills (-Xptxas -v) and the HGMMA count
+              (cuobjdump -sass) of each tensor-core kernel: the 9 bf16
+              flash kernels and the 8 int4 instantiations; no count may
+              be 0.
 3. k1      -- int8_matmul (kernel K1) against its plain version at every
               (K, N) of the decode model, T in {1, 8, 64}, x in bf16 and f32;
               each row of a T=8 launch must equal, bitwise, the row alone.
@@ -23,10 +25,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               bitwise, the row alone (per expert); timed beside torch.bmm.
 6. k6      -- int4_matmul (kernel K6, group 64) at every (K, N) of the
               decode model (lm_head as under head="int4"), T in {1, 8, 64},
-              plus a K tail (K=1000) and an odd small group (6); and
-              int4_expert_matmul (kernel K6e) at the two expert stacks; the
-              same checks, timed beside torch.matmul / torch.bmm on the
-              bf16-dequantized weight.
+              plus a K tail (K=1000) and an odd small group (6) with N=1000;
+              and int4_expert_matmul (kernel K6e) at the two expert stacks,
+              T in {1, 8, 32}; the same checks, each row launched alone
+              equal bitwise to its row of the launch at T = 8 and 64
+              (dense) and 8 and 32 (expert), each row's split and CTAs
+              printed, timed beside torch.matmul / torch.bmm on the
+              bf16-dequantized weight; then each decode shape at T = 8
+              launched with every split of K6_SWEEP_SPLITS and the plan's,
+              each held to the plain version and timed.
 7. k5      -- contiguous int8 decode attention (kernel K5) against its plain
               version at the decode model's caches (B=8, H=16, D=64, Hk 16
               and 4, L in {128, 256, 261, 512}), q in bf16 and f32, prefix
@@ -239,17 +246,36 @@ def phase_device(torch) -> dict:
 
 
 SM90_KERNEL = re.compile(r"flash_(fwd|dq|dkv)_sm90_kernelILi(\d+)E")
+INT4_KERNEL = re.compile(
+    r"int4_matmul_sm90_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E")
+# The tensor-core kernels the build must hold: 3 flash roles x 3 head dims,
+# and K6/K6e's x dtype x (dense, expert) x (TMA, plain loads).
+SM90_KERNELS = 9 + 8
+
+
+def _sm90_name(line: str):
+    """The short name of a tensor-core kernel whose mangled name is in
+    ``line``, else None."""
+    found = SM90_KERNEL.search(line)
+    if found:
+        return f"flash_{found[1]}_sm90<{found[2]}>"
+    found = INT4_KERNEL.search(line)
+    if found:
+        return (f"int4_sm90<{'bf16' if found[1] != 'f' else 'f32'}, "
+                f"{('dense', 'expert')[int(found[2])]}, "
+                f"{('ldg', 'tma')[int(found[3])]}>")
+    return None
 
 
 def _sm90_report(log: str, sass: str) -> dict:
-    """Per bf16 flash kernel: registers and spill bytes from the build's
-    ``-Xptxas -v`` lines, and its HGMMA (wgmma) instructions from
-    ``cuobjdump -sass`` of the library."""
+    """Per tensor-core kernel (bf16 flash, int4): registers and spill bytes
+    from the build's ``-Xptxas -v`` lines, and its HGMMA (wgmma)
+    instructions from ``cuobjdump -sass`` of the library."""
     report, name = {}, None
     for line in log.splitlines():
-        found = SM90_KERNEL.search(line)
+        found = _sm90_name(line)
         if found and "Compiling entry function" in line:
-            name = f"flash_{found[1]}_sm90<{found[2]}>"
+            name = found
             report[name] = {"hgmma": 0}
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
@@ -259,9 +285,8 @@ def _sm90_report(log: str, sass: str) -> dict:
                 re.search(r"Used (\d+) registers", line)[1])
             name = None
     for line in sass.splitlines():
-        found = SM90_KERNEL.search(line)
         if "Function :" in line:
-            name = f"flash_{found[1]}_sm90<{found[2]}>" if found else None
+            name = _sm90_name(line)
             if name:
                 report.setdefault(name, {"hgmma": 0})
         elif name and "HGMMA" in line:
@@ -271,8 +296,8 @@ def _sm90_report(log: str, sass: str) -> dict:
 
 def phase_build(kernels) -> None:
     """Builds every kernel (``-Xptxas -v``, shown on stderr) and checks that
-    each bf16 flash kernel computes on the tensor cores: HGMMA in its
-    SASS."""
+    each bf16 flash kernel and each int4 instantiation computes on the
+    tensor cores: HGMMA in its SASS."""
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stderr(log):
@@ -286,8 +311,9 @@ def phase_build(kernels) -> None:
     sm90 = _sm90_report(log.getvalue(), sass)
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
           "sm90": sm90})
-    if len(sm90) != 9 or any(r["hgmma"] == 0 for r in sm90.values()):
-        raise SystemExit(f"build: the bf16 flash kernels' SASS: {sm90}")
+    if (len(sm90) != SM90_KERNELS
+            or any(r["hgmma"] == 0 for r in sm90.values())):
+        raise SystemExit(f"build: the tensor-core kernels' SASS: {sm90}")
 
 
 def phase_k1(torch, kernels, quant, timer, device) -> dict:
@@ -547,12 +573,13 @@ def phase_k5(torch, kernels, decode, decode_attention, timer, device) -> dict:
 
 
 def _matmul_case(torch, timer, kernel, plain, library, x, weight_bytes: int,
-                 meta: dict) -> dict:
+                 meta: dict, invariant_t: tuple = (8,)) -> dict:
     """One quantized-matmul launch ``kernel(x)`` held to ``plain(x)``; at
-    T = 8 every row (of every expert) launched alone must equal its row
-    of the batch bitwise. Timed beside the plain version and one PyTorch
-    call (``library``) on the bf16-dequantized weight, with the bound of
-    the weight, x and out bytes and 2 * K operations per output."""
+    each T of ``invariant_t`` every row (of every expert) launched alone
+    must equal its row of the batch bitwise. Timed beside the plain
+    version and one PyTorch call (``library``) on the bf16-dequantized
+    weight, with the bound of the weight, x and out bytes and 2 * K
+    operations per output."""
     got = kernel(x)
     want = plain(x)
     torch.cuda.synchronize()
@@ -562,9 +589,9 @@ def _matmul_case(torch, timer, kernel, plain, library, x, weight_bytes: int,
     close = bool(torch.isfinite(got.float()).all()) and torch.allclose(
         got.float(), want.float(), rtol=rtol, atol=atol)
     invariant = None
-    if x.shape[-2] == 8:
+    if x.shape[-2] in invariant_t:
         alone = torch.cat([kernel(x[..., i:i + 1, :].contiguous())
-                           for i in range(8)], dim=-2)
+                           for i in range(x.shape[-2])], dim=-2)
         invariant = bool(torch.equal(alone, got))
     e = x.element_size()
     bound_ms, bound_by = bound(weight_bytes + (x.numel() + got.numel()) * e,
@@ -614,10 +641,16 @@ def phase_k1e(torch, kernels, quant, timer, device) -> dict:
     return _matmul_phase("k1e", rows)
 
 
+# T at which K6 (dense) and K6e (expert) rows must be bitwise batch
+# invariant: a decode step, and the serve phases' prefill chunks (64
+# tokens of one row; 32 per expert at capacity 32).
+K6_INVARIANT_T = {"dense": (8, 64), "expert": (8, 32)}
+
+
 def phase_k6(torch, kernels, quant, timer, device) -> dict:
     """K6 at every (K, N) of the decode model with group 64 (lm_head as
     head="int4" stores it), a K tail and an odd small group; K6e at the
-    two expert stacks."""
+    two expert stacks. Each row shows the split and CTAs of its plan."""
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
     cases = [(name, 0, k, n, INT4_GROUP, t)
@@ -626,6 +659,7 @@ def phase_k6(torch, kernels, quant, timer, device) -> dict:
     cases += [("group6", 0, 1024, 1000, 6, t) for t in (5, 8)]
     cases += [(name, MOE_MODEL["num_experts"], k, n, INT4_GROUP, t)
               for name, (k, n) in MOE_SHAPES.items() for t in (1, 8, 32)]
+    sms = kernels.sm_count(device)
     rows = []
     for name, e, k, n, group, t in cases:
         lead = (e,) if e else ()
@@ -638,6 +672,7 @@ def phase_k6(torch, kernels, quant, timer, device) -> dict:
             qw = quant.quantize_weight4(w, group=group)
             kernel, plain = kernels.int4_matmul, quant.int4_matmul_plain
             library = torch.matmul
+        plan = kernels.int4_plan(e or 1, qw.q.shape[-2] * 2, n, group, sms)
         w_bf16 = quant.dequantize_weight4(qw).to(torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(*lead, t, k, generator=gen, device=device).to(dtype)
@@ -648,9 +683,65 @@ def phase_k6(torch, kernels, quant, timer, device) -> dict:
                 lambda x: library(x.to(torch.bfloat16), w_bf16), x,
                 quant.weight_stream_bytes(qw),
                 {"shape": name, "E": e or None, "K": k, "N": n, "group": group,
-                 "T": t}))
+                 "T": t, "split": plan.split, "ctas": plan.ctas},
+                K6_INVARIANT_T["expert" if e else "dense"]))
         del w, qw, w_bf16
-    return _matmul_phase("k6", rows)
+    out = _matmul_phase("k6", rows)
+    out["split_sweep"] = _k6_split_sweep(torch, kernels, quant, timer, device)
+    return out
+
+
+# Splits timed at every decode shape (T = 8, bf16), and the plan's.
+K6_SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def _k6_split_sweep(torch, kernels, quant, timer, device) -> dict:
+    """K6/K6e at each decode shape (T = 8, bf16 x, group 64) launched
+    through the C entry with each split of K6_SWEEP_SPLITS the shape
+    takes: every result held to the plain version (MATMUL_TOL), each
+    timed; the plan's split beside them. The evidence behind
+    kernels.INT4_CTAS_PER_SM."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    sms = kernels.sm_count(device)
+    rtol, atol = MATMUL_TOL["bfloat16"]
+    sweep, failures = {}, []
+    for name, (k, n) in {**K1_SHAPES, **MOE_SHAPES}.items():
+        e = MOE_MODEL["num_experts"] if name in MOE_SHAPES else 1
+        w = torch.randn(e, k, n, generator=gen, device=device) / math.sqrt(k)
+        qw = quant.quantize_expert_weight4(w, group=INT4_GROUP)
+        x = torch.randn(e, 8, k, generator=gen, device=device).to(
+            torch.bfloat16)
+        want = quant.int4_expert_matmul_plain(x, qw.q, qw.s, INT4_GROUP, k)
+        out = torch.empty_like(want)
+
+        def launch(split):
+            rc = kernels.lib().tpubc_int4_matmul(
+                x.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(),
+                out.data_ptr(), e, 8, k, k // 2, n, INT4_GROUP, 1, split,
+                kernels._stream())
+            if rc:
+                raise SystemExit(f"k6 split sweep: {name} split {split}: "
+                                 f"CUDA error {rc}")
+
+        plan = kernels.int4_plan(e, k, n, INT4_GROUP, sms).split
+        ms = {}
+        for split in sorted({*K6_SWEEP_SPLITS, plan}):
+            if split > kernels.int4_units(k, INT4_GROUP):
+                continue
+            launch(split)
+            torch.cuda.synchronize()
+            if not torch.allclose(out.float(), want.float(), rtol=rtol,
+                                  atol=atol):
+                failures.append((name, split))
+            ms[split] = timer(lambda: launch(split))
+        sweep[name] = {"plan": plan, "ms": ms,
+                       "best": min(ms, key=ms.get)}
+        del w, qw
+    emit({"phase": "k6_split_sweep", "sweep": sweep})
+    if failures:
+        raise SystemExit(f"k6 split sweep: wrong results at {failures}")
+    return sweep
 
 
 def _serve_requests(serving, vocab: int, n: int, seed: int) -> list:
@@ -697,6 +788,16 @@ def _diverged(decode, params, cfg, reqs, done, solo: dict) -> list:
     return out
 
 
+# The launch counters (kernels.LAUNCHES) of the kernels each profile tag
+# times: a tag whose kernel was launched in the profiled run must find
+# device time under its names.
+TAG_LAUNCHES = {"k1_ms": ("int8_matmul",), "k1e_ms": ("int8_expert_matmul",),
+                "k2_ms": ("paged_attention",), "k5_ms": ("decode_attention",),
+                "k6_ms": ("int4_matmul",), "k6e_ms": ("int4_expert_matmul",),
+                "flash_fwd_ms": ("flash_fwd",), "flash_dq_ms": ("flash_dq",),
+                "flash_dkv_ms": ("flash_dkv",)}
+
+
 def _profile(torch, run, tags: dict) -> dict:
     """``run()`` once under torch.profiler (device activity only: a full
     serve records some 600k kernels, which takes the profiler minutes to
@@ -704,16 +805,21 @@ def _profile(torch, run, tags: dict) -> dict:
     the run's wall time, the device time of the kernels named in ``tags``
     ({key: kernel-name fragment, or a tuple of fragments that must all be
     in the name, or a list of those, summed}), and the kernels that take
-    most.
+    most. A tagged kernel that was launched in the run (TAG_LAUNCHES) but
+    shows no device time fails the phase: its name no longer matches.
     Profiling slows the host, so the idle share is an upper bound for the
     unprofiled run."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_bootstrap_torch.workload import kernels
+
+    before = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
     gpu = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
@@ -726,9 +832,15 @@ def _profile(torch, run, tags: dict) -> dict:
                    if any(all(f in e.key for f in frags)
                           for frags in alts)) / 1e3
 
+    shares = {key: share(tag) for key, tag in tags.items()}
+    unnamed = [key for key in tags if shares[key] == 0
+               and any(launched[n] for n in TAG_LAUNCHES[key])]
+    if unnamed:
+        raise SystemExit(f"profile: {unnamed} launched in the profiled run "
+                         f"but no device time under {[tags[k] for k in unnamed]}"
+                         f": a kernel was renamed")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms,
-            **{key: share(tag) for key, tag in tags.items()},
+            "idle_share": 1 - busy_ms / wall_ms, **shares,
             "kernel_launches": sum(e.count for e in gpu),
             "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
                      / 1e3, "count": e.count} for e in top]}
@@ -959,7 +1071,7 @@ def phase_serve_int4(torch, kernels, device) -> dict:
     diverged32 = _diverged(decode, params, cfg32, reqs, done32,
                            _solo_streams(decode, params, cfg32, reqs))
     profile = _serve_profile(torch, serving, params, cfg, reqs, {
-        "k6_ms": "int4_matmul_kernel", "k1_ms": "int8_matmul_kernel",
+        "k6_ms": "int4_matmul_sm90_kernel", "k1_ms": "int8_matmul_kernel",
         "k2_ms": "paged_attention_kernel"})
     result = {"phase": "serve_int4", "group": INT4_GROUP, "head": "int8",
               **{k: v for k, v in run.items() if k != "done"},
@@ -1040,12 +1152,13 @@ def phase_serve_moe(torch, kernels, device) -> dict:
         solo_differ = sum(solo[r.rid] != run["done"][r.rid]
                           for r in reqs[:MOE_SOLO])
         # A kernel's dense and expert forms are its <T, false> and
-        # <T, true> instantiations.
+        # <T, true> instantiations (K6's: <T, false, tma> and <T, true,
+        # tma>).
         profile = _serve_profile(torch, serving, qparams, cfg, reqs, {
             "k1_ms": ("int8_matmul_kernel<", ", false>"),
             "k1e_ms": ("int8_matmul_kernel<", ", true>"),
-            "k6_ms": ("int4_matmul_kernel<", ", false>"),
-            "k6e_ms": ("int4_matmul_kernel<", ", true>"),
+            "k6_ms": ("int4_matmul_sm90_kernel<", ", false, "),
+            "k6e_ms": ("int4_matmul_sm90_kernel<", ", true, "),
             "k2_ms": "paged_attention_kernel"})
         profile["expert_share"] = ((profile["k1e_ms"] + profile["k6e_ms"])
                                    / profile["device_busy_ms"])
@@ -1864,7 +1977,7 @@ def kernel_lines(out: dict) -> list:
             out["serve_moe"]["int8"]["launches"]["int8_expert_matmul"],
             out["k1e"], step_totals(out["k1e"]["rows"], moe), moe_at),
         kernel_entry(
-            "int4_matmul", "int4_matmul.cu", "quant.py:268",
+            "int4_matmul", "int4_matmul_sm90.cu", "quant.py:268",
             out["serve_int4"]["launches"]["int4_matmul"], out["k6"],
             step_totals(out["k6"]["rows"], [
                 (shape, "bfloat16", True)
@@ -1873,7 +1986,7 @@ def kernel_lines(out: dict) -> list:
             "64, bf16; library: torch.matmul on the bf16-dequantized "
             "weights"),
         kernel_entry(
-            "int4_expert_matmul", "int4_matmul.cu", "quant.py:268",
+            "int4_expert_matmul", "int4_matmul_sm90.cu", "quant.py:268",
             out["serve_moe"]["int4"]["launches"]["int4_expert_matmul"],
             out["k6"], step_totals(out["k6"]["rows"], moe),
             moe_at + ", group 64"),

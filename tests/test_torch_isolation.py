@@ -186,3 +186,31 @@ def test_build_report_reads_registers_spills_and_hgmma():
     assert chip_smoke._sm90_report(log, sass) == {
         "flash_fwd_sm90<64>": {"hgmma": 2, "spill_stores": 44,
                                "spill_loads": 68, "registers": 96}}
+
+
+def test_build_report_names_every_int4_instantiation():
+    # K6/K6e's tensor-core kernel: x dtype x (dense, expert) x (TMA, plain
+    # loads), each read from ptxas's lines and its SASS by its mangled name.
+    import chip_smoke
+
+    mangled = ("_ZN10tpubc_int423int4_matmul_sm90_kernelI{}Lb{}ELb{}EEEv14"
+               "CUtensorMap_stS1_NS_4ArgsE")
+    log, sass, want = "", "", {}
+    for x, xs in (("13__nv_bfloat16", "bf16"), ("f", "f32")):
+        for ex in (0, 1):
+            for tma in (0, 1):
+                name = mangled.format(x, ex, tma)
+                log += (f"ptxas info    : Compiling entry function '{name}' "
+                        "for 'sm_90a'\n"
+                        "    0 bytes stack frame, 0 bytes spill stores, 0 "
+                        "bytes spill loads\n"
+                        "ptxas info    : Used 90 registers, used 1 barriers\n")
+                sass += (f"\tFunction : {name}\n"
+                         "  /*0100*/  HGMMA.64x8x16.F32.BF16 R24, R40, "
+                         "gdesc[UR4], R24 ;\n")
+                short = (f"int4_sm90<{xs}, {('dense', 'expert')[ex]}, "
+                         f"{('ldg', 'tma')[tma]}>")
+                want[short] = {"hgmma": 1, "spill_stores": 0,
+                               "spill_loads": 0, "registers": 90}
+    assert chip_smoke._sm90_report(log, sass) == want
+    assert len(want) + 9 == chip_smoke.SM90_KERNELS

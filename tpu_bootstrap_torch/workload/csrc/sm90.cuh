@@ -1,7 +1,8 @@
 // Hopper's asynchronous building blocks as inline PTX (sm_90a): mbarriers,
 // TMA box loads and cp.async copies into shared memory, the shared-memory
-// matrix descriptor and warpgroup matrix multiplies (wgmma) with bf16
-// operands and f32 accumulators. Used by csrc/flash_attention_sm90.cu.
+// matrix descriptor, warpgroup matrix multiplies (wgmma) with bf16
+// operands and f32 accumulators, and the cluster's barrier and shared
+// memory. Used by csrc/flash_attention_sm90.cu and csrc/int4_matmul_sm90.cu.
 //
 // Shared-memory tiles that wgmma reads are stored in rows of W bytes (W =
 // 128, or 64 for a 32-wide bf16 tile), 16-byte chunks swizzled inside each
@@ -99,6 +100,19 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 16 bytes from global to shared memory (through L2 only); the bytes past
+// `src_bytes` (0 to 16) are written as zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Waits until this thread's cp.async copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Arrives on `bar` (one of its expected arrivals) once this thread's
 // earlier cp.async copies have landed; the thread does not wait.
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -137,6 +151,15 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for registers a wgmma reads asynchronously (its A operand):
+// placed after the wait that ends the read, it keeps them live (and
+// unreused) until then.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // 2^x on the special-function unit: relative error about 2^-22, results
@@ -269,6 +292,90 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The same with B K-major (its 16 reduction values of a column contiguous:
+// the layout of wgmma_ss's operands); N = 8 only.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<8>(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Waits until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes this thread's earlier shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One box of a 3-d tensor map (coordinates innermost first), as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') over `count` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------------ cluster
+
+// Every thread of every CTA of the cluster arrives, then waits for all:
+// shared-memory writes before the arrival are visible to the cluster's
+// reads after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of this CTA's shared-memory `addr` in the cluster's CTA
+// `rank`, for ld_cluster.
+// The same, ordering no memory: for a barrier that only has to wait (a
+// CTA that must not leave while the cluster still reads its memory).
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n"
+               "barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_peer(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 }  // namespace tpubc_sm90

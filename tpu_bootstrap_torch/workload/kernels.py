@@ -22,6 +22,7 @@ raises if the C entry reports a CUDA error, and adds one to its entry in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,6 +31,7 @@ import sys
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -127,8 +129,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # x, q, s, out, e, t, k, n, x_is_bf16, stream (e = 1: the dense form)
     lib.tpubc_int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.tpubc_int8_matmul.restype = i
-    # x, q, s, out, e, t, kdim, Ks / 2, n, group, x_is_bf16, stream
-    lib.tpubc_int4_matmul.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    # x, q, s, out, e, t, kdim, Ks / 2, n, group, x_is_bf16, split, stream
+    lib.tpubc_int4_matmul.argtypes = [p, p, p, p] + [i] * 8 + [p]
     lib.tpubc_int4_matmul.restype = i
     lib.tpubc_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, f, i, p]
@@ -223,9 +225,75 @@ def int8_expert_matmul(x: torch.Tensor, q: torch.Tensor,
     return _launch_int8(x, q, s, "int8_expert_matmul", 3)
 
 
+# K6/K6e's layout (csrc/quant_matmul_sm90.cuh): output columns a CTA owns,
+# K rows a ring slot holds, the largest cluster of splits; and the CTAs per
+# SM the plan aims for (a CTA has one consumer warpgroup, so a second one
+# on an SM hides its latency; PERF.md gives the H100 sweep behind it).
+INT4_TILE_N = 64
+INT4_STAGE_K = 64
+INT4_MAX_SPLIT = 16
+INT4_CTAS_PER_SM = 2
+
+
+class Int4Plan(NamedTuple):
+    split: int   # CTAs along K: a cluster, summed in rank order
+    ctas: int    # CTAs of a launch per group of 32 T rows
+    stages: int  # ring slots (INT4_STAGE_K rows) the longest split streams
+
+
+def int4_units(ks: int, group: int) -> int:
+    """The units the contraction is split into: groups when a group is
+    whole k-steps of 16, else k-steps (``split_units`` in
+    csrc/quant_matmul_sm90.cuh)."""
+    return ks // group if group % 16 == 0 else -(-ks // 16)
+
+
+def int4_split_bounds(ks: int, group: int, split: int) -> list:
+    """The K range [k0, k1) of each split (``split_steps``): split r takes
+    units [r U / split, (r + 1) U / split). Raises for a split the kernel
+    does not take (its C entry refuses the same)."""
+    units = int4_units(ks, group)
+    if not 1 <= split <= min(INT4_MAX_SPLIT, units):
+        raise ValueError(f"int4 split {split} for Ks={ks}, group={group}: "
+                         f"want 1..{min(INT4_MAX_SPLIT, units)}")
+    per = group if group % 16 == 0 else 16
+    return [(r * units // split * per,
+             min((r + 1) * units // split * per, -(-ks // 16) * 16))
+            for r in range(split)]
+
+
+@functools.lru_cache(maxsize=4096)
+def int4_plan(e: int, ks: int, n: int, group: int, sms: int) -> Int4Plan:
+    """The split of K6/K6e's contraction, from the weight's shape and the
+    card's SM count only, never from T (batch invariance): about
+    INT4_CTAS_PER_SM CTAs per SM (rounded down) and never fewer than one;
+    at most one split a unit and INT4_MAX_SPLIT in all."""
+    tiles = e * -(-n // INT4_TILE_N)
+    units = int4_units(ks, group)
+    split = max(-(-sms // tiles), INT4_CTAS_PER_SM * sms // tiles)
+    split = max(1, min(split, INT4_MAX_SPLIT, units))
+    longest = max(k1 - k0 for k0, k1 in int4_split_bounds(ks, group, split))
+    return Int4Plan(split, tiles * split, -(-longest // INT4_STAGE_K))
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, the one input of int4_plan that is not the
+    weight's shape; read once per device."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def _launch_int4(x, q, s, group: int, kdim: int, name: str,
                  ndim: int) -> torch.Tensor:
-    """Validate and launch an int4 product (dense: ndim 2; expert: 3)."""
+    """Validate, plan and launch an int4 product (dense: ndim 2; expert:
+    3)."""
     _need(x, "x", _FLOATS, ndim)
     _need(q, "q", (torch.uint8,), ndim)
     _need(s, "s", (torch.float32,), ndim)
@@ -241,10 +309,11 @@ def _launch_int4(x, q, s, group: int, kdim: int, name: str,
                          f"{group}, kdim {kdim}")
     if not (x.device == q.device == s.device):
         raise ValueError(f"{name} operands on different devices")
+    plan = int4_plan(e, 2 * p, n, group, sm_count(x.device))
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     rc = lib().tpubc_int4_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), e, t, kdim,
-        p, n, group, int(x.dtype == torch.bfloat16), _stream())
+        p, n, group, int(x.dtype == torch.bfloat16), plan.split, _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

@@ -15,7 +15,7 @@ runs through a hand-written CUDA kernel on the card:
   weight is widened exactly, products are summed in f32 and the channel
   scale is applied once after the sum;
 * ``int4_matmul`` and ``int4_expert_matmul``: kernel K6 and its expert
-  form K6e (``csrc/int4_matmul.cu``, the port of ``_matmul4_kernel``):
+  form K6e (``csrc/int4_matmul_sm90.cu``, the port of ``_matmul4_kernel``):
   each nibble is widened, scaled by its group's f32 scale and rounded to
   bf16 BEFORE the product (the reference's order), products are summed
   in f32 and no scale follows the sum.
