@@ -9,11 +9,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 2. build   -- nvcc builds every kernel under tpu_bootstrap_torch/workload/csrc;
               the registers and spills (-Xptxas -v) and the HGMMA count
               (cuobjdump -sass) of each tensor-core kernel: the 9 bf16
-              flash kernels and the 8 int4 instantiations; no count may
-              be 0.
+              flash kernels and the 16 quantized-matmul instantiations (8
+              int8, 8 int4); no count may be 0, no quantized one may spill
+              or have its wgmmas serialized (ptxas C7520), and each
+              format's shared memory must equal kernels.quant_smem_bytes.
 3. k1      -- int8_matmul (kernel K1) against its plain version at every
-              (K, N) of the decode model, T in {1, 8, 64}, x in bf16 and f32;
-              each row of a T=8 launch must equal, bitwise, the row alone.
+              (K, N) of the decode model, T in {1, 8, 64}, plus a K tail
+              (K=1000), x in bf16 and f32 (MATMUL_TOL); each row launched
+              alone must equal, bitwise, its row of the launch at T = 8 and
+              64; each row's split and CTAs printed, timed beside
+              torch.matmul on the bf16-dequantized weight; then each decode
+              shape at T = 8 launched with every split of SWEEP_SPLITS and
+              the plan's, each held to the plain version and timed.
 4. k2      -- paged int8 decode attention (kernel K2) against its plain
               version over ragged lengths, an aliased table and garbage in
               every block a row does not own; widening the table must not
@@ -21,8 +28,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 5. k1e     -- int8_expert_matmul (kernel K1e) against its plain version at
               the MoE decode model's expert stacks (E=8; (K, N) = (1024,
               4096) and (4096, 1024)), T in {1, 8, 32, 256}, x in bf16 and
-              f32, plus a ragged case; each row of a T=8 launch must equal,
-              bitwise, the row alone (per expert); timed beside torch.bmm.
+              f32, plus a ragged case; each row launched alone must equal,
+              bitwise, its row of the launch at T = 8 and 32 (per expert);
+              timed beside torch.bmm.
 6. k6      -- int4_matmul (kernel K6, group 64) at every (K, N) of the
               decode model (lm_head as under head="int4"), T in {1, 8, 64},
               plus a K tail (K=1000) and an odd small group (6) with N=1000;
@@ -31,9 +39,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               equal bitwise to its row of the launch at T = 8 and 64
               (dense) and 8 and 32 (expert), each row's split and CTAs
               printed, timed beside torch.matmul / torch.bmm on the
-              bf16-dequantized weight; then each decode shape at T = 8
-              launched with every split of K6_SWEEP_SPLITS and the plan's,
-              each held to the plain version and timed.
+              bf16-dequantized weight; then the split sweep, as k1's.
 7. k5      -- contiguous int8 decode attention (kernel K5) against its plain
               version at the decode model's caches (B=8, H=16, D=64, Hk 16
               and 4, L in {128, 256, 261, 512}), q in bf16 and f32, prefix
@@ -157,7 +163,7 @@ INT4_GROUP = 64
 # (capacity 1 per expert per row), 32 the serve phases' 64-token prefill
 # chunk of one row (capacity 32), 256 64-token chunks of 4 rows.
 EXPERT_T = (1, 8, 32, 256)
-# K1e, K6 and K6e against their plain versions, |got - want| <= rtol *
+# K1, K1e, K6 and K6e against their plain versions, |got - want| <= rtol *
 # |want| + atol. Both sides multiply the same bf16-rounded operands (each
 # product exact in f32) and sum in f32 in other orders: bf16 outputs may
 # differ by one bf16 rounding (2^-8 relative), f32 outputs by the order of
@@ -246,11 +252,12 @@ def phase_device(torch) -> dict:
 
 
 SM90_KERNEL = re.compile(r"flash_(fwd|dq|dkv)_sm90_kernelILi(\d+)E")
-INT4_KERNEL = re.compile(
-    r"int4_matmul_sm90_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E")
+QUANT_KERNEL = re.compile(
+    r"quant_matmul_sm90_kernelILi([48])E(13__nv_bfloat16|f)Lb([01])ELb([01])E")
 # The tensor-core kernels the build must hold: 3 flash roles x 3 head dims,
-# and K6/K6e's x dtype x (dense, expert) x (TMA, plain loads).
-SM90_KERNELS = 9 + 8
+# and the quantized matmul's format (int8: K1/K1e, int4: K6/K6e) x x dtype
+# x (dense, expert) x (TMA, plain loads).
+SM90_KERNELS = 9 + 16
 
 
 def _sm90_name(line: str):
@@ -259,24 +266,27 @@ def _sm90_name(line: str):
     found = SM90_KERNEL.search(line)
     if found:
         return f"flash_{found[1]}_sm90<{found[2]}>"
-    found = INT4_KERNEL.search(line)
+    found = QUANT_KERNEL.search(line)
     if found:
-        return (f"int4_sm90<{'bf16' if found[1] != 'f' else 'f32'}, "
-                f"{('dense', 'expert')[int(found[2])]}, "
-                f"{('ldg', 'tma')[int(found[3])]}>")
+        return (f"int{found[1]}_sm90<{'bf16' if found[2] != 'f' else 'f32'}, "
+                f"{('dense', 'expert')[int(found[3])]}, "
+                f"{('ldg', 'tma')[int(found[4])]}>")
     return None
 
 
 def _sm90_report(log: str, sass: str) -> dict:
-    """Per tensor-core kernel (bf16 flash, int4): registers and spill bytes
-    from the build's ``-Xptxas -v`` lines, and its HGMMA (wgmma)
+    """Per tensor-core kernel (bf16 flash, int8, int4): registers and spill
+    bytes from the build's ``-Xptxas -v`` lines, whether ptxas serialized
+    its wgmmas (C7520, named with the function), and its HGMMA (wgmma)
     instructions from ``cuobjdump -sass`` of the library."""
     report, name = {}, None
     for line in log.splitlines():
         found = _sm90_name(line)
-        if found and "Compiling entry function" in line:
+        if found and "C7520" in line:
+            report.setdefault(found, {"hgmma": 0})["serialized"] = True
+        elif found and "Compiling entry function" in line:
             name = found
-            report[name] = {"hgmma": 0}
+            report.setdefault(name, {"hgmma": 0})
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             report[name].update({f"spill_{k}": int(v) for v, k in nums})
@@ -296,8 +306,10 @@ def _sm90_report(log: str, sass: str) -> dict:
 
 def phase_build(kernels) -> None:
     """Builds every kernel (``-Xptxas -v``, shown on stderr) and checks that
-    each bf16 flash kernel and each int4 instantiation computes on the
-    tensor cores: HGMMA in its SASS."""
+    each bf16 flash kernel and each int8 and int4 instantiation computes on
+    the tensor cores (HGMMA in its SASS), that no quantized instantiation
+    spills or has its wgmmas serialized, and that kernels.quant_smem_bytes
+    mirrors the CUDA layout."""
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stderr(log):
@@ -309,61 +321,49 @@ def phase_build(kernels) -> None:
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     sm90 = _sm90_report(log.getvalue(), sass)
+    smem = {bits: (kernels.quant_smem_bytes(bits),
+                   kernels.lib().tpubc_quant_smem_bytes(bits))
+            for bits in (4, 8)}
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
-          "sm90": sm90})
+          "sm90": sm90, "quant_smem_bytes": smem})
+    quant = [r for name, r in sm90.items() if name.startswith("int")]
     if (len(sm90) != SM90_KERNELS
-            or any(r["hgmma"] == 0 for r in sm90.values())):
-        raise SystemExit(f"build: the tensor-core kernels' SASS: {sm90}")
+            or any(r["hgmma"] == 0 for r in sm90.values())
+            or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                   or r.get("serialized") for r in quant)
+            or any(mine != theirs for mine, theirs in smem.values())):
+        raise SystemExit(f"build: the tensor-core kernels: {sm90}; "
+                         f"quant smem (Python, CUDA): {smem}")
 
 
 def phase_k1(torch, kernels, quant, timer, device) -> dict:
+    """K1 at every (K, N) of the decode model and a K tail; each row shows
+    the split and CTAs of its plan. Then the split sweep."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    rows, failures, max_err = [], [], 0.0
-    for name, (k, n) in K1_SHAPES.items():
+    cases = [(name, k, n, t) for name, (k, n) in K1_SHAPES.items()
+             for t in (1, 8, 64)]
+    cases += [("tail", 1000, 1024, t) for t in (5, 8)]
+    sms = kernels.sm_count(device)
+    rows = []
+    for name, k, n, t in cases:
         w = torch.randn(k, n, generator=gen, device=device) / math.sqrt(k)
         qw = quant.quantize_weight(w)
         w_bf16 = quant.dequantize_weight(qw).to(torch.bfloat16)
+        plan = kernels.int8_plan(1, k, n, sms)
         for dtype in (torch.bfloat16, torch.float32):
-            for t in (1, 8, 64):
-                x = torch.randn(t, k, generator=gen, device=device).to(dtype)
-                got = kernels.int8_matmul(x, qw.q, qw.s)
-                want = quant.int8_matmul_plain(x, qw.q, qw.s)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                max_err = max(max_err, err)
-                close = torch.allclose(got.float(), want.float(),
-                                       rtol=8e-3, atol=1e-3)
-                invariant = None
-                if t == 8:
-                    alone = torch.cat([kernels.int8_matmul(
-                        x[i:i + 1].contiguous(), qw.q, qw.s)
-                        for i in range(t)])
-                    invariant = bool(torch.equal(alone, got))
-                e = x.element_size()
-                bound_ms, bound_by = bound(
-                    k * n + 4 * n + t * k * e + t * n * e, 2 * t * k * n,
-                    BF16_FLOPS)
-                row = {"shape": name, "K": k, "N": n, "T": t,
-                       "x": str(dtype).removeprefix("torch."),
-                       "max_abs_err": err, "close": close,
-                       "batch_invariant": invariant,
-                       "kernel_ms": timer(
-                           lambda: kernels.int8_matmul(x, qw.q, qw.s)),
-                       "plain_ms": timer(
-                           lambda: quant.int8_matmul_plain(x, qw.q, qw.s)),
-                       "library_ms": timer(
-                           lambda: torch.matmul(x.to(torch.bfloat16),
-                                                w_bf16)),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
-                rows.append(row)
-                if not close or invariant is False:
-                    failures.append(row)
-    emit({"phase": "k1", "tolerance": {"rtol": 8e-3, "atol": 1e-3},
-          "max_abs_err": max_err, "rows": rows})
-    if failures:
-        raise SystemExit(f"k1 failed: {failures}")
-    return {"rows": rows, "max_abs_err": max_err}
+            x = torch.randn(t, k, generator=gen, device=device).to(dtype)
+            rows.append(_matmul_case(
+                torch, timer, lambda x: kernels.int8_matmul(x, qw.q, qw.s),
+                lambda x: quant.int8_matmul_plain(x, qw.q, qw.s),
+                lambda x: torch.matmul(x.to(torch.bfloat16), w_bf16), x,
+                quant.weight_stream_bytes(qw),
+                {"shape": name, "K": k, "N": n, "T": t, "split": plan.split,
+                 "ctas": plan.ctas}, INVARIANT_T["dense"]))
+        del w, qw, w_bf16
+    out = _matmul_phase("k1", rows)
+    out["split_sweep"] = _split_sweep(torch, kernels, quant, timer, device, 8)
+    return out
 
 
 def _k2_inputs(torch, decode, device, hk: int, gen):
@@ -617,17 +617,20 @@ def _matmul_phase(name: str, rows: list) -> dict:
 
 def phase_k1e(torch, kernels, quant, timer, device) -> dict:
     """K1e at the MoE decode model's expert stacks, and a ragged case (odd
-    T, N not a multiple of 8)."""
+    T, N not a multiple of 16: the plain-load path); each row shows the
+    split and CTAs of its plan."""
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     cases = [(name, MOE_MODEL["num_experts"], k, n, t)
              for name, (k, n) in MOE_SHAPES.items() for t in EXPERT_T]
     cases.append(("ragged", 3, 1000, 1001, 5))
+    sms = kernels.sm_count(device)
     rows = []
     for name, e, k, n, t in cases:
         w = torch.randn(e, k, n, generator=gen, device=device) / math.sqrt(k)
         qw = quant.quantize_expert_weight(w)
         w_bf16 = quant.dequantize_weight(qw).to(torch.bfloat16)
+        plan = kernels.int8_plan(e, k, n, sms)
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(e, t, k, generator=gen, device=device).to(dtype)
             rows.append(_matmul_case(
@@ -636,15 +639,18 @@ def phase_k1e(torch, kernels, quant, timer, device) -> dict:
                 lambda x: quant.int8_expert_matmul_plain(x, qw.q, qw.s),
                 lambda x: torch.bmm(x.to(torch.bfloat16), w_bf16), x,
                 quant.weight_stream_bytes(qw),
-                {"shape": name, "E": e, "K": k, "N": n, "T": t}))
+                {"shape": name, "E": e, "K": k, "N": n, "T": t,
+                 "split": plan.split, "ctas": plan.ctas},
+                INVARIANT_T["expert"]))
         del w, qw, w_bf16
     return _matmul_phase("k1e", rows)
 
 
-# T at which K6 (dense) and K6e (expert) rows must be bitwise batch
-# invariant: a decode step, and the serve phases' prefill chunks (64
-# tokens of one row; 32 per expert at capacity 32).
-K6_INVARIANT_T = {"dense": (8, 64), "expert": (8, 32)}
+# T at which the quantized matmuls' dense (K1, K6) and expert (K1e, K6e)
+# rows must be bitwise batch invariant: a decode step, and the serve
+# phases' prefill chunks (64 tokens of one row; 32 per expert at capacity
+# 32).
+INVARIANT_T = {"dense": (8, 64), "expert": (8, 32)}
 
 
 def phase_k6(torch, kernels, quant, timer, device) -> dict:
@@ -684,50 +690,62 @@ def phase_k6(torch, kernels, quant, timer, device) -> dict:
                 quant.weight_stream_bytes(qw),
                 {"shape": name, "E": e or None, "K": k, "N": n, "group": group,
                  "T": t, "split": plan.split, "ctas": plan.ctas},
-                K6_INVARIANT_T["expert" if e else "dense"]))
+                INVARIANT_T["expert" if e else "dense"]))
         del w, qw, w_bf16
     out = _matmul_phase("k6", rows)
-    out["split_sweep"] = _k6_split_sweep(torch, kernels, quant, timer, device)
+    out["split_sweep"] = _split_sweep(torch, kernels, quant, timer, device, 4)
     return out
 
 
 # Splits timed at every decode shape (T = 8, bf16), and the plan's.
-K6_SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
-def _k6_split_sweep(torch, kernels, quant, timer, device) -> dict:
-    """K6/K6e at each decode shape (T = 8, bf16 x, group 64) launched
-    through the C entry with each split of K6_SWEEP_SPLITS the shape
-    takes: every result held to the plain version (MATMUL_TOL), each
-    timed; the plan's split beside them. The evidence behind
-    kernels.INT4_CTAS_PER_SM."""
+def _split_sweep(torch, kernels, quant, timer, device, bits: int) -> dict:
+    """K1/K1e (bits 8) or K6/K6e (bits 4, group 64) at each decode shape (T
+    = 8, bf16 x) launched through the C entry with each split of
+    SWEEP_SPLITS the shape takes: every result held to the plain version
+    (MATMUL_TOL), each timed; the plan's split beside them. The evidence
+    behind kernels.INT8_CTAS_PER_SM / INT4_CTAS_PER_SM."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(6)
+    gen.manual_seed(6 if bits == 4 else 7)
     sms = kernels.sm_count(device)
     rtol, atol = MATMUL_TOL["bfloat16"]
+    phase = "k6_split_sweep" if bits == 4 else "k1_split_sweep"
     sweep, failures = {}, []
     for name, (k, n) in {**K1_SHAPES, **MOE_SHAPES}.items():
         e = MOE_MODEL["num_experts"] if name in MOE_SHAPES else 1
         w = torch.randn(e, k, n, generator=gen, device=device) / math.sqrt(k)
-        qw = quant.quantize_expert_weight4(w, group=INT4_GROUP)
         x = torch.randn(e, 8, k, generator=gen, device=device).to(
             torch.bfloat16)
-        want = quant.int4_expert_matmul_plain(x, qw.q, qw.s, INT4_GROUP, k)
+        if bits == 4:
+            qw = quant.quantize_expert_weight4(w, group=INT4_GROUP)
+            want = quant.int4_expert_matmul_plain(x, qw.q, qw.s, INT4_GROUP, k)
+            plan = kernels.int4_plan(e, k, n, INT4_GROUP, sms).split
+            units = kernels.int4_units(k, INT4_GROUP)
+        else:
+            qw = quant.quantize_expert_weight(w)
+            want = quant.int8_expert_matmul_plain(x, qw.q, qw.s)
+            plan = kernels.int8_plan(e, k, n, sms).split
+            units = kernels.int8_units(k)
         out = torch.empty_like(want)
 
         def launch(split):
-            rc = kernels.lib().tpubc_int4_matmul(
-                x.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(),
-                out.data_ptr(), e, 8, k, k // 2, n, INT4_GROUP, 1, split,
-                kernels._stream())
+            ptrs = (x.data_ptr(), qw.q.data_ptr(), qw.s.data_ptr(),
+                    out.data_ptr(), e, 8, k)
+            if bits == 4:
+                rc = kernels.lib().tpubc_int4_matmul(
+                    *ptrs, k // 2, n, INT4_GROUP, 1, split, kernels._stream())
+            else:
+                rc = kernels.lib().tpubc_int8_matmul(
+                    *ptrs, n, 1, split, kernels._stream())
             if rc:
-                raise SystemExit(f"k6 split sweep: {name} split {split}: "
-                                 f"CUDA error {rc}")
+                raise SystemExit(f"{phase}: {name} split {split}: CUDA "
+                                 f"error {rc}")
 
-        plan = kernels.int4_plan(e, k, n, INT4_GROUP, sms).split
         ms = {}
-        for split in sorted({*K6_SWEEP_SPLITS, plan}):
-            if split > kernels.int4_units(k, INT4_GROUP):
+        for split in sorted({*SWEEP_SPLITS, plan}):
+            if split > units:
                 continue
             launch(split)
             torch.cuda.synchronize()
@@ -738,9 +756,9 @@ def _k6_split_sweep(torch, kernels, quant, timer, device) -> dict:
         sweep[name] = {"plan": plan, "ms": ms,
                        "best": min(ms, key=ms.get)}
         del w, qw
-    emit({"phase": "k6_split_sweep", "sweep": sweep})
+    emit({"phase": phase, "sweep": sweep})
     if failures:
-        raise SystemExit(f"k6 split sweep: wrong results at {failures}")
+        raise SystemExit(f"{phase}: wrong results at {failures}")
     return sweep
 
 
@@ -788,6 +806,13 @@ def _diverged(decode, params, cfg, reqs, done, solo: dict) -> list:
     return out
 
 
+# The device names of the quantized matmuls: one kernel, whose <bits, X,
+# expert, tma> instantiations are K1 (<8, X, false, tma>), K1e (<8, X,
+# true, tma>), K6 and K6e (<4, ...>).
+K1_KERNEL = ("quant_matmul_sm90_kernel<8, ", ", false, ")
+K1E_KERNEL = ("quant_matmul_sm90_kernel<8, ", ", true, ")
+K6_KERNEL = ("quant_matmul_sm90_kernel<4, ", ", false, ")
+K6E_KERNEL = ("quant_matmul_sm90_kernel<4, ", ", true, ")
 # The launch counters (kernels.LAUNCHES) of the kernels each profile tag
 # times: a tag whose kernel was launched in the profiled run must find
 # device time under its names.
@@ -936,7 +961,7 @@ def phase_serve(torch, kernels, device) -> dict:
                            _solo_streams(decode, params, cfg32, reqs))
     profile = _profile(torch, lambda: serving.serve(
         params, cfg, reqs[:PROFILED_REQUESTS], 8, **kw),
-        {"k1_ms": "int8_matmul_kernel", "k2_ms": "paged_attention_kernel"})
+        {"k1_ms": K1_KERNEL, "k2_ms": "paged_attention_kernel"})
     result = {"phase": "serve", "requests": len(reqs), "tokens": tokens,
               "wall_s": wall, "tokens_per_s": tokens / wall,
               "rounds": stats["rounds"], "blocks_peak": stats["blocks_peak"],
@@ -1071,7 +1096,7 @@ def phase_serve_int4(torch, kernels, device) -> dict:
     diverged32 = _diverged(decode, params, cfg32, reqs, done32,
                            _solo_streams(decode, params, cfg32, reqs))
     profile = _serve_profile(torch, serving, params, cfg, reqs, {
-        "k6_ms": "int4_matmul_sm90_kernel", "k1_ms": "int8_matmul_kernel",
+        "k6_ms": K6_KERNEL, "k1_ms": K1_KERNEL,
         "k2_ms": "paged_attention_kernel"})
     result = {"phase": "serve_int4", "group": INT4_GROUP, "head": "int8",
               **{k: v for k, v in run.items() if k != "done"},
@@ -1151,15 +1176,9 @@ def phase_serve_moe(torch, kernels, device) -> dict:
         solo = _solo_streams(decode, qparams, cfg, reqs[:MOE_SOLO])
         solo_differ = sum(solo[r.rid] != run["done"][r.rid]
                           for r in reqs[:MOE_SOLO])
-        # A kernel's dense and expert forms are its <T, false> and
-        # <T, true> instantiations (K6's: <T, false, tma> and <T, true,
-        # tma>).
         profile = _serve_profile(torch, serving, qparams, cfg, reqs, {
-            "k1_ms": ("int8_matmul_kernel<", ", false>"),
-            "k1e_ms": ("int8_matmul_kernel<", ", true>"),
-            "k6_ms": ("int4_matmul_sm90_kernel<", ", false, "),
-            "k6e_ms": ("int4_matmul_sm90_kernel<", ", true, "),
-            "k2_ms": "paged_attention_kernel"})
+            "k1_ms": K1_KERNEL, "k1e_ms": K1E_KERNEL, "k6_ms": K6_KERNEL,
+            "k6e_ms": K6E_KERNEL, "k2_ms": "paged_attention_kernel"})
         profile["expert_share"] = ((profile["k1e_ms"] + profile["k6e_ms"])
                                    / profile["device_busy_ms"])
         deterministic = again == run["done"]
@@ -1248,7 +1267,7 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
                                      for st, c in calls.items()},
             "profile": _profile(torch, lambda: run(d1), {
                 "k5_ms": "decode_attention_kernel",
-                "k1_ms": "int8_matmul_kernel"}),
+                "k1_ms": K1_KERNEL}),
             "outputs": {st: c[0] for st, c in calls.items()}}
         paths[path]["profile"]["kernels_per_token"] = (
             paths[path]["profile"]["kernel_launches"] / (GEN_BATCH * d1))
@@ -1924,7 +1943,7 @@ def kernel_lines(out: dict) -> list:
               "stacks")
     return [
         {"name": "int8_matmul", "route": "cuda",
-         "source": "tpu_bootstrap_torch/workload/csrc/int8_matmul.cu",
+         "source": "tpu_bootstrap_torch/workload/csrc/int8_matmul_sm90.cu",
          "replaces": "tpu_bootstrap/workload/quant.py:246",
          "launches": launches["int8_matmul"],
          "max_abs_err": k1["max_abs_err"],
@@ -1973,7 +1992,7 @@ def kernel_lines(out: dict) -> list:
          "library_ms": None, "sdpa_backward_ms": k4_main["library_ms"],
          "f32_ms": k4_f32["dkv_ms"], "f32_source": f32_src, "at": flash_at},
         kernel_entry(
-            "int8_expert_matmul", "int8_matmul.cu", "quant.py:246",
+            "int8_expert_matmul", "int8_matmul_sm90.cu", "quant.py:246",
             out["serve_moe"]["int8"]["launches"]["int8_expert_matmul"],
             out["k1e"], step_totals(out["k1e"]["rows"], moe), moe_at),
         kernel_entry(

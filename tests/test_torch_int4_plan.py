@@ -39,15 +39,15 @@ def test_plan_fills_an_h100_at_decode_shapes(name):
     e, k, n = DECODE_SHAPES[name]
     plan = kernels.int4_plan(e, k, n, 64, H100_SMS)
     assert plan.ctas >= H100_SMS
-    assert plan.ctas == e * -(-n // kernels.INT4_TILE_N) * plan.split
-    assert 1 <= plan.split <= kernels.INT4_MAX_SPLIT
+    assert plan.ctas == e * -(-n // kernels.QUANT_TILE_N) * plan.split
+    assert 1 <= plan.split <= kernels.QUANT_MAX_SPLIT
     # About INT4_CTAS_PER_SM CTAs an SM, where the splits allow.
     tiles = plan.ctas // plan.split
-    assert plan.split == min(kernels.INT4_MAX_SPLIT, k // 64, max(
+    assert plan.split == min(kernels.QUANT_MAX_SPLIT, k // 64, max(
         -(-H100_SMS // tiles), kernels.INT4_CTAS_PER_SM * H100_SMS // tiles))
     bounds = kernels.int4_split_bounds(k, 64, plan.split)
     assert plan.stages == -(-max(k1 - k0 for k0, k1 in bounds)
-                            // kernels.INT4_STAGE_K)
+                            // kernels.QUANT_STAGE_K)
 
 
 @pytest.mark.parametrize("ks,group", [(1024, 64), (4096, 64), (1024, 16),
@@ -55,7 +55,7 @@ def test_plan_fills_an_h100_at_decode_shapes(name):
                                       (64, 64), (2048, 128)])
 def test_split_bounds_fall_on_whole_steps_and_groups(ks, group):
     units = kernels.int4_units(ks, group)
-    for split in range(1, min(kernels.INT4_MAX_SPLIT, units) + 1):
+    for split in range(1, min(kernels.QUANT_MAX_SPLIT, units) + 1):
         bounds = kernels.int4_split_bounds(ks, group, split)
         assert len(bounds) == split
         assert bounds[0][0] == 0 and bounds[-1][1] == -(-ks // 16) * 16
@@ -79,7 +79,7 @@ def test_plan_never_exceeds_the_units_or_the_cluster():
     for ks, group in ((64, 64), (128, 64), (32, 6), (1 << 16, 64)):
         for n in (16, 64, 1000):
             plan = kernels.int4_plan(1, ks, n, group, H100_SMS)
-            assert 1 <= plan.split <= min(kernels.INT4_MAX_SPLIT,
+            assert 1 <= plan.split <= min(kernels.QUANT_MAX_SPLIT,
                                           kernels.int4_units(ks, group))
 
 

@@ -188,18 +188,18 @@ def test_build_report_reads_registers_spills_and_hgmma():
                                "spill_loads": 68, "registers": 96}}
 
 
-def test_build_report_names_every_int4_instantiation():
-    # K6/K6e's tensor-core kernel: x dtype x (dense, expert) x (TMA, plain
-    # loads), each read from ptxas's lines and its SASS by its mangled name.
-    import chip_smoke
-
-    mangled = ("_ZN10tpubc_int423int4_matmul_sm90_kernelI{}Lb{}ELb{}EEEv14"
-               "CUtensorMap_stS1_NS_4ArgsE")
+def _quant_build_report(bits: int) -> tuple:
+    """ptxas's lines and the SASS of every instantiation of the quantized
+    matmul kernel in one format (x dtype x (dense, expert) x (TMA, plain
+    loads)) under its mangled name, and the report chip_smoke must read
+    from them, under short names."""
+    mangled = ("_ZN10quant_sm9024quant_matmul_sm90_kernelILi{}E{}Lb{}ELb{}EEEv"
+               "14CUtensorMap_stS{}_NS_4ArgsE")
     log, sass, want = "", "", {}
-    for x, xs in (("13__nv_bfloat16", "bf16"), ("f", "f32")):
+    for x, xs, sub in (("13__nv_bfloat16", "bf16", 2), ("f", "f32", 1)):
         for ex in (0, 1):
             for tma in (0, 1):
-                name = mangled.format(x, ex, tma)
+                name = mangled.format(bits, x, ex, tma, sub)
                 log += (f"ptxas info    : Compiling entry function '{name}' "
                         "for 'sm_90a'\n"
                         "    0 bytes stack frame, 0 bytes spill stores, 0 "
@@ -208,9 +208,38 @@ def test_build_report_names_every_int4_instantiation():
                 sass += (f"\tFunction : {name}\n"
                          "  /*0100*/  HGMMA.64x8x16.F32.BF16 R24, R40, "
                          "gdesc[UR4], R24 ;\n")
-                short = (f"int4_sm90<{xs}, {('dense', 'expert')[ex]}, "
+                short = (f"int{bits}_sm90<{xs}, {('dense', 'expert')[ex]}, "
                          f"{('ldg', 'tma')[tma]}>")
                 want[short] = {"hgmma": 1, "spill_stores": 0,
                                "spill_loads": 0, "registers": 90}
+    return log, sass, want
+
+
+def test_build_report_names_every_int4_instantiation():
+    # K6/K6e: the int4 instantiations of the quantized matmul kernel, each
+    # read from ptxas's lines and its SASS by its mangled name.
+    import chip_smoke
+
+    log, sass, want = _quant_build_report(4)
     assert chip_smoke._sm90_report(log, sass) == want
-    assert len(want) + 9 == chip_smoke.SM90_KERNELS
+    assert 2 * len(want) + 9 == chip_smoke.SM90_KERNELS
+
+
+def test_build_report_names_every_int8_instantiation():
+    # K1/K1e: the int8 instantiations, beside the int4 ones in one build;
+    # a kernel whose wgmmas ptxas serialized (C7520) is marked.
+    import chip_smoke
+
+    log4, sass4, want4 = _quant_build_report(4)
+    log8, sass8, want8 = _quant_build_report(8)
+    assert len(want8) == 8 and not set(want8) & set(want4)
+    assert chip_smoke._sm90_report(log8 + log4, sass4 + sass8) == {
+        **want4, **want8}
+    name = next(line.split("'")[1] for line in log8.splitlines()
+                if "Compiling" in line)
+    serialized = (f"ptxas info    : (C7520) Potential Performance Loss: "
+                  f"wgmma.mma_async instructions are serialized due to the "
+                  f"presence of Extern calls in the function '{name}'\n")
+    report = chip_smoke._sm90_report(serialized + log8, sass8)
+    assert report["int8_sm90<bf16, dense, ldg>"]["serialized"] is True
+    assert sum("serialized" in r for r in report.values()) == 1

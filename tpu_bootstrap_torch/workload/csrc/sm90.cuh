@@ -2,7 +2,7 @@
 // TMA box loads and cp.async copies into shared memory, the shared-memory
 // matrix descriptor, warpgroup matrix multiplies (wgmma) with bf16
 // operands and f32 accumulators, and the cluster's barrier and shared
-// memory. Used by csrc/flash_attention_sm90.cu and csrc/int4_matmul_sm90.cu.
+// memory. Used by csrc/flash_attention_sm90.cu and csrc/quant_matmul_sm90.cuh.
 //
 // Shared-memory tiles that wgmma reads are stored in rows of W bytes (W =
 // 128, or 64 for a 32-wide bf16 tile), 16-byte chunks swizzled inside each

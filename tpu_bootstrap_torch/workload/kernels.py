@@ -126,12 +126,14 @@ def build(verbose: bool = False) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # x, q, s, out, e, t, k, n, x_is_bf16, stream (e = 1: the dense form)
-    lib.tpubc_int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    # x, q, s, out, e, t, k, n, x_is_bf16, split, stream (e = 1: dense)
+    lib.tpubc_int8_matmul.argtypes = [p, p, p, p] + [i] * 6 + [p]
     lib.tpubc_int8_matmul.restype = i
     # x, q, s, out, e, t, kdim, Ks / 2, n, group, x_is_bf16, split, stream
     lib.tpubc_int4_matmul.argtypes = [p, p, p, p] + [i] * 8 + [p]
     lib.tpubc_int4_matmul.restype = i
+    lib.tpubc_quant_smem_bytes.argtypes = [i]  # bits
+    lib.tpubc_quant_smem_bytes.restype = i
     lib.tpubc_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, f, i, p]
     lib.tpubc_paged_attention.restype = i
@@ -186,8 +188,136 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# The quantized matmuls' layout (csrc/quant_matmul_sm90.cuh), K1/K1e and
+# K6/K6e alike: output columns a CTA owns, K rows a ring slot holds, the
+# largest cluster of splits, and the CTAs an SM holds (kCtasPerSm: the
+# registers and shared memory a CTA is built for).
+QUANT_TILE_N = 64
+QUANT_STAGE_K = 64
+QUANT_MAX_SPLIT = 16
+QUANT_RESIDENT_CTAS = 4
+# The CTAs per SM each plan aims for: a CTA has one consumer warpgroup, so
+# a second one on an SM hides its latency (PERF.md gives the H100 sweeps
+# behind them).
+INT4_CTAS_PER_SM = 2
+INT8_CTAS_PER_SM = 2
+# Each format's ring: slots, storage rows of K a slot holds (int4 packs two
+# k a byte) and the scale bytes a slot holds (int4's group rows); and the
+# bytes of column scales a CTA stages once (int8's, for the epilogue).
+QUANT_RING = {4: (6, QUANT_STAGE_K // 2, 4 * QUANT_TILE_N * 4, 0),
+              8: (5, QUANT_STAGE_K, 0, QUANT_TILE_N * 4)}
+# Shared memory of an H100 SM, and what each CTA on it reserves.
+SM_SMEM_BYTES = 233_472
+CTA_RESERVED_SMEM = 1024
+
+
+def quant_smem_bytes(bits: int) -> int:
+    """Dynamic shared memory of a CTA of the int4 (bits 4) or int8 (8)
+    kernel: the activation chunk, the ring's weight and scale slots, its
+    barriers, int8's column scales, 1024 bytes to align the start (mirrors
+    ``Smem`` in csrc/quant_matmul_sm90.cuh; ``chip_smoke.py`` checks it
+    against tpubc_quant_smem_bytes)."""
+    slots, rows, scale_bytes, col_bytes = QUANT_RING[bits]
+    return 32768 + slots * (rows * QUANT_TILE_N + scale_bytes) + (
+        2 * slots * 8) + col_bytes + 1024
+
+
+class QuantPlan(NamedTuple):
+    split: int   # CTAs along K: a cluster, summed in rank order
+    ctas: int    # CTAs of a launch per group of 32 T rows
+    stages: int  # ring slots (QUANT_STAGE_K rows) the longest split streams
+
+
+def _split_bounds(steps: int, per: int, split: int) -> list:
+    """The K range [k0, k1) of each split of ``steps`` k-steps of 16 in
+    whole units of ``per`` k-steps (``split_steps``): split r takes units
+    [r U / split, (r + 1) U / split)."""
+    units = -(-steps // per)
+    return [(r * units // split * per * 16,
+             min((r + 1) * units // split * per, steps) * 16)
+            for r in range(split)]
+
+
+def _check_split(fmt: str, split: int, units: int, what: str) -> None:
+    if not 1 <= split <= min(QUANT_MAX_SPLIT, units):
+        raise ValueError(f"{fmt} split {split} for {what}: want "
+                         f"1..{min(QUANT_MAX_SPLIT, units)}")
+
+
+def _plan(e: int, n: int, units: int, ctas_per_sm: int, sms: int,
+          bounds) -> QuantPlan:
+    """About ``ctas_per_sm`` CTAs per SM (rounded down) and never fewer
+    than one; at most one split a unit and QUANT_MAX_SPLIT in all."""
+    tiles = e * -(-n // QUANT_TILE_N)
+    split = max(-(-sms // tiles), ctas_per_sm * sms // tiles)
+    split = max(1, min(split, QUANT_MAX_SPLIT, units))
+    longest = max(k1 - k0 for k0, k1 in bounds(split))
+    return QuantPlan(split, tiles * split, -(-longest // QUANT_STAGE_K))
+
+
+def int8_units(k: int) -> int:
+    """The units K1/K1e's contraction is split into: ring slots of
+    QUANT_STAGE_K rows, so that only K's tail is a partial stage."""
+    return -(-k // QUANT_STAGE_K)
+
+
+def int8_split_bounds(k: int, split: int) -> list:
+    """The K range [k0, k1) of each split of K1/K1e: whole slots, the last
+    ending at K rounded up to a k-step of 16. Raises for a split the kernel
+    does not take (its C entry refuses the same)."""
+    _check_split("int8", split, int8_units(k), f"K={k}")
+    return _split_bounds(-(-k // 16), QUANT_STAGE_K // 16, split)
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_plan(e: int, k: int, n: int, sms: int) -> QuantPlan:
+    """The split of K1/K1e's contraction, from the weight's shape and the
+    card's SM count only, never from T (batch invariance)."""
+    return _plan(e, n, int8_units(k), INT8_CTAS_PER_SM, sms,
+                 lambda split: int8_split_bounds(k, split))
+
+
+def int4_units(ks: int, group: int) -> int:
+    """The units K6/K6e's contraction is split into: groups when a group
+    is whole k-steps of 16, else k-steps (``split_units`` in
+    csrc/quant_matmul_sm90.cuh)."""
+    return ks // group if group % 16 == 0 else -(-ks // 16)
+
+
+def int4_split_bounds(ks: int, group: int, split: int) -> list:
+    """The K range [k0, k1) of each split of K6/K6e: whole groups at
+    g % 16 == 0, else whole k-steps. Raises for a split the kernel does
+    not take (its C entry refuses the same)."""
+    _check_split("int4", split, int4_units(ks, group),
+                 f"Ks={ks}, group={group}")
+    return _split_bounds(-(-ks // 16), group // 16 if group % 16 == 0 else 1,
+                         split)
+
+
+@functools.lru_cache(maxsize=4096)
+def int4_plan(e: int, ks: int, n: int, group: int, sms: int) -> QuantPlan:
+    """The split of K6/K6e's contraction, from the weight's shape and the
+    card's SM count only, never from T (batch invariance)."""
+    return _plan(e, n, int4_units(ks, group), INT4_CTAS_PER_SM, sms,
+                 lambda split: int4_split_bounds(ks, group, split))
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, the one input of the plans that is not the
+    weight's shape; read once per device."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def _launch_int8(x, q, s, name: str, ndim: int) -> torch.Tensor:
-    """Validate and launch an int8 product (dense: ndim 2, s (N,);
+    """Validate, plan and launch an int8 product (dense: ndim 2, s (N,);
     expert: ndim 3, s (E, 1, N))."""
     _need(x, "x", _FLOATS, ndim)
     _need(q, "q", (torch.int8,), ndim)
@@ -202,10 +332,11 @@ def _launch_int8(x, q, s, name: str, ndim: int) -> torch.Tensor:
                          f"q {tuple(q.shape)}, s {tuple(s.shape)}")
     if not (x.device == q.device == s.device):
         raise ValueError(f"{name} operands on different devices")
+    plan = int8_plan(e, k, n, sm_count(x.device))
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     rc = lib().tpubc_int8_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), e, t, k, n,
-        int(x.dtype == torch.bfloat16), _stream())
+        int(x.dtype == torch.bfloat16), plan.split, _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -223,71 +354,6 @@ def int8_expert_matmul(x: torch.Tensor, q: torch.Tensor,
     """Kernel K1e: x (E, T, K) bf16/f32 @ q (E, K, N) int8 * s (E, 1, N)
     f32 -> (E, T, N) in x.dtype."""
     return _launch_int8(x, q, s, "int8_expert_matmul", 3)
-
-
-# K6/K6e's layout (csrc/quant_matmul_sm90.cuh): output columns a CTA owns,
-# K rows a ring slot holds, the largest cluster of splits; and the CTAs per
-# SM the plan aims for (a CTA has one consumer warpgroup, so a second one
-# on an SM hides its latency; PERF.md gives the H100 sweep behind it).
-INT4_TILE_N = 64
-INT4_STAGE_K = 64
-INT4_MAX_SPLIT = 16
-INT4_CTAS_PER_SM = 2
-
-
-class Int4Plan(NamedTuple):
-    split: int   # CTAs along K: a cluster, summed in rank order
-    ctas: int    # CTAs of a launch per group of 32 T rows
-    stages: int  # ring slots (INT4_STAGE_K rows) the longest split streams
-
-
-def int4_units(ks: int, group: int) -> int:
-    """The units the contraction is split into: groups when a group is
-    whole k-steps of 16, else k-steps (``split_units`` in
-    csrc/quant_matmul_sm90.cuh)."""
-    return ks // group if group % 16 == 0 else -(-ks // 16)
-
-
-def int4_split_bounds(ks: int, group: int, split: int) -> list:
-    """The K range [k0, k1) of each split (``split_steps``): split r takes
-    units [r U / split, (r + 1) U / split). Raises for a split the kernel
-    does not take (its C entry refuses the same)."""
-    units = int4_units(ks, group)
-    if not 1 <= split <= min(INT4_MAX_SPLIT, units):
-        raise ValueError(f"int4 split {split} for Ks={ks}, group={group}: "
-                         f"want 1..{min(INT4_MAX_SPLIT, units)}")
-    per = group if group % 16 == 0 else 16
-    return [(r * units // split * per,
-             min((r + 1) * units // split * per, -(-ks // 16) * 16))
-            for r in range(split)]
-
-
-@functools.lru_cache(maxsize=4096)
-def int4_plan(e: int, ks: int, n: int, group: int, sms: int) -> Int4Plan:
-    """The split of K6/K6e's contraction, from the weight's shape and the
-    card's SM count only, never from T (batch invariance): about
-    INT4_CTAS_PER_SM CTAs per SM (rounded down) and never fewer than one;
-    at most one split a unit and INT4_MAX_SPLIT in all."""
-    tiles = e * -(-n // INT4_TILE_N)
-    units = int4_units(ks, group)
-    split = max(-(-sms // tiles), INT4_CTAS_PER_SM * sms // tiles)
-    split = max(1, min(split, INT4_MAX_SPLIT, units))
-    longest = max(k1 - k0 for k0, k1 in int4_split_bounds(ks, group, split))
-    return Int4Plan(split, tiles * split, -(-longest // INT4_STAGE_K))
-
-
-_sm_counts: dict = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's SM count, the one input of int4_plan that is not the
-    weight's shape; read once per device."""
-    index = device.index if device.index is not None else (
-        torch.cuda.current_device())
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_counts[index]
 
 
 def _launch_int4(x, q, s, group: int, kdim: int, name: str,

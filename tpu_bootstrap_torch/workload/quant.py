@@ -10,7 +10,7 @@ more leading axis, and keep the router float. Every quantized product
 runs through a hand-written CUDA kernel on the card:
 
 * ``int8_matmul`` and ``int8_expert_matmul``: kernel K1 and its expert
-  form K1e (``csrc/int8_matmul.cu``, the port of the reference's
+  form K1e (``csrc/int8_matmul_sm90.cu``, the port of the reference's
   ``_matmul_kernel``): the activations are rounded to bf16, the int8
   weight is widened exactly, products are summed in f32 and the channel
   scale is applied once after the sum;
@@ -19,6 +19,9 @@ runs through a hand-written CUDA kernel on the card:
   each nibble is widened, scaled by its group's f32 scale and rounded to
   bf16 BEFORE the product (the reference's order), products are summed
   in f32 and no scale follows the sum.
+
+Both run one tensor-core kernel (``csrc/quant_matmul_sm90.cuh``), its
+contraction split by ``kernels.int8_plan`` / ``int4_plan``.
 
 On a CPU tensor each of them runs its plain PyTorch version (the same
 arithmetic, ``*_plain``); on a CUDA tensor it launches the kernel or
