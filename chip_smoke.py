@@ -12,7 +12,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               flash kernels and the 16 quantized-matmul instantiations (8
               int8, 8 int4); no count may be 0, no quantized one may spill
               or have its wgmmas serialized (ptxas C7520), and each
-              format's shared memory must equal kernels.quant_smem_bytes.
+              format's shared memory must equal kernels.quant_smem_bytes;
+              the registers and spills of the six decode-attention
+              kernels (K2 with the decode model's head dim and block
+              compiled in and general, K5; each in bf16 and f32), none of
+              which may spill.
 3. k1      -- int8_matmul (kernel K1) against its plain version at every
               (K, N) of the decode model, T in {1, 8, 64}, plus a K tail
               (K=1000), x in bf16 and f32 (MATMUL_TOL); each row launched
@@ -22,9 +26,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               shape at T = 8 launched with every split of SWEEP_SPLITS and
               the plan's, each held to the plain version and timed.
 4. k2      -- paged int8 decode attention (kernel K2) against its plain
-              version over ragged lengths, an aliased table and garbage in
-              every block a row does not own; widening the table must not
-              change a bit.
+              version over ragged lengths and, in bf16, a full-length batch
+              (every row at 512), Hk 16 and 4, an aliased table and garbage
+              with NaN scales in every block a row does not own, then at
+              the geometries of K2_OTHER (D 128 and 16, blocks of 16 and
+              32); widening the table must not change a bit, nor launching
+              each row alone; each row's plan (chunk, ranks), timed beside
+              scaled_dot_product_attention on the gathered window; then, in
+              bf16, every split of the sweep held to the plain version and
+              bitwise to the plan's, each timed.
 5. k1e     -- int8_expert_matmul (kernel K1e) against its plain version at
               the MoE decode model's expert stacks (E=8; (K, N) = (1024,
               4096) and (4096, 1024)), T in {1, 8, 32, 256}, x in bf16 and
@@ -42,11 +52,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               bf16-dequantized weight; then the split sweep, as k1's.
 7. k5      -- contiguous int8 decode attention (kernel K5) against its plain
               version at the decode model's caches (B=8, H=16, D=64, Hk 16
-              and 4, L in {128, 256, 261, 512}), q in bf16 and f32, prefix
+              and 4, L in {128, 256, 261, 512}) and at the geometries of
+              K5_OTHER (D 576 and 32, L 261), q in bf16 and f32, prefix
               masks and a mask with holes: garbage at masked positions must
               change no bit, and each row of a B=8 launch must equal, bitwise,
-              the row launched alone; timed beside scaled_dot_product_attention
-              on the bf16-dequantized cache with the boolean mask.
+              the row launched alone; each row's plan; the full-mask bf16
+              rows at L 256 and 512 and of K5_OTHER timed beside
+              scaled_dot_product_attention on the bf16-dequantized cache
+              with the boolean mask, and swept over every split as in k2.
 8. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
               of 32 requests on the decode model at full width (8 layers,
               int8 weights from a seed), the launch counts of both kernels
@@ -274,19 +287,34 @@ def _sm90_name(line: str):
     return None
 
 
-def _sm90_report(log: str, sass: str) -> dict:
-    """Per tensor-core kernel (bf16 flash, int8, int4): registers and spill
-    bytes from the build's ``-Xptxas -v`` lines, whether ptxas serialized
-    its wgmmas (C7520, named with the function), and its HGMMA (wgmma)
-    instructions from ``cuobjdump -sass`` of the library."""
+# The decode-attention kernels, per q dtype: K2 with the head dim and
+# block of 64 compiled in and general (0, 0), K5.
+DECODE_KERNEL = re.compile(
+    r"(paged|decode)_attention_kernelI(13__nv_bfloat16|f)((?:Li\d+E)*)E")
+DECODE_KERNELS = 6
+
+
+def _decode_name(line: str):
+    found = DECODE_KERNEL.search(line)
+    if found:
+        consts = "".join(f", {c}" for c in re.findall(r"Li(\d+)E", found[3]))
+        return (f"{found[1]}_attention<"
+                f"{'bf16' if found[2] != 'f' else 'f32'}{consts}>")
+    return None
+
+
+def _ptxas_report(log: str, namer) -> dict:
+    """Per kernel that ``namer`` names: registers and spill bytes from the
+    build's ``-Xptxas -v`` lines, and whether ptxas serialized its wgmmas
+    (C7520, named with the function)."""
     report, name = {}, None
     for line in log.splitlines():
-        found = _sm90_name(line)
+        found = namer(line)
         if found and "C7520" in line:
-            report.setdefault(found, {"hgmma": 0})["serialized"] = True
+            report.setdefault(found, {})["serialized"] = True
         elif found and "Compiling entry function" in line:
             name = found
-            report.setdefault(name, {"hgmma": 0})
+            report.setdefault(name, {})
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             report[name].update({f"spill_{k}": int(v) for v, k in nums})
@@ -294,6 +322,16 @@ def _sm90_report(log: str, sass: str) -> dict:
             report[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line)[1])
             name = None
+    return report
+
+
+def _sm90_report(log: str, sass: str) -> dict:
+    """Per tensor-core kernel (bf16 flash, int8, int4): the ptxas report
+    and its HGMMA (wgmma) instructions from ``cuobjdump -sass`` of the
+    library."""
+    report = {k: {"hgmma": 0, **v}
+              for k, v in _ptxas_report(log, _sm90_name).items()}
+    name = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = _sm90_name(line)
@@ -309,7 +347,9 @@ def phase_build(kernels) -> None:
     each bf16 flash kernel and each int8 and int4 instantiation computes on
     the tensor cores (HGMMA in its SASS), that no quantized instantiation
     spills or has its wgmmas serialized, and that kernels.quant_smem_bytes
-    mirrors the CUDA layout."""
+    mirrors the CUDA layout; prints the registers and spills of the six
+    decode-attention kernels, none of which may spill (their 64-register
+    budget keeps eight CTAs on an SM)."""
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stderr(log):
@@ -324,9 +364,14 @@ def phase_build(kernels) -> None:
     smem = {bits: (kernels.quant_smem_bytes(bits),
                    kernels.lib().tpubc_quant_smem_bytes(bits))
             for bits in (4, 8)}
+    decode = _ptxas_report(log.getvalue(), _decode_name)
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
-          "sm90": sm90, "quant_smem_bytes": smem})
+          "sm90": sm90, "quant_smem_bytes": smem, "decode_attention": decode})
     quant = [r for name, r in sm90.items() if name.startswith("int")]
+    if len(decode) != DECODE_KERNELS or any(
+            "registers" not in r or r.get("spill_stores")
+            or r.get("spill_loads") for r in decode.values()):
+        raise SystemExit(f"build: the decode-attention kernels: {decode}")
     if (len(sm90) != SM90_KERNELS
             or any(r["hgmma"] == 0 for r in sm90.values())
             or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
@@ -366,21 +411,25 @@ def phase_k1(torch, kernels, quant, timer, device) -> dict:
     return out
 
 
-def _k2_inputs(torch, decode, device, hk: int, gen):
-    """B=8, H=16, D=64, bs=64, nb=8 over a 65-block pool (block 0 is the
-    null block): ragged lengths, row 7's first block aliases row 4's, and
-    every position no row may read holds int8 extremes with NaN scales."""
-    b, h, d, bs, nb, n = 8, 16, 64, 64, 8, 65
-    lengths = torch.tensor(K2_LENGTHS, dtype=torch.int32)
+def _k2_inputs(torch, decode, device, hk: int, gen, lengths=K2_LENGTHS,
+               h: int = 16, d: int = 64, bs: int = 64):
+    """B=8 rows of ``lengths`` (ragged by default) over a pool of blocks of
+    ``bs`` positions, block 0 the null block: at the decode model's H=16,
+    D=64, bs=64, a table of nb=8 blocks over 65; row 7's first block
+    aliases row 4's, and every position no row may read holds int8
+    extremes with NaN scales."""
+    blocks = [-(-length // bs) for length in lengths]
+    b, nb, n = len(lengths), max(8, *blocks), max(65, 1 + sum(blocks))
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     tables = torch.zeros(b, nb, dtype=torch.int32)
     nxt = 1
-    for r, length in enumerate(K2_LENGTHS):
+    for r, length in enumerate(lengths.tolist()):
         for j in range(-(-length // bs)):
             tables[r, j] = nxt
             nxt += 1
     tables[7, 0] = tables[4, 0]
     readable = torch.zeros(n, bs, dtype=torch.bool)
-    for r, length in enumerate(K2_LENGTHS):
+    for r, length in enumerate(lengths.tolist()):
         for p in range(length):
             readable[tables[r, p // bs], p % bs] = True
     k = torch.randn(n, bs, hk, d, generator=gen, device=device)
@@ -396,82 +445,165 @@ def _k2_inputs(torch, decode, device, hk: int, gen):
     return (q, kq, ks, vq, vs, tables.to(device), lengths.to(device))
 
 
+# K2 and K5 against their plain versions: both compute in f32 from the same
+# int8 values and sum in other orders; bf16 outputs may land one bf16 step
+# apart.
+K2_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-5)}
+# The full-length rows: every row of the batch at the decode model's
+# max_seq_len.
+FULL_LENGTHS = (512,) * 8
+# The splits the sweeps launch beside the plan's: ranks of the cluster.
+DECODE_SWEEP_RANKS = (1, 2, 4, 8)
+# Geometries off the decode model's, for the body's other branches (lanes a
+# position d / 16, lanes a softmax row from the chunk): D 128 at blocks of
+# 16 with a group of 4 (8 lanes a position, 4 a row), D 16 at blocks of 32
+# with a group of 8 (one lane a position, 8 a row).
+K2_OTHER = ({"H": 16, "Hk": 4, "D": 128, "bs": 16},
+            {"H": 16, "Hk": 2, "D": 16, "bs": 32})
+# K5's: D 576 with a group of 4 (a warp a position, each lane taking every
+# 32nd 16-byte segment, past one segment a lane), D 32 with a group of 2
+# (2 lanes a position); both at L=261, five chunks, the last partial.
+K5_OTHER = ({"H": 8, "Hk": 2, "D": 576, "L": 261},
+            {"H": 16, "Hk": 8, "D": 32, "L": 261})
+
+
+def _plan_dict(plan) -> dict:
+    return {"chunk": plan.chunk, "ranks": plan.ranks}
+
+
+def _decode_sweep(torch, kernels, timer, launch, want, plan, hk: int,
+                  g: int, d: int, tol: tuple) -> tuple:
+    """``launch(plan)`` (K2 or K5 on one case) with every split of
+    DECODE_SWEEP_RANKS the kernel takes: each held to the plain version
+    ``want`` and bitwise to the plan's split, each timed. Returns ({ranks:
+    ms}, the splits that failed)."""
+    base = launch(plan)
+    ms, failed = {}, []
+    for ranks in DECODE_SWEEP_RANKS:
+        split = plan._replace(ranks=ranks)
+        if not kernels.decode_split_ok(hk, g, d, split):
+            continue
+        got = launch(split)
+        torch.cuda.synchronize()
+        if not (torch.allclose(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1]) and torch.equal(got, base)):
+            failed.append(_plan_dict(split))
+        ms[str(ranks)] = timer(lambda: launch(split))
+    return ms, failed
+
+
 def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
+    """K2 against its plain version at the serving shape (B=8, H=16, D=64,
+    bs=64, nb=8) with Hk 16 and 4, q in bf16 and f32, over ragged lengths
+    (K2_LENGTHS) and, in bf16, a full-length batch (FULL_LENGTHS), then at
+    the geometries of K2_OTHER over the ragged lengths: garbage and NaN
+    scales wherever no row may read, an aliased table; widening the table
+    must not change a bit, nor launching each row alone. Each row shows its
+    plan and is timed beside SDPA; then, in bf16, every split of the sweep,
+    held to the plain version and bitwise to the plan's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    rows, failures, max_err = [], [], 0.0
-    tol = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
-    for g in (1, 4):  # the wrapper's smem rule is the kernel's own layout
-        if (kernels.lib().tpubc_paged_attention_smem_bytes(64, 64, g)
-                != kernels.paged_attention_smem_bytes(64, 64, g)):
-            raise SystemExit(f"k2: smem layout mismatch at group {g}")
-    for hk in (16, 4):
-        q32, kq, ks, vq, vs, bt, lengths = _k2_inputs(torch, decode, device,
-                                                      hk, gen)
+    rows, failures, max_err, sweeps = [], [], 0.0, {}
+    for bs, d, g in ((64, 64, 1), (64, 64, 4),
+                     *((o["bs"], o["D"], o["H"] // o["Hk"])
+                       for o in K2_OTHER)):
+        # The wrapper's smem rule is the kernel's own layout.
+        if (kernels.lib().tpubc_paged_attention_smem_bytes(bs, d, g)
+                != kernels.paged_attention_smem_bytes(bs, d, g)):
+            raise SystemExit(f"k2: smem layout mismatch at bs {bs}, D {d}, "
+                             f"group {g}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    model = {"H": 16, "D": 64, "bs": 64}
+    cases = [(model | {"Hk": hk}, dtype, "ragged") for hk in (16, 4)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(model | {"Hk": hk}, torch.bfloat16, "full") for hk in (16, 4)]
+    cases += [(o, dtype, "ragged") for o in K2_OTHER
+              for dtype in (torch.bfloat16, torch.float32)]
+    inputs = {}
+    for geom, dtype, name in cases:
+        hk = geom["Hk"]
+        key = (name, *sorted(geom.items()))
+        if key not in inputs:
+            inputs[key] = _k2_inputs(
+                torch, decode, device, hk, gen,
+                K2_LENGTHS if name == "ragged" else FULL_LENGTHS,
+                geom["H"], geom["D"], geom["bs"])
+        q32, kq, ks, vq, vs, bt, lengths = inputs[key]
         b, h, d = q32.shape
         bs = kq.shape[1]
-        for dtype in (torch.bfloat16, torch.float32):
-            q = q32.to(dtype)
-            args = (kq, ks, vq, vs)
-            got = kernels.paged_attention(q, *args, bt, lengths)
-            want = decode_attention.paged_decode_attention_int8_plain(
-                q, *args, bt, lengths)
-            wide = torch.cat([bt, torch.zeros_like(bt)], dim=1)
-            got_wide = kernels.paged_attention(q, *args, wide, lengths)
-            torch.cuda.synchronize()
-            rtol, atol = tol[dtype]
-            finite = bool(torch.isfinite(got.float()).all())
-            err = (got.float() - want.float()).abs().max().item()
-            max_err = max(max_err, err)
-            close = finite and torch.allclose(got.float(), want.float(),
-                                              rtol=rtol, atol=atol)
-            width_invariant = bool(torch.equal(got, got_wide))
-            # The yardstick: SDPA over the window gathered and dequantized
-            # beforehand (masked to each row's length).
-            g = h // hk
-            L = bt.shape[1] * bs
-            kd = (kq[bt.long()].float() * ks[bt.long()][..., None]).nan_to_num(0)
-            vd = (vq[bt.long()].float() * vs[bt.long()][..., None]).nan_to_num(0)
-            kd = kd.reshape(b, L, hk, d).repeat_interleave(g, 2).transpose(1, 2)
-            vd = vd.reshape(b, L, hk, d).repeat_interleave(g, 2).transpose(1, 2)
-            kd, vd = kd.to(dtype).contiguous(), vd.to(dtype).contiguous()
-            mask = (torch.arange(L, device=device)[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            qs = q[:, :, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            e = q.element_size()
-            bound_ms, bound_by = bound(
-                sum(K2_LENGTHS) * hk * (2 * d + 8) + 2 * b * h * d * e,
-                4 * sum(K2_LENGTHS) * h * d, F32_FLOPS)
-            row = {"Hk": hk, "q": str(dtype).removeprefix("torch."),
-                   "B": b, "H": h, "D": d, "bs": bs, "nb": bt.shape[1],
-                   "lengths": list(K2_LENGTHS), "max_abs_err": err,
-                   "close": close, "width_invariant": width_invariant,
-                   "kernel_ms": timer(lambda: kernels.paged_attention(
+        g = h // hk
+        q = q32.to(dtype)
+        args = (kq, ks, vq, vs)
+        plan = kernels.paged_plan(bs, hk, g, d)
+        got = kernels.paged_attention(q, *args, bt, lengths)
+        want = decode_attention.paged_decode_attention_int8_plain(
+            q, *args, bt, lengths)
+        wide = torch.cat([bt, torch.zeros_like(bt)], dim=1)
+        got_wide = kernels.paged_attention(q, *args, wide, lengths)
+        alone = torch.cat([kernels.paged_attention(
+            q[r:r + 1].contiguous(), *args, bt[r:r + 1].contiguous(),
+            lengths[r:r + 1].contiguous()) for r in range(b)])
+        torch.cuda.synchronize()
+        rtol, atol = K2_TOL[str(dtype).removeprefix("torch.")]
+        finite = bool(torch.isfinite(got.float()).all())
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        close = finite and torch.allclose(got.float(), want.float(),
+                                          rtol=rtol, atol=atol)
+        # The yardstick: SDPA over the window gathered and dequantized
+        # beforehand (masked to each row's length).
+        L = bt.shape[1] * bs
+        kd = (kq[bt.long()].float() * ks[bt.long()][..., None]).nan_to_num(0)
+        vd = (vq[bt.long()].float() * vs[bt.long()][..., None]).nan_to_num(0)
+        kd = kd.reshape(b, L, hk, d).repeat_interleave(g, 2).transpose(1, 2)
+        vd = vd.reshape(b, L, hk, d).repeat_interleave(g, 2).transpose(1, 2)
+        kd, vd = kd.to(dtype).contiguous(), vd.to(dtype).contiguous()
+        mask = (torch.arange(L, device=device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        total = int(lengths.sum())
+        bound_ms, bound_by = bound(
+            total * hk * (2 * d + 8) + 2 * b * h * d * q.element_size(),
+            4 * total * h * d, F32_FLOPS)
+        row = {"Hk": hk, "q": str(dtype).removeprefix("torch."),
+               "lengths_name": name, "B": b, "H": h, "D": d, "bs": bs,
+               "nb": bt.shape[1], "lengths": lengths.tolist(),
+               "plan": _plan_dict(plan), "max_abs_err": err, "close": close,
+               "width_invariant": bool(torch.equal(got, got_wide)),
+               "batch_invariant": bool(torch.equal(alone, got)),
+               "kernel_ms": timer(lambda: kernels.paged_attention(
+                   q, *args, bt, lengths)),
+               "plain_ms": timer(
+                   lambda: decode_attention.paged_decode_attention_int8_plain(
                        q, *args, bt, lengths)),
-                   "plain_ms": timer(
-                       lambda: decode_attention
-                       .paged_decode_attention_int8_plain(q, *args, bt,
-                                                          lengths)),
-                   "library_ms": timer(lambda: sdpa(qs, kd, vd,
-                                                    attn_mask=mask)),
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            rows.append(row)
-            if not close or not width_invariant:
-                failures.append(row)
-    emit({"phase": "k2", "tolerance": {"bfloat16": [1e-2, 1e-2],
-                                       "float32": [1e-4, 1e-5]},
-          "max_abs_err": max_err, "rows": rows})
+               "library_ms": timer(lambda: sdpa(qs, kd, vd, attn_mask=mask)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        if not (close and row["width_invariant"] and row["batch_invariant"]):
+            failures.append(row)
+        if dtype == torch.bfloat16:
+            ms, failed = _decode_sweep(
+                torch, kernels, timer, lambda split: kernels.paged_attention(
+                    q, *args, bt, lengths, plan=split), want, plan, hk, g, d,
+                (rtol, atol))
+            key = f"Hk{hk}_{name}" + (
+                "" if (d, bs) == (64, 64) else f"_D{d}_bs{bs}")
+            sweeps[key] = {"plan": _plan_dict(plan), "ms": ms,
+                           "best": min(ms, key=ms.get)}
+            failures += [{"sweep": key, "split": s} for s in failed]
+    emit({"phase": "k2", "tolerance": K2_TOL, "max_abs_err": max_err,
+          "rows": rows})
+    emit({"phase": "k2_split_sweep", "sweep": sweeps})
     if failures:
         raise SystemExit(f"k2 failed: {failures}")
-    return {"rows": rows, "max_abs_err": max_err}
+    return {"rows": rows, "max_abs_err": max_err, "split_sweep": sweeps}
 
 
 def _k5_masks(torch, length: int, device) -> dict:
     """Validity rows for one cache length: the frontier of a decode step
     three quarters in, all slots (the last step of a call), and at
     K5_TIMED_L a mask with holes (slot 0 and the last slot valid, a masked run
-    across a tile boundary)."""
+    across a chunk boundary)."""
     cols = torch.arange(length, device=device)
     masks = {"prefix": cols <= (3 * length) // 4, "full": cols < length}
     if length == K5_TIMED_L:
@@ -484,24 +616,41 @@ def _k5_masks(torch, length: int, device) -> dict:
     return masks
 
 
+# K5's timed rows (all slots valid, bf16): the last step of a 192-step
+# generate and the decode model's max_seq_len (the full-length row).
+K5_TIMED = (K5_TIMED_L, 512)
+
+
 def phase_k5(torch, kernels, decode, decode_attention, timer, device) -> dict:
+    """K5 at the decode model's caches (B=8, H=16, D=64, Hk 16 and 4,
+    K5_LENGTHS), then at the geometries of K5_OTHER; q in bf16 and f32,
+    prefix, full and holed masks: garbage and NaN scales at masked
+    positions must change no bit, nor launching each row alone. Each row
+    shows its plan; the full-mask bf16 rows at K5_TIMED, and of K5_OTHER,
+    are timed beside SDPA, and swept over every split (held to the plain
+    version and bitwise to the plan's)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    for g in (1, 4):  # the wrapper's smem rule is the kernel's own layout
-        if (kernels.lib().tpubc_decode_attention_smem_bytes(64, g)
-                != kernels.decode_attention_smem_bytes(64, g)):
-            raise SystemExit(f"k5: smem layout mismatch at group {g}")
-    b, h, d = 8, 16, 64
-    rows, failures, max_err = [], [], 0.0
+    for d, g in ((64, 1), (64, 4), *((o["D"], o["H"] // o["Hk"])
+                                     for o in K5_OTHER)):
+        # The wrapper's smem rule is the kernel's own layout.
+        if (kernels.lib().tpubc_decode_attention_smem_bytes(d, g)
+                != kernels.decode_attention_smem_bytes(d, g)):
+            raise SystemExit(f"k5: smem layout mismatch at D {d}, group {g}")
+    b = 8
+    rows, failures, max_err, sweeps = [], [], 0.0, {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for hk in (16, 4):
+    cases = [(16, hk, 64, K5_LENGTHS) for hk in (16, 4)]
+    cases += [(o["H"], o["Hk"], o["D"], (o["L"],)) for o in K5_OTHER]
+    for h, hk, d, lengths in cases:
         g = h // hk
-        for length in K5_LENGTHS:
+        for length in lengths:
             kq, ks = decode._quantize_kv(torch.randn(
                 b, length, hk, d, generator=gen, device=device))
             vq, vs = decode._quantize_kv(torch.randn(
                 b, length, hk, d, generator=gen, device=device))
             q32 = torch.randn(b, h, d, generator=gen, device=device)
+            plan = kernels.decode_plan(length, hk, g, d)
             for mask_name, valid in _k5_masks(torch, length, device).items():
                 hidden = ~valid
                 kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
@@ -531,13 +680,14 @@ def phase_k5(torch, kernels, decode, decode_attention, timer, device) -> dict:
                                        atol=atol))
                     row = {"Hk": hk, "L": length, "mask": mask_name,
                            "q": name, "B": b, "H": h, "D": d,
-                           "valid": int(valid.sum()), "max_abs_err": err,
+                           "valid": int(valid.sum()),
+                           "plan": _plan_dict(plan), "max_abs_err": err,
                            "close": close,
                            "garbage_invariant": bool(torch.equal(
                                got_garbage, got)),
                            "batch_invariant": bool(torch.equal(alone, got))}
-                    if mask_name == "full" and length == K5_TIMED_L and (
-                            dtype == torch.bfloat16):
+                    if mask_name == "full" and dtype == torch.bfloat16 and (
+                            length in K5_TIMED or d != 64):
                         # The yardstick: SDPA over the cache dequantized to
                         # bf16 beforehand, with the boolean mask.
                         kd = (kq.float() * ks[..., None]).to(dtype)
@@ -561,15 +711,27 @@ def phase_k5(torch, kernels, decode, decode_attention, timer, device) -> dict:
                             "library_ms": timer(lambda: sdpa(
                                 qs, kd, vd, attn_mask=mask)),
                             "bound_ms": bound_ms, "bound_by": bound_by})
+                        ms, failed = _decode_sweep(
+                            torch, kernels, timer,
+                            lambda split: kernels.decode_attention(
+                                q, *args, plan=split), want, plan, hk, g, d,
+                            (rtol, atol))
+                        key = f"Hk{hk}_L{length}" + (
+                            "" if d == 64 else f"_D{d}")
+                        sweeps[key] = {"plan": _plan_dict(plan), "ms": ms,
+                                       "best": min(ms, key=ms.get)}
+                        failures += [{"sweep": key, "split": s}
+                                     for s in failed]
                     rows.append(row)
                     if not (close and row["garbage_invariant"]
                             and row["batch_invariant"]):
                         failures.append(row)
     emit({"phase": "k5", "tolerance": K5_TOL, "max_abs_err": max_err,
           "rows": rows})
+    emit({"phase": "k5_split_sweep", "sweep": sweeps})
     if failures:
         raise SystemExit(f"k5 failed: {failures}")
-    return {"rows": rows, "max_abs_err": max_err}
+    return {"rows": rows, "max_abs_err": max_err, "split_sweep": sweeps}
 
 
 def _matmul_case(torch, timer, kernel, plain, library, x, weight_bytes: int,
@@ -1919,11 +2081,11 @@ def kernel_lines(out: dict) -> list:
         *((shape, "bfloat16", True)
           for shape in ("wqkv", "wo", "w_up", "w_down")),
         ("lm_head", "float32", False)])
-    k2_main = next(r for r in k2["rows"] if r["Hk"] == 16
-                   and r["q"] == "bfloat16")
+    k2_main = next(r for r in k2["rows"] if r["Hk"] == 16 and r["D"] == 64
+                   and r["q"] == "bfloat16" and r["lengths_name"] == "ragged")
     k5_main = next(r for r in out["k5"]["rows"] if r["Hk"] == 16
-                   and r["L"] == K5_TIMED_L and r["mask"] == "full"
-                   and r["q"] == "bfloat16")
+                   and r["D"] == 64 and r["L"] == K5_TIMED_L
+                   and r["mask"] == "full" and r["q"] == "bfloat16")
     k3_main, k3_f32 = (next(r for r in k3["rows"] if r["case"] == "train"
                             and r["dtype"] == dt)
                        for dt in ("bfloat16", "float32"))
@@ -1959,7 +2121,7 @@ def kernel_lines(out: dict) -> list:
          "max_abs_err": k2["max_abs_err"],
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": k2_main["library_ms"],
+         "library_ms": k2_main["library_ms"], "split": k2_main["plan"],
          "at": "one launch, B=8 H=Hk=16 D=64 bs=64 nb=8, bf16 q, lengths "
                + ",".join(map(str, K2_LENGTHS))},
         {"name": "flash_fwd", "route": "cuda", "source": src,
@@ -2018,7 +2180,8 @@ def kernel_lines(out: dict) -> list:
             "one launch, B=8 L=256 H=Hk=16 D=64, all slots valid, bf16 q "
             "(the last step of a 192-step generate); launches: that "
             "generate call; library: scaled_dot_product_attention on the "
-            "bf16-dequantized cache with the boolean mask"),
+            "bf16-dequantized cache with the boolean mask")
+        | {"split": k5_main["plan"]},
     ]
 
 

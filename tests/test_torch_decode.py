@@ -365,3 +365,26 @@ def test_bf16_stored_weights_match_reference():
     assert tlogits.dtype == torch.float32
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("head_dim", [64, 48])
+def test_attend_scale_is_the_reference_f32_scale(head_dim):
+    """The einsum path's score scale is a host float, computed once: the
+    scores equal, bit for bit, those of the expression it replaced (an f32
+    tensor scalar copied to the device every layer), and the scale equals
+    the reference's jnp.asarray(head_dim, f32) ** -0.5 bit for bit."""
+    rng = np.random.default_rng(head_dim)
+    q = torch.from_numpy(rng.standard_normal((2, 3, 4, 2, head_dim))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 7, 4, head_dim))
+                         .astype(np.float32))
+    raw = torch.einsum("bskgd,blkd->bkgsl", q, k)
+    old = raw * (torch.tensor(head_dim, dtype=torch.float32) ** -0.5)
+    new = raw * tdecode._score_scale(head_dim)
+    assert new.dtype == torch.float32
+    assert torch.equal(new.view(torch.int32), old.view(torch.int32))
+    ref = np.asarray(jnp.asarray(head_dim, jnp.float32) ** -0.5)
+    assert np.float32(tdecode._score_scale(head_dim)).view(np.uint32) == (
+        ref.view(np.uint32))
+    assert float(np.float32(tdecode._score_scale(head_dim))) == (
+        tdecode._score_scale(head_dim))  # exact in f32

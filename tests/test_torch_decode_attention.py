@@ -139,7 +139,9 @@ def test_paged_supports_is_the_kernels_own_rule():
     assert tda.paged_supports(64, 4, 64, 16)  # group of 4
     assert tda.paged_supports(12, 4, 64)  # any block size the smem holds
     assert not tda.paged_supports(64, 4, 24)  # head_dim not a 16-multiple
-    assert not tda.paged_supports(1024, 1, 128, 64)  # over 48 KB smem
+    assert tda.paged_supports(256, 1, 128, 4)  # opts into > 48 KB smem
+    # One block's shared memory past what a CTA may opt into.
+    assert not tda.paged_supports(1024, 1, 128, 64)
     c = REFERENCE_CASE
     q, k, v, bt, lengths = _case(3, c["b"], c["h"], c["hk"], c["d"],
                                  c["bs"], c["nblk"], c["tables"],
@@ -248,13 +250,14 @@ def test_contiguous_plain_all_masked_row_is_zero():
 def test_supports_is_the_kernels_own_rule():
     """K5 takes any length (no Mosaic tiling rule): 17 and 520, which the
     reference's supports refuses, are fine; head dims must be 16-multiples
-    and the tile's shared memory must fit 48 KB."""
+    and a chunk's shared memory must fit what a CTA may opt into."""
     assert not jda.supports(17, 4, 64) and not jda.supports(520, 4, 64)
     assert tda.supports(17, 4, 64) and tda.supports(520, 4, 64)
     assert tda.supports(1, 16, 64, 16) and tda.supports(256, 2, 128, 16)
     assert not tda.supports(0, 4, 64)
     assert not tda.supports(96, 4, 24)  # head_dim not a 16-multiple
-    assert not tda.supports(96, 1, 256)  # a tile over 48 KB of smem
+    assert tda.supports(96, 1, 256)  # opts into > 48 KB smem
+    assert not tda.supports(96, 1, 256, 256)  # a chunk over the limit
     q, kq, ks, vq, vs = (torch.from_numpy(np.array(a))
                          for a in _contiguous(4, 2, seed=4))
     with pytest.raises(ValueError, match="supports"):

@@ -115,15 +115,20 @@ def test_library_name_follows_the_sources():
 
 
 def test_smem_rule_mirrors_the_kernel_layout():
-    # bs=64, D=64, one query head per KV head: the decode model's block.
+    # bs=64, D=64, one query head per KV head: the decode model's block. q,
+    # scores, four warps' p . v sums, row maxima and row sums, a chunk's
+    # partial (acc, then (m, l)) in f32, then two ring slots of K, V (64 x
+    # 64 bytes), their scales and the admitted flags.
     assert kernels.paged_attention_smem_bytes(64, 64, 1) == (
-        2 * 256 + 256 + 3 * 16 + 2 * 256 + 64 * 68 + 64 * 64)
+        256 + 256 + 4 * 256 + 32 + 272 + 2 * (2 * 64 * 64 + 2 * 256 + 64))
     assert kernels.paged_attention_smem_bytes(64, 64, 4) < (
-        kernels.PAGED_SMEM_LIMIT)
-    # K5 shares the layout at its fixed tile of 128 positions.
+        kernels.DECODE_SMEM_LIMIT)
+    # K5 shares the layout at its fixed chunk of 64 positions.
     assert kernels.decode_attention_smem_bytes(64, 1) == (
-        kernels.paged_attention_smem_bytes(kernels.DECODE_TILE, 64, 1)) == (
-        2 * 256 + 512 + 3 * 16 + 2 * 512 + 128 * 68 + 128 * 64)
+        kernels.paged_attention_smem_bytes(kernels.DECODE_CHUNK, 64, 1))
+    # A query group of 4 heads: four times the f32 rows, the same slots.
+    assert kernels.decode_attention_smem_bytes(64, 4) == (
+        1024 + 1024 + 4 * 1024 + 128 + 1056 + 2 * (2 * 64 * 64 + 2 * 256 + 64))
 
 
 def test_flash_smem_fits_a_cta_and_follows_the_tiles():
@@ -243,3 +248,28 @@ def test_build_report_names_every_int8_instantiation():
     report = chip_smoke._sm90_report(serialized + log8, sass8)
     assert report["int8_sm90<bf16, dense, ldg>"]["serialized"] is True
     assert sum("serialized" in r for r in report.values()) == 1
+
+
+def test_build_report_names_every_decode_attention_kernel():
+    # K2 (head dim and block 64 compiled in, and general) and K5, in bf16
+    # and f32: each read from ptxas's lines by its mangled name.
+    import chip_smoke
+
+    log, want = "", {}
+    kernels_ = [("paged", "Li64ELi64E", ", 64, 64"),
+                ("paged", "Li0ELi0E", ", 0, 0"), ("decode", "", "")]
+    for kind, consts, short in kernels_:
+        for x, xs in (("13__nv_bfloat16", "bf16"), ("f", "f32")):
+            name = (f"_ZN51_GLOBAL__N__6d377c48_18_{kind}_attention_cu_fe4ee1"
+                    f"0722{kind}_attention_kernelI{x}{consts}EEvN16decode_"
+                    "attention4ArgsEPKiS4_i")
+            log += (f"ptxas info    : Compiling entry function '{name}' for "
+                    "'sm_90a'\n"
+                    f"ptxas info    : Function properties for {name}\n"
+                    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads\n"
+                    "ptxas info    : Used 64 registers, used 1 barriers\n")
+            want[f"{kind}_attention<{xs}{short}>"] = {
+                "spill_stores": 0, "spill_loads": 0, "registers": 64}
+    assert chip_smoke._ptxas_report(log, chip_smoke._decode_name) == want
+    assert len(want) == chip_smoke.DECODE_KERNELS

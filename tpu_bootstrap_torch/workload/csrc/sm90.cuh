@@ -2,7 +2,8 @@
 // TMA box loads and cp.async copies into shared memory, the shared-memory
 // matrix descriptor, warpgroup matrix multiplies (wgmma) with bf16
 // operands and f32 accumulators, and the cluster's barrier and shared
-// memory. Used by csrc/flash_attention_sm90.cu and csrc/quant_matmul_sm90.cuh.
+// memory. Used by csrc/flash_attention_sm90.cu, csrc/quant_matmul_sm90.cuh
+// and csrc/decode_attention.cuh.
 //
 // Shared-memory tiles that wgmma reads are stored in rows of W bytes (W =
 // 128, or 64 for a 32-wide bf16 tile), 16-byte chunks swizzled inside each
@@ -111,6 +112,18 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 // Waits until this thread's cp.async copies have landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Closes this thread's group of cp.async copies issued since the last
+// commit (an empty group when none were).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Arrives on `bar` (one of its expected arrivals) once this thread's

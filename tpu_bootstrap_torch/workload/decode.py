@@ -28,8 +28,10 @@ through the flash kernel K3 instead.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from tpu_bootstrap_torch import telemetry
@@ -195,6 +197,16 @@ def _slice_write(cache_arr: torch.Tensor, new: torch.Tensor,
     cache_arr[:, start:start + c] = new
 
 
+@functools.lru_cache(maxsize=None)
+def _score_scale(head_dim: int) -> float:
+    """head_dim ** -0.5 in f32, bit for bit the reference's
+    ``jnp.asarray(head_dim, jnp.float32) ** -0.5``, as a Python float: exact
+    in f32, so scores scaled by it round as by that f32 scalar. Computed
+    once per head dim on the host, so a step builds no tensor for it and
+    copies nothing to the device."""
+    return float(np.float32(head_dim) ** np.float32(-0.5))
+
+
 def _attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
             valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """q (B, S, H, D) against the (B, L, Hk, D) cache, masked to ``valid``
@@ -205,9 +217,8 @@ def _attend(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     kv_heads = cache_k.shape[2]
     group = heads // kv_heads
     qg = q.reshape(b, s, kv_heads, group, d)
-    scale = torch.tensor(cfg.head_dim, dtype=torch.float32) ** -0.5
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(),
-                          cache_k.float()) * scale.to(q.device)
+                          cache_k.float()) * _score_scale(cfg.head_dim)
     mask = valid[:, None, None] if valid.ndim == 3 else valid[None, None, None]
     scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)

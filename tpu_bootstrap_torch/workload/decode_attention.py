@@ -2,18 +2,24 @@
 ``tpu_bootstrap/workload/decode_attention.py``.
 
 A decode step's attention reads every cached vector of the row to score
-one query, so it streams the cache. Two kernels do it on the card, on
-one shared tile body (``csrc/decode_attention.cuh``) that dequantizes in
-registers and keeps an online softmax in f32:
+one query: a few MB for a batch, too few to keep the card's memory busy,
+so what bounds it is latency. Two kernels do it on the card, on one
+shared body (``csrc/decode_attention.cuh``): a row's positions are cut
+into chunks at fixed logical boundaries, the chunks are spread over a
+cluster of CTAs and all requested at once, each chunk yields its own f32
+partial softmax (m, l, acc), and the partials are combined in chunk order
+(``kernels.paged_plan`` / ``decode_plan`` choose the split; the result
+does not depend on it, nor on the batch):
 
 * ``decode_attention_int8`` runs kernel K5 (``csrc/decode_attention.cu``,
   the port of the reference's ``_kernel``) over a contiguous
-  ``(B, L, Hk, D)`` cache masked by one validity row shared by the batch:
-  ``generate``'s decode steps and the speculative draft's;
+  ``(B, L, Hk, D)`` cache masked by one validity row shared by the batch,
+  in chunks of ``kernels.DECODE_CHUNK`` positions: ``generate``'s decode
+  steps and the speculative draft's;
 * ``paged_decode_attention_int8`` runs kernel K2
   (``csrc/paged_attention.cu``, the port of ``_paged_kernel``) over the
-  block-paged pool: each row reads only its own blocks through its block
-  table, up to its own length.
+  block-paged pool, a chunk per block: each row reads only its own blocks
+  through its block table, up to its own length.
 
 On a CPU tensor each runs its ``*_plain`` version, the same function in
 plain PyTorch; on a CUDA tensor it launches its kernel or raises.
@@ -32,14 +38,13 @@ def supports(length: int, kv_heads: int, head_dim: int,
              num_heads: int | None = None) -> bool:
     """Whether K5 takes this cache geometry. The port's own rule, from the
     kernel's limits (the reference's Mosaic tiling rules do not apply):
-    any length >= 1, head_dim a multiple of 16 (16-byte loads), and the
-    kernel's shared memory for a tile of ``kernels.DECODE_TILE`` positions
-    and a query group of ``num_heads / kv_heads`` heads (1 when not
-    given) within 48 KB."""
+    any length >= 1, head_dim a multiple of 16 (16-byte loads), and a
+    split of ``kernels.decode_plan`` whose shared memory, for a query
+    group of ``num_heads / kv_heads`` heads (1 when not given), fits a
+    CTA."""
     group = (num_heads // kv_heads) if num_heads else 1
-    return (length >= 1 and head_dim % 16 == 0
-            and kernels.decode_attention_smem_bytes(head_dim, group)
-            <= kernels.PAGED_SMEM_LIMIT)
+    return length >= 1 and kernels.decode_plan(
+        length, kv_heads, group, head_dim) is not None
 
 
 def decode_attention_int8_plain(q, kq, ks, vq, vs, valid) -> torch.Tensor:
@@ -92,14 +97,13 @@ def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor,
 def paged_supports(block_size: int, kv_heads: int, head_dim: int,
                    num_heads: int | None = None) -> bool:
     """Whether K2 takes this pool geometry. The port's own rule, from the
-    kernel's limits: head_dim a multiple of 16 (16-byte loads), and the
-    kernel's shared memory for one block of ``block_size`` positions and
-    a query group of ``num_heads / kv_heads`` heads (1 when not given)
-    within 48 KB."""
+    kernel's limits: head_dim a multiple of 16 (16-byte loads), and a
+    split of ``kernels.paged_plan`` (a chunk per block of ``block_size``
+    positions) whose shared memory, for a query group of ``num_heads /
+    kv_heads`` heads (1 when not given), fits a CTA."""
     group = (num_heads // kv_heads) if num_heads else 1
-    return (block_size >= 1 and head_dim % 16 == 0
-            and kernels.paged_attention_smem_bytes(block_size, head_dim, group)
-            <= kernels.PAGED_SMEM_LIMIT)
+    return block_size >= 1 and kernels.paged_plan(
+        block_size, kv_heads, group, head_dim) is not None
 
 
 def paged_decode_attention_int8_plain(q, kq, ks, vq, vs, block_tables,

@@ -134,14 +134,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tpubc_int4_matmul.restype = i
     lib.tpubc_quant_smem_bytes.argtypes = [i]  # bits
     lib.tpubc_quant_smem_bytes.restype = i
-    lib.tpubc_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, f, i, p]
+    # q, kq, ks, vq, vs, tables, lengths, out, ws; b, hk, g, d, bs, nb,
+    # ranks; scale, q_is_bf16, stream
+    lib.tpubc_paged_attention.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
     lib.tpubc_paged_attention.restype = i
-    lib.tpubc_paged_attention_smem_bytes.argtypes = [i, i, i]
+    lib.tpubc_paged_attention_smem_bytes.argtypes = [i] * 3  # bs, d, g
     lib.tpubc_paged_attention_smem_bytes.restype = i
-    lib.tpubc_decode_attention.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
+    # q, kq, ks, vq, vs, valid, out, ws; b, len, hk, g, d, ranks; scale,
+    # q_is_bf16, stream
+    lib.tpubc_decode_attention.argtypes = [p] * 8 + [i] * 6 + [f, i, p]
     lib.tpubc_decode_attention.restype = i
-    lib.tpubc_decode_attention_smem_bytes.argtypes = [i, i]
+    lib.tpubc_decode_attention_smem_bytes.argtypes = [i] * 2  # d, g
     lib.tpubc_decode_attention_smem_bytes.restype = i
     dims = [i, i, i, i, i, f, i, i, p]  # b, s, h, hk, d, scale, causal, bf16
     lib.tpubc_flash_fwd.argtypes = [p] * 5 + dims
@@ -399,34 +402,124 @@ def int4_expert_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return _launch_int4(x, q, s, group, kdim, "int4_expert_matmul", 3)
 
 
-# The decode-attention kernels' own limits (csrc/decode_attention.cuh): D
-# a multiple of 16, the shared-memory layout within the 48 KB a CTA gets
-# without opting in.
-PAGED_SMEM_LIMIT = 48 * 1024
-# K5's tile: positions staged per step of its loop (csrc/decode_attention.cu).
-DECODE_TILE = 128
+# The decode-attention kernels' layout (csrc/decode_attention.cuh): warps a
+# CTA, ring slots, the largest cluster of ranks, and the dynamic shared
+# memory a CTA may opt into on the H100; K5's chunk of positions
+# (csrc/decode_attention.cu; K2's chunk is its block).
+DECODE_WARPS = 4
+DECODE_SLOTS = 2
+DECODE_MAX_RANKS = 8
+DECODE_SMEM_LIMIT = 232_448
+DECODE_CHUNK = 64
+
+
+class DecodePlan(NamedTuple):
+    chunk: int  # positions a chunk holds: K2's block, K5's DECODE_CHUNK
+    ranks: int  # CTAs a (row, KV head) is split over: a cluster
 
 
 def _align16(v: int) -> int:
     return (v + 15) & ~15
 
 
+def decode_smem_bytes(chunk: int, d: int, g: int) -> int:
+    """Dynamic shared memory of a K2 or K5 CTA (one KV head, its query
+    group of g heads): q, the chunk's scores, the warps' p . v sums,
+    maxima and sums, a chunk's partial (acc, then (m, l) per query head: a
+    row of one chunk is finished on chip), and DECODE_SLOTS ring slots of
+    K, V, their scales and the admitted flags (mirrors ``make_layout`` in
+    csrc/decode_attention.cuh; ``chip_smoke.py`` checks the two agree)."""
+    slot = 2 * _align16(chunk * d) + 2 * _align16(chunk * 4) + _align16(chunk)
+    return (_align16(g * d * 4) + _align16(g * chunk * 4)
+            + _align16(DECODE_WARPS * g * d * 4)
+            + _align16(2 * DECODE_WARPS * g * 4)
+            + _align16((g * d + 2 * g) * 4)
+            + DECODE_SLOTS * slot)
+
+
+def decode_split_ok(hk: int, g: int, d: int, plan: DecodePlan) -> bool:
+    """Whether the kernels take this split (their C entries refuse the
+    same): D a multiple of 16, at most DECODE_MAX_RANKS ranks, and the
+    CTA's shared memory within DECODE_SMEM_LIMIT."""
+    return (min(hk, g, plan.chunk, plan.ranks) >= 1 and hk <= 65535
+            and d >= 16 and d % 16 == 0 and plan.ranks <= DECODE_MAX_RANKS
+            and decode_smem_bytes(plan.chunk, d, g) <= DECODE_SMEM_LIMIT)
+
+
+def _decode_plan(chunk: int, chunks: int, hk: int, g: int, d: int):
+    """One rank per chunk up to a cluster of DECODE_MAX_RANKS; None when
+    the kernels do not take it."""
+    plan = DecodePlan(chunk, max(1, min(DECODE_MAX_RANKS, chunks)))
+    return plan if decode_split_ok(hk, g, d, plan) else None
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(bs: int, hk: int, g: int, d: int):
+    """K2's split, from the pool's geometry only, never from B, the table
+    width or the lengths: chunks of one block, and ranks for rows of up to
+    DECODE_MAX_RANKS blocks (a longer row's ranks take several chunks each,
+    through the ring). None when the kernel does not take the geometry."""
+    return _decode_plan(bs, DECODE_MAX_RANKS, hk, g, d)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(length: int, hk: int, g: int, d: int):
+    """K5's split, from the cache's geometry only, never from B: chunks of
+    DECODE_CHUNK positions, one rank a chunk up to DECODE_MAX_RANKS. None
+    when the kernel does not take the geometry."""
+    return _decode_plan(DECODE_CHUNK, -(-length // DECODE_CHUNK), hk, g, d)
+
+
+def chunk_bounds(length: int, chunk: int, limit: int | None = None) -> list:
+    """The positions [start, stop) of each chunk of a row of ``length``
+    positions, in order; ``limit`` caps their number (K2: the table
+    width)."""
+    n = -(-max(length, 0) // chunk)
+    if limit is not None:
+        n = min(n, limit)
+    return [(c * chunk, min(length, (c + 1) * chunk)) for c in range(n)]
+
+
+def rank_chunks(chunks: int, ranks: int, rank: int) -> list:
+    """The chunks rank ``rank`` of ``ranks`` holds: rank, rank + ranks,
+    ... (the ring's order)."""
+    return list(range(rank, chunks, ranks))
+
+
 def paged_attention_smem_bytes(bs: int, d: int, g: int) -> int:
-    """The shared-memory layout size for tiles of ``bs`` positions (mirrors
-    ``make_layout`` in csrc/decode_attention.cuh; ``chip_smoke.py`` checks
-    the two agree)."""
-    return (2 * _align16(g * d * 4) + _align16(g * bs * 4)
-            + 3 * _align16(g * 4) + 2 * _align16(bs * 4)
-            + _align16(bs * (d + 4)) + _align16(bs * d))
+    """K2's shared memory: chunks of one block (``chip_smoke.py`` checks it
+    against tpubc_paged_attention_smem_bytes)."""
+    return decode_smem_bytes(bs, d, g)
+
+
+def decode_attention_smem_bytes(d: int, g: int) -> int:
+    """K5's shared memory: chunks of DECODE_CHUNK positions
+    (``chip_smoke.py`` checks it against tpubc_decode_attention_smem_bytes)."""
+    return decode_smem_bytes(DECODE_CHUNK, d, g)
+
+
+def _workspace(b: int, hk: int, chunks: int, g: int, d: int,
+               device) -> torch.Tensor:
+    """The chunks' partials, f32: acc (B, Hk, chunks, g, D) then (m, l)."""
+    return torch.empty(b * hk * chunks * g * (d + 2), dtype=torch.float32,
+                       device=device)
+
+
+def _need_split(name: str, rule: str, hk: int, g: int, d: int, plan,
+                what: str) -> None:
+    if plan is None or not decode_split_ok(hk, g, d, plan):
+        raise ValueError(f"{name} does not take {what}, head_dim={d}, "
+                         f"group={g}, split {plan} (see {rule})")
 
 
 def paged_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                     vq: torch.Tensor, vs: torch.Tensor,
-                    block_tables: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                    plan: DecodePlan | None = None) -> torch.Tensor:
     """Kernel K2: q (B, H, D) over int8 pools (N, bs, Hk, D) with scales
     (N, bs, Hk), tables (B, nb) int32 and lengths (B,) int32 -> (B, H, D)
-    in q.dtype."""
+    in q.dtype. ``plan`` overrides ``paged_plan``'s split (its chunk must
+    be bs); every split gives the same bits."""
     _need(q, "q", _FLOATS, 3)
     _need(kq, "kq", (torch.int8,), 4)
     _need(vq, "vq", (torch.int8,), 4)
@@ -439,43 +532,44 @@ def paged_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     nb = block_tables.shape[1]
     if (dk != d or vq.shape != kq.shape or ks.shape != (n, bs, hk)
             or vs.shape != ks.shape or block_tables.shape[0] != b
-            or lengths.shape != (b,) or h % hk != 0 or nb < 1):
+            or lengths.shape != (b,) or h % hk != 0 or nb < 1 or b > 65535):
         raise ValueError(
             f"paged_attention shapes: q {tuple(q.shape)}, kq "
             f"{tuple(kq.shape)}, ks {tuple(ks.shape)}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     g = h // hk
-    if d % 16 != 0 or paged_attention_smem_bytes(bs, d, g) > PAGED_SMEM_LIMIT:
-        raise ValueError(
-            f"paged_attention does not take block_size={bs}, head_dim={d}, "
-            f"group={g} (see decode_attention.paged_supports)")
-    for name, t in (("kq", kq), ("vq", vq)):
+    plan = plan or paged_plan(bs, hk, g, d)
+    if plan is not None and plan.chunk != bs:
+        raise ValueError(f"paged_attention: a chunk is one block ({bs}), "
+                         f"got {plan}")
+    _need_split("paged_attention", "decode_attention.paged_supports", hk, g,
+                d, plan, f"block_size={bs}")
+    for t in (kq, ks, vq, vs, block_tables, lengths):
+        if t.device != q.device:
+            raise ValueError("paged_attention operands on different devices")
+    for name, t in (("q", q), ("kq", kq), ("vq", vq)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
+    ws = _workspace(b, hk, nb, g, d, q.device)
     rc = lib().tpubc_paged_attention(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hk, g, d, bs, nb, float(d) ** -0.5,
-        int(q.dtype == torch.bfloat16), _stream())
+        out.data_ptr(), ws.data_ptr(), b, hk, g, d, bs, nb, plan.ranks,
+        float(d) ** -0.5, int(q.dtype == torch.bfloat16), _stream())
     _check(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out
 
 
-def decode_attention_smem_bytes(d: int, g: int) -> int:
-    """K5's shared-memory layout size: the shared layout for a tile of
-    DECODE_TILE positions (``chip_smoke.py`` checks it against the CUDA
-    side)."""
-    return paged_attention_smem_bytes(DECODE_TILE, d, g)
-
-
 def decode_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
-                     vq: torch.Tensor, vs: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     vq: torch.Tensor, vs: torch.Tensor, valid: torch.Tensor,
+                     *, plan: DecodePlan | None = None) -> torch.Tensor:
     """Kernel K5: q (B, H, D) over contiguous int8 caches (B, L, Hk, D)
     with scales (B, L, Hk), attending where the shared row valid (L,)
-    bool is set -> (B, H, D) in q.dtype."""
+    bool is set -> (B, H, D) in q.dtype. ``plan`` overrides
+    ``decode_plan``'s split (its chunk must be DECODE_CHUNK); every split
+    gives the same bits."""
     _need(q, "q", _FLOATS, 3)
     _need(kq, "kq", (torch.int8,), 4)
     _need(vq, "vq", (torch.int8,), 4)
@@ -486,27 +580,32 @@ def decode_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     bk, length, hk, dk = kq.shape
     if (bk != b or dk != d or vq.shape != kq.shape
             or ks.shape != (b, length, hk) or vs.shape != ks.shape
-            or valid.shape != (length,) or h % hk != 0 or length < 1):
+            or valid.shape != (length,) or h % hk != 0 or length < 1
+            or b > 65535):
         raise ValueError(
             f"decode_attention shapes: q {tuple(q.shape)}, kq "
             f"{tuple(kq.shape)}, ks {tuple(ks.shape)}, vq {tuple(vq.shape)}, "
             f"vs {tuple(vs.shape)}, valid {tuple(valid.shape)}")
     g = h // hk
-    if d % 16 != 0 or decode_attention_smem_bytes(d, g) > PAGED_SMEM_LIMIT:
-        raise ValueError(
-            f"decode_attention does not take head_dim={d}, group={g} (see "
-            "decode_attention.supports)")
+    plan = plan or decode_plan(length, hk, g, d)
+    if plan is not None and plan.chunk != DECODE_CHUNK:
+        raise ValueError(f"decode_attention: a chunk is {DECODE_CHUNK} "
+                         f"positions, got {plan}")
+    _need_split("decode_attention", "decode_attention.supports", hk, g, d,
+                plan, f"length={length}")
     for t in (kq, ks, vq, vs, valid):
         if t.device != q.device:
             raise ValueError("decode_attention operands on different devices")
-    for name, t in (("kq", kq), ("vq", vq)):
+    for name, t in (("q", q), ("kq", kq), ("vq", vq)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
+    ws = _workspace(b, hk, -(-length // DECODE_CHUNK), g, d, q.device)
     rc = lib().tpubc_decode_attention(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), valid.data_ptr(), out.data_ptr(), b, length, hk, g,
-        d, float(d) ** -0.5, int(q.dtype == torch.bfloat16), _stream())
+        vs.data_ptr(), valid.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+        length, hk, g, d, plan.ranks, float(d) ** -0.5,
+        int(q.dtype == torch.bfloat16), _stream())
     _check(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
