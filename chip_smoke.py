@@ -62,41 +62,58 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               with the boolean mask, and swept over every split as in k2.
 8. serve   -- the serving slice end to end: serve(paged=True, kv_quant=True)
               of 32 requests on the decode model at full width (8 layers,
-              int8 weights from a seed), the launch counts of both kernels
-              over that run (both must be > 0), and every stream held to the
+              int8 weights from a seed), TIMED_RUNS times (tokens/s median
+              and spread; the runs' streams and launch counts alike), the
+              launch counts of both kernels over each run, replays of the
+              captured decode steps included, equal to what the schedule
+              implies (_launches_exact), and every stream held to the
               port's solo greedy generate (kv_kernel=False, the einsum
               oracle), in bf16 and again in f32: any divergence must be a
-              near-tie. Then the replay-slot engine, serve(paged=False), on
-              the first 8 requests, with and without the int8 self-draft
-              (the speculative rounds), its streams held to the same solo
-              runs. Then the flash prefill: generate(prefill_flash=True),
-              whose prompt attention runs through K3, against generate()
-              with the einsum prefill.
+              near-tie. Graph == eager: from a mid-serve pool state, one
+              decode chunk through the captured step against the eager
+              loop on a clone of the pools, tokens and pool bytes bitwise
+              (_paged_graph_check). Then the replay-slot engine,
+              serve(paged=False), on the first 8 requests, with and without
+              the int8 self-draft (the speculative rounds), its streams held
+              to the same solo runs. Then the flash prefill:
+              generate(prefill_flash=True), whose prompt attention runs
+              through K3, against generate() with the einsum prefill.
 9. serve_int4 -- the serve phase's workload on the same model with int4
               weights (quantize_params4, group 64, int8 head): K6, K1 and K2
-              launched, every stream held to solo generate as in serve, in
-              bf16 and in f32.
+              launched as the schedule implies, every stream held to solo
+              generate as in serve, in bf16 and in f32; graph == eager.
 10. serve_moe -- the MoE decode model (the same widths with 8 experts,
               top-2, capacity factor 2) served with int8 (K1, K1e, K2) and
-              int4 (K6, K6e, K1 head, K2) weights on 16 of the requests:
-              every stream complete, every decode logit finite, a second
-              serve bitwise the same; of the first 8 streams, those that
+              int4 (K6, K6e, K1 head, K2) weights on 16 of the requests,
+              TIMED_RUNS times: every stream complete, every decode logit
+              finite, every run and a watched serve bitwise the same, the
+              launches as the schedule implies, graph == eager; of the
+              first 8 streams, those that
               differ from solo generate are counted, not failed (capacity
               is contested over each chunk, so chunked serving routes
               otherwise).
-11. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+11. serve_prefix -- the prefix cache on bench.py:867-889's traffic (24
+              requests sharing a 192-token system prompt, 8 unique tokens
+              each, max_new 16, batch 8, block 64) on the decode model,
+              cached and cold, TIMED_RUNS times each: hit rate above 0.5,
+              copy-on-write copies, evictions; cached streams held to the
+              cold ones and every stream to solo generate (near-ties
+              allowed).
+12. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
               call; every stream of the kernel path held to the einsum
-              path's (near-ties allowed); two-point tokens/s of both; one
-              profiled call of each.
-12. speculative -- bench.py's self-speculation: the bf16 target drafted by
+              path's (near-ties allowed); the 192-step call's tokens equal
+              the eager loop's (its decode steps are replays of one
+              captured step; one capture a call); two-point tokens/s of
+              both; one profiled call of each.
+13. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-13. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+14. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -105,13 +122,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-14. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+15. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-15. train  -- the training slice end to end: make_train_step on the
+16. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -121,7 +138,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-16. train_long -- the reference's long-context configuration (seq 8192,
+17. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -1078,14 +1095,16 @@ def _prefill_flash(torch, kernels, decode, params, cfg) -> dict:
 def phase_serve(torch, kernels, device) -> dict:
     """The slice end to end: the repo's decode model at full width (bf16,
     8 layers, random int8 weights from a seed), 32 requests through the
-    paged engine, launches of both kernels counted over exactly that run.
-    Every stream is held to the port's solo greedy generate, in bf16 and
-    again in f32: a divergence is accepted only at a near-tie (NEAR_TIE).
-    The two paths cannot agree bit for bit: the oracle attends with
-    einsums (in bf16 it rounds dequantized K/V and the probabilities to
-    bf16, where K2, like the Pallas kernel it replaces, keeps f32), and
-    the int8 matmul rounds its activations to bf16, which turns any f32
-    difference into a logit difference of about 1e-3."""
+    paged engine TIMED_RUNS times, launches of both kernels counted over
+    each run and held to the schedule (_launches_exact). Every stream is
+    held to the port's solo greedy generate, in bf16 and again in f32: a
+    divergence is accepted only at a near-tie (NEAR_TIE). The two paths
+    cannot agree bit for bit: the oracle attends with einsums (in bf16 it
+    rounds dequantized K/V and the probabilities to bf16, where K2, like
+    the Pallas kernel it replaces, keeps f32), and the int8 matmul rounds
+    its activations to bf16, which turns any f32 difference into a logit
+    difference of about 1e-3. Then one decode chunk through the captured
+    step against the eager loop (_paged_graph_check)."""
     import dataclasses
 
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
@@ -1093,56 +1112,43 @@ def phase_serve(torch, kernels, device) -> dict:
     cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
     params = quant.quantize_params(model.init_params(cfg, seed=0,
                                                      device=device))
-    kw = dict(paged=True, kv_quant=True, prefix_cache=False,
-              overcommit=False)
-    # Warm-up: first-call costs (allocator, library handles) stay out of
-    # the measured run.
-    serving.serve(params, cfg, _serve_requests(serving, cfg.vocab_size, 2,
-                                               seed=1), 8, **kw)
     reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
-    stats: dict = {}
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = serving.serve(params, cfg, reqs, 8, stats=stats, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    tokens = sum(len(v) for v in done.values())
-    shape_ok = (sorted(done) == [r.rid for r in reqs] and all(
-        len(done[r.rid]) == r.max_new
-        and all(0 <= t < cfg.vocab_size for t in done[r.rid])
-        for r in reqs))
+    run = _serve_runs(torch, kernels, serving, params, cfg, reqs)
+    done = run["done"]
     t1 = time.perf_counter()
     solo = _solo_streams(decode, params, cfg, reqs)
     diverged = _diverged(decode, params, cfg, reqs, done, solo)
     solo_s = time.perf_counter() - t1
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    done32 = serving.serve(params, cfg32, reqs, 8, **kw)
+    done32 = serving.serve(params, cfg32, reqs, 8, **SERVE_KW)
     diverged32 = _diverged(decode, params, cfg32, reqs, done32,
                            _solo_streams(decode, params, cfg32, reqs))
-    profile = _profile(torch, lambda: serving.serve(
-        params, cfg, reqs[:PROFILED_REQUESTS], 8, **kw),
-        {"k1_ms": K1_KERNEL, "k2_ms": "paged_attention_kernel"})
-    result = {"phase": "serve", "requests": len(reqs), "tokens": tokens,
-              "wall_s": wall, "tokens_per_s": tokens / wall,
+    profile = _serve_profile(torch, serving, params, cfg, reqs,
+                             {"k1_ms": K1_KERNEL,
+                              "k2_ms": "paged_attention_kernel"})
+    graph = _paged_graph_check(torch, serving, params, cfg, reqs)
+    exact = _launches_exact(cfg, run["stats"], run["launches"], PATHS["int8"])
+    stats = run["stats"]
+    result = {"phase": "serve", **_run_fields(run),
               "rounds": stats["rounds"], "blocks_peak": stats["blocks_peak"],
               "blocks_total": stats["blocks_total"],
               "prefill_tokens": stats["prefill_tokens"],
               "prefill_chunks": stats["prefill_chunks"],
               "slot_steps": stats["slot_steps"],
               "active_slot_steps": stats["active_slot_steps"],
-              "launches": launches, "shape_ok": shape_ok,
-              "near_tie": NEAR_TIE, "solo_check_s": solo_s,
+              "launches_exact": exact, "near_tie": NEAR_TIE,
+              "solo_check_s": solo_s,
               "diverged": {"bfloat16": diverged, "float32": diverged32},
-              "profile": profile}
+              "graph_vs_eager": graph, "profile": profile}
     emit(result)
     bad = [d for dt in NEAR_TIE for d in result["diverged"][dt]
            if d["margin"] >= NEAR_TIE[dt]]
-    if (not shape_ok or bad or launches["int8_matmul"] < 1
-            or launches["paged_attention"] < 1):
-        raise SystemExit(f"serve failed: shape_ok={shape_ok} bad={bad} "
-                         f"launches={launches}")
+    if (not run["ok"] or bad or not exact["ok"] or not graph["ok"]
+            or run["launches"]["int8_matmul"] < 1
+            or run["launches"]["paged_attention"] < 1):
+        raise SystemExit(f"serve failed: run_ok={run['ok']} bad={bad} "
+                         f"launches={run['launches']} exact={exact} "
+                         f"graph={graph}")
     result["slot"] = _slot_serve(torch, kernels, decode, serving, params, cfg,
                                  reqs[:SLOT_REQUESTS], solo)
     _prefill_flash(torch, kernels, decode, params, cfg)
@@ -1193,29 +1199,141 @@ def _slot_serve(torch, kernels, decode, serving, params, cfg, reqs,
 
 SERVE_KW = dict(paged=True, kv_quant=True, prefix_cache=False,
                 overcommit=False)
+# Each timed serve runs this many times in its phase: the median and the
+# spread of tokens/s between runs of one call (PERF.md section 7, noise).
+TIMED_RUNS = 3
 
 
-def _timed_serve(torch, kernels, serving, params, cfg, reqs) -> dict:
+def _serve_runs(torch, kernels, serving, params, cfg, reqs,
+                kw=SERVE_KW) -> dict:
     """One warm-up serve of two other requests, then ``reqs`` through
-    serve() at batch 8 with the launch counts set to 0 just before and
-    read just after; streams checked complete and in the vocabulary."""
+    serve() at batch 8 TIMED_RUNS times, the launch counts set to 0 just
+    before each run and read just after. Each run builds its own pool and
+    so captures its own graphs. Held: every stream complete and in the
+    vocabulary, the runs' streams and launch counts the same. The last
+    run's decode chunks (the serve.decode_chunk spans, each ending in the
+    chunk's one host read) are summed: the rest of the wall time is the
+    eager prefill chunks and the rounds' host work."""
+    from tpu_bootstrap_torch import telemetry
+
     serving.serve(params, cfg, _serve_requests(serving, cfg.vocab_size, 2,
-                                               seed=1), 8, **SERVE_KW)
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = serving.serve(params, cfg, reqs, 8, **SERVE_KW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+                                               seed=1), 8, **kw)
+    runs = []
+    for _ in range(TIMED_RUNS):
+        stats: dict = {}
+        before = telemetry.spans()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = serving.serve(params, cfg, reqs, 8, stats=stats, **kw)
+        torch.cuda.synchronize()
+        runs.append((done, time.perf_counter() - t0, dict(kernels.LAUNCHES),
+                     stats))
+        seen = {id(r) for r in before}
+        decode_s = sum(r["dur_ms"] for r in telemetry.spans()
+                       if id(r) not in seen
+                       and r["name"] == "serve.decode_chunk") / 1e3
+    done, wall, launches, stats = runs[-1]
     tokens = sum(len(v) for v in done.values())
+    tps = [tokens / wall for _, wall, _, _ in runs]
     shape_ok = (sorted(done) == sorted(r.rid for r in reqs) and all(
         len(done[r.rid]) == r.max_new
         and all(0 <= t < cfg.vocab_size for t in done[r.rid])
         for r in reqs))
+    agree = {"streams": all(d == done for d, _, _, _ in runs),
+             "launches": all(n == launches for _, _, n, _ in runs)}
     return {"done": done, "requests": len(reqs), "tokens": tokens,
-            "wall_s": wall, "tokens_per_s": tokens / wall,
-            "launches": launches, "shape_ok": shape_ok}
+            "wall_s": [wall for _, wall, _, _ in runs],
+            "tokens_per_s": statistics.median(tps), "tokens_per_s_runs": tps,
+            "tokens_per_s_spread": max(tps) - min(tps),
+            "decode_chunk_s": decode_s, "decode_chunk_share": decode_s / wall,
+            "launches": launches, "runs_agree": agree, "shape_ok": shape_ok,
+            "graphs": stats.get("graphs"), "stats": stats,
+            "ok": shape_ok and all(agree.values())}
+
+
+def _run_fields(run: dict) -> dict:
+    """What a phase prints of _serve_runs: all but the streams and the
+    pool's stats."""
+    return {k: v for k, v in run.items() if k not in ("done", "stats")}
+
+
+# Each weight format's launch counters: (block projections, expert stacks
+# or None, the head).
+PATHS = {"int8": ("int8_matmul", None, "int8_matmul"),
+         "int4": ("int4_matmul", None, "int8_matmul"),
+         "moe_int8": ("int8_matmul", "int8_expert_matmul", "int8_matmul"),
+         "moe_int4": ("int4_matmul", "int4_expert_matmul", "int8_matmul")}
+
+
+def _launches_exact(cfg, stats: dict, launches: dict, path: tuple) -> dict:
+    """The launches a serve must count, from its schedule alone: a decode
+    step (slot_steps / batch of them) launches per layer four projections
+    (fused wqkv, or wq, wk and wv apart in a MoE block, and wo; w_up and
+    w_down, or the two expert stacks), K2, and the head once; a prefill
+    chunk the same per layer without K2 and the head (its attention is an
+    einsum over the gathered window). Replays count as launches."""
+    proj, expert, head = path
+    steps = stats["slot_steps"] // 8
+    chunks = stats["prefill_chunks"]
+    passes = cfg.num_layers * (steps + chunks)
+    want = {"paged_attention": cfg.num_layers * steps, proj: 4 * passes}
+    if expert:
+        want[expert] = 2 * passes
+    want[head] = want.get(head, 0) + steps
+    got = {k: launches[k] for k in want}
+    return {"ok": got == want, "want": want, "got": got,
+            "decode_steps": steps, "prefill_chunks": chunks}
+
+
+def _clone_pools(pools) -> list:
+    return [{n: a.clone() for n, a in layer.items()} for layer in pools]
+
+
+def _paged_graph_check(torch, serving, params, cfg, reqs) -> dict:
+    """Graph == eager on the card: a pool driven mid-serve (``reqs`` at
+    batch 8) until a decode chunk of at least 2 steps over at least 4 rows
+    is due at a table width whose step is already captured, then that
+    chunk through the captured step and through the eager loop
+    _paged_chunk_kernel on a clone of the pools. The tokens and every byte of blocks 1.. of every
+    pool tensor must be equal. The null block 0 is reported beside them:
+    dummy and overshooting rows write it with duplicate indices, whose
+    order is undefined, and no mask ever admits it."""
+    pool = serving.PagedPool(params, cfg, 8, kv_quant=True,
+                             prefix_cache=False)
+    pending = list(reqs)
+    for _ in range(400):
+        while pending and pool.admits(pending[0]):
+            pool.admit(pending.pop(0))
+        pool._prefill_phase()
+        dec = pool._decoding()
+        if dec:
+            chunk, bt, last, pos = pool._decode_plan(dec)
+            if (chunk > 1 and len(dec) >= 4
+                    and bt.shape[1] in pool._graphs._graphs):
+                break
+        pool.step_round()
+    else:
+        raise SystemExit("graph check: no captured width mid-serve")
+    twin = _clone_pools(pool.pools)
+    want = serving._paged_chunk_kernel(params, twin, bt, last.to(bt.device),
+                                       pos.to(bt.device), cfg, chunk).tolist()
+    replays = pool._graphs.stats["replays"]
+    got = pool._decode_chunk(bt, last, pos, chunk)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for la, lb in zip(pool.pools, twin)
+             for a, b in zip(la.values(), lb.values())]
+    out = {"chunk": chunk, "nb": bt.shape[1], "rows": len(dec),
+           "replays": pool._graphs.stats["replays"] - replays,
+           "tokens_equal": got == want,
+           "pool_bytes_equal": all(torch.equal(a[1:], b[1:])
+                                   for a, b in pairs),
+           "null_block_equal": all(torch.equal(a[0], b[0]) for a, b in pairs),
+           "graphs": dict(pool._graphs.stats)}
+    out["ok"] = (out["tokens_equal"] and out["pool_bytes_equal"]
+                 and out["replays"] == chunk)
+    del twin, pool
+    return out
 
 
 def _serve_profile(torch, serving, params, cfg, reqs, tags: dict) -> dict:
@@ -1236,10 +1354,11 @@ def _path_launches_ok(launches: dict, path: tuple) -> bool:
 def phase_serve_int4(torch, kernels, device) -> dict:
     """The serve phase's workload with int4 weights (quantize_params4,
     group 64, int8 head, the reference's WORKLOAD_QUANT=int4): every block
-    projection on K6, the head on K1, attention on K2. Every stream is
-    held to the port's solo greedy generate, which runs the same K6
-    launches and differs only in how it attends, in bf16 and again in
-    f32: a divergence is accepted only at a near-tie (NEAR_TIE)."""
+    projection on K6, the head on K1, attention on K2, the launches held
+    to the schedule. Every stream is held to the port's solo greedy
+    generate, which runs the same K6 launches and differs only in how it
+    attends, in bf16 and again in f32: a divergence is accepted only at a
+    near-tie (NEAR_TIE). Then graph == eager, as in serve."""
     import dataclasses
 
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
@@ -1249,7 +1368,7 @@ def phase_serve_int4(torch, kernels, device) -> dict:
         model.init_params(cfg, seed=0, device=device), group=INT4_GROUP,
         head="int8")
     reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
-    run = _timed_serve(torch, kernels, serving, params, cfg, reqs)
+    run = _serve_runs(torch, kernels, serving, params, cfg, reqs)
     path = ("int4_matmul", "int8_matmul", "paged_attention")
     diverged = _diverged(decode, params, cfg, reqs, run["done"],
                          _solo_streams(decode, params, cfg, reqs))
@@ -1260,19 +1379,22 @@ def phase_serve_int4(torch, kernels, device) -> dict:
     profile = _serve_profile(torch, serving, params, cfg, reqs, {
         "k6_ms": K6_KERNEL, "k1_ms": K1_KERNEL,
         "k2_ms": "paged_attention_kernel"})
+    graph = _paged_graph_check(torch, serving, params, cfg, reqs)
+    exact = _launches_exact(cfg, run["stats"], run["launches"], PATHS["int4"])
     result = {"phase": "serve_int4", "group": INT4_GROUP, "head": "int8",
-              **{k: v for k, v in run.items() if k != "done"},
+              **_run_fields(run), "launches_exact": exact,
               "decode_stream_bytes": quant.decode_stream_bytes(params),
               "near_tie": NEAR_TIE,
               "diverged": {"bfloat16": diverged, "float32": diverged32},
-              "profile": profile}
+              "graph_vs_eager": graph, "profile": profile}
     emit(result)
     bad = [d for dt in NEAR_TIE for d in result["diverged"][dt]
            if d["margin"] >= NEAR_TIE[dt]]
-    if not run["shape_ok"] or bad or not _path_launches_ok(run["launches"],
-                                                           path):
-        raise SystemExit(f"serve_int4 failed: shape_ok={run['shape_ok']} "
-                         f"bad={bad} launches={run['launches']}")
+    if (not run["ok"] or bad or not exact["ok"] or not graph["ok"]
+            or not _path_launches_ok(run["launches"], path)):
+        raise SystemExit(f"serve_int4 failed: run_ok={run['ok']} bad={bad} "
+                         f"launches={run['launches']} exact={exact} "
+                         f"graph={graph}")
     return result
 
 
@@ -1308,12 +1430,13 @@ def _watched_serve(torch, kernels, serving, params, cfg, reqs) -> tuple:
 def phase_serve_moe(torch, kernels, device) -> dict:
     """The MoE decode model (the decode model's widths, 8 experts, top-2,
     capacity factor 2, random weights from a seed) served with int8 and
-    with int4 weights on MOE_REQUESTS of the serve phase's requests. The
-    reference's MoE streams are not its solo generate's (capacity is
-    contested over each prefill chunk), so that is counted on the first
-    MOE_SOLO, not held;
-    held: every stream complete, every decode logit finite, a second serve
-    bitwise the same, and every kernel of the path launched."""
+    with int4 weights on MOE_REQUESTS of the serve phase's requests,
+    TIMED_RUNS times each. The reference's MoE streams are not its solo
+    generate's (capacity is contested over each prefill chunk), so that is
+    counted on the first MOE_SOLO, not held; held: every stream complete,
+    every decode logit finite, every run and a watched serve bitwise the
+    same, every kernel of the path launched as the schedule says, and
+    graph == eager (_paged_graph_check)."""
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
     cfg = model.ModelConfig(**DECODE_MODEL, **MOE_MODEL,
@@ -1332,7 +1455,10 @@ def phase_serve_moe(torch, kernels, device) -> dict:
     reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)[:MOE_REQUESTS]
     out, failed = {"phase": "serve_moe", "params": n_params}, []
     for fmt, (qparams, path) in formats.items():
-        run = _timed_serve(torch, kernels, serving, qparams, cfg, reqs)
+        run = _serve_runs(torch, kernels, serving, qparams, cfg, reqs)
+        exact = _launches_exact(cfg, run["stats"], run["launches"],
+                                PATHS["moe_" + fmt])
+        graph = _paged_graph_check(torch, serving, qparams, cfg, reqs)
         again, finite, shapes = _watched_serve(torch, kernels, serving,
                                                qparams, cfg, reqs)
         solo = _solo_streams(decode, qparams, cfg, reqs[:MOE_SOLO])
@@ -1344,20 +1470,90 @@ def phase_serve_moe(torch, kernels, device) -> dict:
         profile["expert_share"] = ((profile["k1e_ms"] + profile["k6e_ms"])
                                    / profile["device_busy_ms"])
         deterministic = again == run["done"]
-        out[fmt] = {**{k: v for k, v in run.items() if k != "done"},
+        out[fmt] = {**_run_fields(run), "launches_exact": exact,
+                    "graph_vs_eager": graph,
                     "decode_stream_bytes": quant.decode_stream_bytes(qparams),
                     "logits_finite": finite, "deterministic": deterministic,
                     "expert_launch_shapes": shapes,
                     "differ_from_solo_generate": f"{solo_differ} of "
                                                  f"{MOE_SOLO}",
                     "profile": profile}
-        if not (run["shape_ok"] and finite and deterministic
-                and _path_launches_ok(run["launches"], path)):
+        if not (run["ok"] and finite and deterministic and exact["ok"]
+                and graph["ok"] and _path_launches_ok(run["launches"], path)):
             failed.append(fmt)
     emit(out)
     if failed:
         raise SystemExit(f"serve_moe failed for {failed}: "
                          f"{ {f: out[f] for f in failed} }")
+    return out
+
+
+# bench.py:867-889's prefix-cache traffic: 24 requests sharing one
+# 192-token system prompt (three full blocks of 64) plus 8 unique tokens
+# each, max_new 16, seed 13, batch 8, block 64.
+PREFIX_REQUESTS, PREFIX_SYSTEM, PREFIX_TAIL, PREFIX_NEW = 24, 192, 8, 16
+PREFIX_KW = dict(paged=True, kv_quant=True, overcommit=False)
+PREFIX_HIT_RATE = 0.5  # the reference's gate (tests/test_prefix_cache.py:206)
+
+
+def _prefix_requests(serving, vocab: int) -> list:
+    rng = np.random.default_rng(13)
+    sysp = rng.integers(1, vocab, PREFIX_SYSTEM).tolist()
+    return [serving.Request(
+        rid=i, tokens=sysp + rng.integers(1, vocab, PREFIX_TAIL).tolist(),
+        max_new=PREFIX_NEW) for i in range(PREFIX_REQUESTS)]
+
+
+def phase_serve_prefix(torch, kernels, device) -> dict:
+    """The prefix cache on bench.py's shared-system-prompt traffic, on the
+    decode model at full width (bf16, int8 weights from seed 0): served
+    with the cache (the default) and cold (prefix_cache=False),
+    TIMED_RUNS times each. Held: the hit rate above PREFIX_HIT_RATE; the
+    cached streams equal the cold ones, and every stream its solo
+    generate(kv_kernel=False), except at a near-tie (NEAR_TIE, by the
+    solo run's margin): a cached row attends over blocks another row
+    prefilled in other chunk widths, whose einsum attention may round
+    otherwise; every K2 launch a decode step's, the runs alike."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _prefix_requests(serving, cfg.vocab_size)
+    out = {"phase": "serve_prefix", "requests": len(reqs),
+           "system_prompt": PREFIX_SYSTEM, "tail": PREFIX_TAIL,
+           "max_new": PREFIX_NEW}
+    for mode, cache in (("cached", True), ("cold", False)):
+        run = _serve_runs(torch, kernels, serving, params, cfg, reqs,
+                          kw={**PREFIX_KW, "prefix_cache": cache})
+        st = run["stats"]
+        out[mode] = {**_run_fields(run),
+                     "launches_exact": _launches_exact(
+                         cfg, st, run["launches"], PATHS["int8"]),
+                     **{k: st[k] for k in (
+                         "prompt_tokens", "prefix_hit_tokens",
+                         "prefix_hit_requests", "cow_copies", "blocks_peak",
+                         "prefill_tokens", "rounds")},
+                     "hit_rate": st["prefix_hit_tokens"] / st["prompt_tokens"],
+                     "evictions": st["allocator"]["evictions"]}
+        out[mode]["done"] = run["done"]
+    cached, cold = out["cached"].pop("done"), out["cold"].pop("done")
+    solo = _solo_streams(decode, params, cfg, reqs)
+    out["cached_vs_cold"] = _diverged(decode, params, cfg, reqs, cached, cold)
+    out["cached_vs_solo"] = _diverged(decode, params, cfg, reqs, cached, solo)
+    out["cold_vs_solo"] = _diverged(decode, params, cfg, reqs, cold, solo)
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    out["speedup"] = (out["cached"]["tokens_per_s"]
+                      / out["cold"]["tokens_per_s"])
+    emit(out)
+    bad = [d for key in ("cached_vs_cold", "cached_vs_solo", "cold_vs_solo")
+           for d in out[key] if d["margin"] >= NEAR_TIE["bfloat16"]]
+    runs_ok = all(out[m]["ok"] and out[m]["launches_exact"]["ok"]
+                  for m in ("cached", "cold"))
+    if (bad or not runs_ok or out["cached"]["hit_rate"] <= PREFIX_HIT_RATE
+            or out["cold"]["prefix_hit_tokens"] != 0):
+        raise SystemExit(f"serve_prefix failed: bad={bad} runs_ok={runs_ok} "
+                         f"hit_rate={out['cached']['hit_rate']}")
     return out
 
 
@@ -1392,6 +1588,42 @@ def _row_divergences(decode, params, cfg, prompt, got, want) -> list:
     return out
 
 
+def _eager_generate(torch, decode, params, prompt, cfg, steps: int):
+    """generate's greedy loop written out eagerly (the prefill, then
+    decode_step at int positions, one launch after the other): what its
+    captured step must equal on the card."""
+    b, s = prompt.shape
+    caches = decode.init_cache(cfg, b, s + steps, quantized=True)
+    logits, _ = decode.prefill(params, prompt, caches, cfg)
+    toks = [torch.argmax(logits, dim=-1)]
+    for i in range(steps - 1):
+        logits, _ = decode.decode_step(params, toks[-1], s + i, caches, cfg)
+        toks.append(torch.argmax(logits, dim=-1))
+    return torch.stack(toks, dim=1).cpu()
+
+
+@contextlib.contextmanager
+def _watched_graphs(graphs):
+    """Collects every StepGraphs that graphs.for_device hands out inside
+    the block (generate keeps its own out of reach)."""
+    made, make = [], graphs.for_device
+
+    def watched(device):
+        made.append(make(device))
+        return made[-1]
+
+    graphs.for_device = watched
+    try:
+        yield made
+    finally:
+        graphs.for_device = make
+
+
+def _graph_totals(made: list) -> dict:
+    return {key: sum(g.stats[key] for g in made if g is not None)
+            for key in ("captured", "capture_s", "replays")}
+
+
 def phase_generate_int8kv(torch, kernels, device) -> dict:
     """bench.py:470-505 and :664 (decode_int8kv_tokens_per_sec): generate on
     the decode model at full width, int8 weights from seed 0, an int8 KV
@@ -1401,8 +1633,11 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
     Every stream of the kernel path is held to the einsum path's: equal,
     or the first divergence a near-tie. Tokens/s by the two-point rule
     (8 x 128 tokens over the time between the 64- and the 192-step call),
-    after one warm-up pair; one profiled 64-step call of each path."""
-    from tpu_bootstrap_torch.workload import decode, model, quant
+    after one warm-up pair; one profiled 64-step call of each path. Each
+    call's decode steps are replays of one captured step: the 192-step
+    call on the kernel path must equal the eager loop (_eager_generate)
+    token for token."""
+    from tpu_bootstrap_torch.workload import decode, graphs, model, quant
 
     cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
     params = quant.quantize_params(model.init_params(cfg, seed=0,
@@ -1415,8 +1650,9 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
                                    kv_kernel=kv_kernel)
         for steps in GEN_STEPS:  # warm-up pair
             run(steps)
-        calls = {steps: _timed(torch, kernels, lambda: run(steps))
-                 for steps in GEN_STEPS}
+        with _watched_graphs(graphs) as made:
+            calls = {steps: _timed(torch, kernels, lambda: run(steps))
+                     for steps in GEN_STEPS}
         d1, d2 = GEN_STEPS
         step_s = (calls[d2][1] - calls[d1][1]) / (d2 - d1)
         paths[path] = {
@@ -1430,6 +1666,7 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
             "profile": _profile(torch, lambda: run(d1), {
                 "k5_ms": "decode_attention_kernel",
                 "k1_ms": K1_KERNEL}),
+            "graphs": _graph_totals(made),
             "outputs": {st: c[0] for st, c in calls.items()}}
         paths[path]["profile"]["kernels_per_token"] = (
             paths[path]["profile"]["kernel_launches"] / (GEN_BATCH * d1))
@@ -1439,6 +1676,17 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
                for st in GEN_STEPS):
             failed.append(f"{path} K5 launches {paths[path]['k5_launches']}"
                           f" != {want}")
+    eager = _eager_generate(torch, decode, params, prompt, cfg, GEN_STEPS[1])
+    graph_equal = bool(torch.equal(eager, paths["kernel"]["outputs"][
+        GEN_STEPS[1]]))
+    want_graphs = {"captured": len(GEN_STEPS),
+                   "replays": sum(st - 2 for st in GEN_STEPS)}
+    for path, p in paths.items():
+        if {k: p["graphs"][k] for k in want_graphs} != want_graphs:
+            failed.append(f"{path} graphs {p['graphs']} != {want_graphs}")
+    if not graph_equal:
+        failed.append("the captured step's tokens differ from the eager "
+                      "loop's")
     diverged = {str(st): _row_divergences(
         decode, params, cfg, prompt, paths["kernel"]["outputs"][st],
         paths["einsum"]["outputs"][st]) for st in GEN_STEPS}
@@ -1453,6 +1701,7 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
               "prompt": GEN_PROMPT, "steps": list(GEN_STEPS),
               **paths, "near_tie": NEAR_TIE["bfloat16"],
               "diverged": diverged, "shape_ok": shape_ok,
+              "graph_equals_eager": graph_equal,
               "speedup": (paths["kernel"]["tokens_per_s"]
                           / paths["einsum"]["tokens_per_s"])}
     emit(result)
@@ -2059,6 +2308,7 @@ def main() -> int:
     for name, phase in (("serve", phase_serve),
                         ("serve_int4", phase_serve_int4),
                         ("serve_moe", phase_serve_moe),
+                        ("serve_prefix", phase_serve_prefix),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
         out[name] = run(name, phase, torch, kernels, device)

@@ -278,7 +278,6 @@ def test_scheduling_helpers_equal_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prefix_cache": True}, "prefix cache"),
     ({"overcommit": True}, "overcommit"),
     ({"temperature": 0.8}, "sampling"),
     ({"draft_params": TPARAMS}, "spec rounds"),

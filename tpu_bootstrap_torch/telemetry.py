@@ -153,12 +153,17 @@ def heartbeat(step: int | None = None) -> None:
 
 def record_kv_block_pool(total: int, used: int, free: int,
                          capacity_tokens: int, live_tokens: int,
-                         peak_used: int, compactness: float) -> None:
-    """Block-pool gauges of the paged engine (reference names)."""
+                         peak_used: int, compactness: float,
+                         cached: int = 0) -> None:
+    """Block-pool gauges of the paged engine (reference names). ``used``
+    counts live blocks; ``cached`` the prefix cache's zero-reference
+    blocks (kv_blocks_cached), which ride in ``free``: reclaimable, not
+    pressure."""
     reg = _metrics
     reg.set_gauge("kv_blocks_capacity", total)
     reg.set_gauge("kv_blocks_used", used)
     reg.set_gauge("kv_blocks_free", free)
+    reg.set_gauge("kv_blocks_cached", cached)
     if total > 0:
         reg.set_gauge("kv_blocks_used_frac", round(used / total, 4))
         reg.set_gauge("kv_blocks_peak_frac", round(peak_used / total, 4))

@@ -24,6 +24,11 @@ everything else -- multi-query chunks, per-row masks, float caches,
 serving engines are held to. ``prefill(flash=True)`` /
 ``generate(prefill_flash=True)`` run the prompt's causal self-attention
 through the flash kernel K3 instead.
+
+On the card, ``generate``'s decode loop (without ``prompt_lengths``) is a
+CUDA graph of one step (``graphs``), replayed for every step after the
+first: the counterpart of the reference's jitted scan. ``decode_step``
+takes its position as a 0-d device tensor for that.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from tpu_bootstrap_torch import telemetry
-from tpu_bootstrap_torch.workload import decode_attention, quant
+from tpu_bootstrap_torch.workload import decode_attention, graphs, quant
 from tpu_bootstrap_torch.workload.flash_attention import flash_attention
 from tpu_bootstrap_torch.workload.moe import moe_mlp
 from tpu_bootstrap_torch.workload.model import (
@@ -189,10 +194,17 @@ def _row_scatter(cache_arr: torch.Tensor, new: torch.Tensor,
 
 
 def _slice_write(cache_arr: torch.Tensor, new: torch.Tensor,
-                 start: int) -> None:
+                 start) -> None:
     """In place: ``new`` (B, C, ...) at slots [start, start + C) of every
-    row, start clamped like the reference's dynamic_update_slice."""
+    row, start clamped like the reference's dynamic_update_slice. A 0-d
+    tensor ``start`` stays on the device (an index write), so a captured
+    step copies nothing from the host."""
     c = new.shape[1]
+    if isinstance(start, torch.Tensor):
+        first = torch.clamp(start.reshape(1), 0, cache_arr.shape[1] - c)
+        cache_arr.index_copy_(
+            1, first + torch.arange(c, device=cache_arr.device), new)
+        return
     start = max(0, min(int(start), cache_arr.shape[1] - c))
     cache_arr[:, start:start + c] = new
 
@@ -345,18 +357,22 @@ def prefill(params: Params, tokens: torch.Tensor, caches: list,
 def decode_step(params: Params, token: torch.Tensor, pos, caches: list,
                 cfg: ModelConfig, pad: torch.Tensor | None = None,
                 kv_kernel: bool = True):
-    """One token (B,) at cache slot ``pos`` (an int); returns (logits
-    (B, vocab), caches). ``pad`` (B,) are the left-pad widths of a ragged
-    batch (per-row masks: the einsum path). Without ``pad``, an int8
-    cache attends through kernel K5 unless ``kv_kernel`` is off. The
-    reference's per-row frontier mode (``pos`` a vector) serves the
+    """One token (B,) at cache slot ``pos``; returns (logits (B, vocab),
+    caches). ``pos`` is an int, or a 0-d int64 tensor on the token's
+    device: then positions, the mask and the KV write are computed on the
+    device, with the same bits, and the step copies nothing from the host
+    (``generate``'s captured step). ``pad`` (B,) are the left-pad widths
+    of a ragged batch (per-row masks: the einsum path). Without ``pad``,
+    an int8 cache attends through kernel K5 unless ``kv_kernel`` is off.
+    The reference's per-row frontier mode (``pos`` a vector) serves the
     resident engine and comes with it."""
     max_len = caches[0]["k"].shape[1]
     dev = token.device
     cols = torch.arange(max_len, device=dev)
-    slot = int(pos)
+    slot = pos if isinstance(pos, torch.Tensor) else int(pos)
     if pad is None:
-        positions = torch.tensor([slot], device=dev)
+        positions = (slot.reshape(1) if isinstance(slot, torch.Tensor)
+                     else torch.tensor([slot], device=dev))
         valid = (cols <= slot)[None, :]
     else:
         positions = (pos - pad)[:, None]
@@ -381,7 +397,11 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
     are held to; ``prompt_lengths`` (a ragged, left-padded batch: per-row
     masks) forces it off. ``prefill_flash`` runs the prompt through kernel
     K3 (not with ``prompt_lengths``). The decode loop keeps tokens on the
-    device and reads them back once at the end."""
+    device and reads them back once at the end. On the card, without
+    ``prompt_lengths``, the decode step is a CUDA graph (``graphs``): its
+    first run is the eager warm-up, then it is captured once per call (the
+    caches are this call's) and replayed for every later step; the prefill
+    stays eager."""
     if temperature != 0.0:
         raise NotImplementedError(
             "sampling is not ported yet (ROADMAP queue 1 item 5: sampling "
@@ -411,6 +431,10 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
         logits, caches = prefill(params, prompt, caches, cfg, lengths=lengths,
                                  flash=prefill_flash, kv_kernel=kv_kernel)
         token = torch.argmax(logits, dim=-1)
+        runner = graphs.for_device(device) if pad is None else None
+        if runner is not None:
+            return _graphed_decode(runner, params, token, s, caches, cfg,
+                                   steps, kv_kernel)
         toks = [token]
         for i in range(steps - 1):
             logits, caches = decode_step(params, token, s + i, caches, cfg,
@@ -418,6 +442,37 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
             token = torch.argmax(logits, dim=-1)
             toks.append(token)
         return torch.stack(toks, dim=1).cpu()
+
+
+def _decode_graph_step(params: Params, tok: torch.Tensor, pos: torch.Tensor,
+                       caches: list, out: torch.Tensor, step: torch.Tensor,
+                       cfg: ModelConfig, kv_kernel: bool) -> None:
+    """``generate``'s decode step on static buffers, the body its graph
+    captures: token ``tok`` (B,) at the 0-d position ``pos``, its argmax
+    written into ``out`` at column ``step``, all three advanced in
+    place."""
+    logits, _ = decode_step(params, tok, pos, caches, cfg,
+                            kv_kernel=kv_kernel)
+    graphs.commit(torch.argmax(logits, dim=-1), tok, pos, out, step)
+
+
+def _graphed_decode(runner, params: Params, token: torch.Tensor, s: int,
+                    caches: list, cfg: ModelConfig, steps: int,
+                    kv_kernel: bool) -> torch.Tensor:
+    """The ``steps - 1`` decode steps after the prefill's token through
+    ``runner``: the first the warm-up, then the capture, the rest replays;
+    returns (B, steps) on the host."""
+    dev = token.device
+    out = torch.empty((token.shape[0], steps), dtype=token.dtype,
+                      device=dev)
+    out[:, 0] = token
+    tok = token.clone()
+    pos = torch.tensor(s, dtype=torch.long, device=dev)
+    step = torch.ones(1, dtype=torch.long, device=dev)
+    runner.run("step", functools.partial(
+        _decode_graph_step, params, tok, pos, caches, out, step, cfg,
+        kv_kernel), steps - 1)
+    return out.cpu()
 
 
 def greedy_margins(params: Params, prompt: list, tokens: list,
