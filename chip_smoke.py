@@ -29,6 +29,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               version over ragged lengths and, in bf16, a full-length batch
               (every row at 512), Hk 16 and 4, an aliased table and garbage
               with NaN scales in every block a row does not own, then at
+              the decode model's D 64 at blocks of 16 (K2_BLOCK16, the
+              overcommit and host-tier pools' geometry, Hk 16 and 4) and
               the geometries of K2_OTHER (D 128 and 16, blocks of 16 and
               32); widening the table must not change a bit, nor launching
               each row alone; each row's plan (chunk, ranks), timed beside
@@ -98,8 +100,35 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               cached and cold, TIMED_RUNS times each: hit rate above 0.5,
               copy-on-write copies, evictions; cached streams held to the
               cold ones and every stream to solo generate (near-ties
-              allowed).
-12. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+              allowed); the host tier, on with the cache, never used (no
+              swap in or out: the pool never evicts).
+12. serve_overcommit -- overcommit admission and preemption on
+              bench.py:1060-1190's traffic (block 16, the attractor token
+              as eos): a 24-request burst of 8-token prompts (max_new 64)
+              at batch 24 in a third of its whole footprint, admitted by
+              expected footprint and by refusal (the admit ratio, above
+              1), each served after a warm pass (TTFT p99, queue-wait p50,
+              preemptions, grown blocks); a tight pool (12 requests, batch
+              16, 16 blocks, expected_new 2), host tier off and on, that
+              must preempt, and swap with the tier on (recompute tokens,
+              resume gap p50, each arm's resume cost: restore ms plus the
+              re-prefilled tokens at the prefill price). Every stream held
+              to a roomy refusal serve, and that to solo generate
+              (near-ties allowed); K1 and K2 launched as each run's
+              schedule implies.
+13. serve_host_tier -- the host tier on bench.py:951-1057's traffic
+              (block 16): ten 40-token prompts served, demoted and served
+              again (the host hit rate, HOST_HIT_RATE exactly; demoted and
+              promoted bytes bitwise the device's); the same after a reset
+              that zeroes the pool in place, a replayed decode chunk over
+              the restored blocks equal to the eager loop; a burst (12
+              requests, 12 blocks) with the tier off and on, every stream
+              held to solo generate (near-ties allowed; at block 16 it
+              never preempts); the swap arm's resume cost against the
+              recompute arm's, read from serve_overcommit's tight pair;
+              the host link's rate for one block each way; the prefill
+              clock.
+14. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
@@ -108,12 +137,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-13. speculative -- bench.py's self-speculation: the bf16 target drafted by
+15. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-14. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+16. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -122,13 +151,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-15. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+17. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-16. train  -- the training slice end to end: make_train_step on the
+18. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -138,7 +167,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-17. train_long -- the reference's long-context configuration (seq 8192,
+19. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -477,6 +506,11 @@ DECODE_SWEEP_RANKS = (1, 2, 4, 8)
 # with a group of 8 (one lane a position, 8 a row).
 K2_OTHER = ({"H": 16, "Hk": 4, "D": 128, "bs": 16},
             {"H": 16, "Hk": 2, "D": 16, "bs": 32})
+# The decode model's head dim at blocks of 16, as the serve_overcommit and
+# serve_host_tier pools run it: the general kernel (only D 64 at blocks of
+# 64 is compiled in), groups of 1 and 4.
+K2_BLOCK16 = ({"H": 16, "Hk": 16, "D": 64, "bs": 16},
+              {"H": 16, "Hk": 4, "D": 64, "bs": 16})
 # K5's: D 576 with a group of 4 (a warp a position, each lane taking every
 # 32nd 16-byte segment, past one segment a lane), D 32 with a group of 2
 # (2 lanes a position); both at L=261, five chunks, the last partial.
@@ -513,17 +547,18 @@ def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
     """K2 against its plain version at the serving shape (B=8, H=16, D=64,
     bs=64, nb=8) with Hk 16 and 4, q in bf16 and f32, over ragged lengths
     (K2_LENGTHS) and, in bf16, a full-length batch (FULL_LENGTHS), then at
-    the geometries of K2_OTHER over the ragged lengths: garbage and NaN
-    scales wherever no row may read, an aliased table; widening the table
-    must not change a bit, nor launching each row alone. Each row shows its
-    plan and is timed beside SDPA; then, in bf16, every split of the sweep,
-    held to the plain version and bitwise to the plan's."""
+    the geometries of K2_BLOCK16 and K2_OTHER over the ragged lengths:
+    garbage and NaN scales wherever no row may read, an aliased table;
+    widening the table must not change a bit, nor launching each row alone.
+    Each row shows its plan and is timed beside SDPA; then, in bf16, every
+    split of the sweep, held to the plain version and bitwise to the
+    plan's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     rows, failures, max_err, sweeps = [], [], 0.0, {}
     for bs, d, g in ((64, 64, 1), (64, 64, 4),
                      *((o["bs"], o["D"], o["H"] // o["Hk"])
-                       for o in K2_OTHER)):
+                       for o in K2_BLOCK16 + K2_OTHER)):
         # The wrapper's smem rule is the kernel's own layout.
         if (kernels.lib().tpubc_paged_attention_smem_bytes(bs, d, g)
                 != kernels.paged_attention_smem_bytes(bs, d, g)):
@@ -534,7 +569,7 @@ def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
     cases = [(model | {"Hk": hk}, dtype, "ragged") for hk in (16, 4)
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(model | {"Hk": hk}, torch.bfloat16, "full") for hk in (16, 4)]
-    cases += [(o, dtype, "ragged") for o in K2_OTHER
+    cases += [(o, dtype, "ragged") for o in K2_BLOCK16 + K2_OTHER
               for dtype in (torch.bfloat16, torch.float32)]
     inputs = {}
     for geom, dtype, name in cases:
@@ -948,14 +983,19 @@ def _serve_requests(serving, vocab: int, n: int, seed: int) -> list:
         .tolist(), max_new=int(rng.integers(8, 65))) for i in range(n)]
 
 
-def _solo_streams(decode, params, cfg, reqs) -> dict:
+def _solo_streams(decode, params, cfg, reqs, eos=None) -> dict:
     """Each request's solo greedy generate on the einsum path
     (kv_kernel=False) over a contiguous int8 cache: the oracle the
-    serving engines are held to."""
-    return {r.rid: decode.generate(params, [r.tokens], cfg, r.max_new,
-                                   kv_quant=True,
-                                   kv_kernel=False)[0].tolist()
-            for r in reqs}
+    serving engines are held to. With ``eos``, each stream is cut after
+    its first eos, as the engines cut it."""
+    out = {}
+    for r in reqs:
+        got = decode.generate(params, [r.tokens], cfg, r.max_new,
+                              kv_quant=True, kv_kernel=False)[0].tolist()
+        if eos in got:
+            got = got[:got.index(eos) + 1]
+        out[r.rid] = got
+    return out
 
 
 def _first_divergence(decode, params, cfg, prompt: list, got: list,
@@ -1266,7 +1306,8 @@ PATHS = {"int8": ("int8_matmul", None, "int8_matmul"),
          "moe_int4": ("int4_matmul", "int4_expert_matmul", "int8_matmul")}
 
 
-def _launches_exact(cfg, stats: dict, launches: dict, path: tuple) -> dict:
+def _launches_exact(cfg, stats: dict, launches: dict, path: tuple,
+                    batch: int = 8) -> dict:
     """The launches a serve must count, from its schedule alone: a decode
     step (slot_steps / batch of them) launches per layer four projections
     (fused wqkv, or wq, wk and wv apart in a MoE block, and wo; w_up and
@@ -1274,7 +1315,7 @@ def _launches_exact(cfg, stats: dict, launches: dict, path: tuple) -> dict:
     chunk the same per layer without K2 and the head (its attention is an
     einsum over the gathered window). Replays count as launches."""
     proj, expert, head = path
-    steps = stats["slot_steps"] // 8
+    steps = stats["slot_steps"] // batch
     chunks = stats["prefill_chunks"]
     passes = cfg.num_layers * (steps + chunks)
     want = {"paged_attention": cfg.num_layers * steps, proj: 4 * passes}
@@ -1308,13 +1349,28 @@ def _paged_graph_check(torch, serving, params, cfg, reqs) -> dict:
         pool._prefill_phase()
         dec = pool._decoding()
         if dec:
-            chunk, bt, last, pos = pool._decode_plan(dec)
+            chunk = pool._chunk_len(dec)
+            bt, last, pos = pool._decode_inputs(dec, chunk)
             if (chunk > 1 and len(dec) >= 4
                     and bt.shape[1] in pool._graphs._graphs):
                 break
         pool.step_round()
     else:
         raise SystemExit("graph check: no captured width mid-serve")
+    out = _chunk_vs_eager(torch, serving, pool, params, cfg, chunk, bt, last,
+                          pos, len(dec))
+    del pool
+    return out
+
+
+def _chunk_vs_eager(torch, serving, pool, params, cfg, chunk, bt, last,
+                    pos, rows: int) -> dict:
+    """One decode chunk of ``pool`` through its captured step (the table's
+    width already captured) against the eager loop _paged_chunk_kernel on
+    a clone of the pools: the tokens and every byte of blocks 1.. of every
+    pool tensor must be equal (the null block, written by dummy and
+    overshooting rows with duplicate indices in no defined order, is
+    reported beside them)."""
     twin = _clone_pools(pool.pools)
     want = serving._paged_chunk_kernel(params, twin, bt, last.to(bt.device),
                                        pos.to(bt.device), cfg, chunk).tolist()
@@ -1323,7 +1379,8 @@ def _paged_graph_check(torch, serving, params, cfg, reqs) -> dict:
     torch.cuda.synchronize()
     pairs = [(a, b) for la, lb in zip(pool.pools, twin)
              for a, b in zip(la.values(), lb.values())]
-    out = {"chunk": chunk, "nb": bt.shape[1], "rows": len(dec),
+    out = {"chunk": chunk, "nb": bt.shape[1],
+           "rows": rows,
            "replays": pool._graphs.stats["replays"] - replays,
            "tokens_equal": got == want,
            "pool_bytes_equal": all(torch.equal(a[1:], b[1:])
@@ -1332,7 +1389,6 @@ def _paged_graph_check(torch, serving, params, cfg, reqs) -> dict:
            "graphs": dict(pool._graphs.stats)}
     out["ok"] = (out["tokens_equal"] and out["pool_bytes_equal"]
                  and out["replays"] == chunk)
-    del twin, pool
     return out
 
 
@@ -1507,13 +1563,15 @@ def _prefix_requests(serving, vocab: int) -> list:
 def phase_serve_prefix(torch, kernels, device) -> dict:
     """The prefix cache on bench.py's shared-system-prompt traffic, on the
     decode model at full width (bf16, int8 weights from seed 0): served
-    with the cache (the default) and cold (prefix_cache=False),
+    with the cache (the default, with the host tier under it) and cold
+    (prefix_cache=False),
     TIMED_RUNS times each. Held: the hit rate above PREFIX_HIT_RATE; the
     cached streams equal the cold ones, and every stream its solo
     generate(kv_kernel=False), except at a near-tie (NEAR_TIE, by the
     solo run's margin): a cached row attends over blocks another row
     prefilled in other chunk widths, whose einsum attention may round
-    otherwise; every K2 launch a decode step's, the runs alike."""
+    otherwise; every K2 launch a decode step's, the runs alike; the host
+    tier idle (the pool never evicts)."""
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
     cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
@@ -1535,7 +1593,8 @@ def phase_serve_prefix(torch, kernels, device) -> dict:
                          "prefix_hit_requests", "cow_copies", "blocks_peak",
                          "prefill_tokens", "rounds")},
                      "hit_rate": st["prefix_hit_tokens"] / st["prompt_tokens"],
-                     "evictions": st["allocator"]["evictions"]}
+                     "evictions": st["allocator"]["evictions"],
+                     "host": st.get("host")}
         out[mode]["done"] = run["done"]
     cached, cold = out["cached"].pop("done"), out["cold"].pop("done")
     solo = _solo_streams(decode, params, cfg, reqs)
@@ -1550,10 +1609,560 @@ def phase_serve_prefix(torch, kernels, device) -> dict:
            for d in out[key] if d["margin"] >= NEAR_TIE["bfloat16"]]
     runs_ok = all(out[m]["ok"] and out[m]["launches_exact"]["ok"]
                   for m in ("cached", "cold"))
+    # The host tier is on with the cache (the default) and must stay idle:
+    # the pool never evicts (32 of 64 blocks at peak).
+    host = out["cached"]["host"]
+    idle = host is not None and host["swap_outs"] == 0 == host["swap_ins"]
     if (bad or not runs_ok or out["cached"]["hit_rate"] <= PREFIX_HIT_RATE
-            or out["cold"]["prefix_hit_tokens"] != 0):
+            or out["cold"]["prefix_hit_tokens"] != 0 or not idle):
         raise SystemExit(f"serve_prefix failed: bad={bad} runs_ok={runs_ok} "
-                         f"hit_rate={out['cached']['hit_rate']}")
+                         f"hit_rate={out['cached']['hit_rate']} host={host}")
+    return out
+
+
+# bench.py:1060-1190's overcommit traffic: 8-token prompts under one declared
+# budget (64) that the attractor eos makes most rows finish far short of,
+# at block 16 (at block 64 an 8 + 64 footprint is 2 blocks and overcommit
+# has nothing to save).
+OC_BLOCK, OC_PROMPT, OC_NEW = 16, 8, 64
+OC_BURST, OC_SEED = 24, 19  # the burst: batch 24, a third of its footprint
+OC_TIGHT, OC_TIGHT_SEED, OC_TIGHT_BATCH, OC_TIGHT_BLOCKS = 12, 29, 16, 16
+# bench.py:951-1057's host-tier traffic at block 16: a working set of ten
+# 40-token prompts (two full blocks each and an 8-token tail), then a burst
+# of 12 requests of 8 tokens meant to preempt.
+HT_BLOCK, HT_PROMPTS, HT_SEED, HT_LEN, HT_NEW, HT_POOL = 16, 10, 37, 40, 8, 64
+HT_BURST, HT_BURST_SEED, HT_BURST_NEW, HT_BURST_BLOCKS = 12, 43, 24, 12
+# Phase B's host hits over its prompt tokens: 2 full blocks of 16 in each
+# 40-token prompt. It depends on the lengths, the block and the pool sizes
+# alone; tests/test_torch_host_tier.py computes it with both packages.
+HOST_HIT_RATE = 0.8
+# Timed single-block transfers for the host-link rate.
+XFER_REPEATS = 20
+
+
+def _burst(serving, vocab: int, n: int, seed: int, rid0: int = 0,
+           max_new: int = OC_NEW) -> list:
+    """bench.py:1077-1086's burst_workload (and, with rid0 200 and
+    max_new 24, :1001-1008's ht_burst)."""
+    rng = np.random.default_rng(seed)
+    return [serving.Request(rid=rid0 + i,
+                            tokens=rng.integers(1, vocab, OC_PROMPT).tolist(),
+                            max_new=max_new) for i in range(n)]
+
+
+def _attractor_eos(decode, serving, params, cfg, device) -> int:
+    """bench.py:1093-1095: the token greedy decoding of this random init
+    settles on, the most common last token of 16 steps from 4 burst
+    prompts, with the port's generate."""
+    prompts = [r.tokens for r in _burst(serving, cfg.vocab_size, 4, OC_SEED)]
+    out = decode.generate(params, prompts, cfg, 16, kv_quant=True,
+                          device=device)
+    return int(np.bincount(out[:, -1].cpu().numpy()).argmax())
+
+
+def _sched_run(torch, kernels, serving, pool, sched, reqs) -> dict:
+    """``reqs`` submitted to ``sched`` at once and stepped to the end, the
+    launch counts set to 0 just before and read just after: the streams,
+    each request's first-token time from the submission (host clock,
+    ms), the wall time and the launches."""
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, done = {}, {}
+    for r in reqs:
+        sched.submit(r)
+    while sched.pending() or pool.has_active():
+        for rid, ev in sched.step().items():
+            if ev["new"] and rid not in first:
+                first[rid] = (time.perf_counter() - t0) * 1e3
+            if ev["done"]:
+                done[rid] = ev["generated"]
+    torch.cuda.synchronize()
+    return {"done": done, "first_ms": first,
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(kernels.LAUNCHES)}
+
+
+def _p(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)] if xs else -1.0
+
+
+def _graphs_of(pool):
+    return None if pool._graphs is None else dict(pool._graphs.stats)
+
+
+def _path_ok(cfg, pool, run: dict, batch: int, since=None) -> dict:
+    """Both kernels of the int8 path launched in the run, and exactly as
+    its schedule implies (``since``: the pool's stats before the run)."""
+    st = dict(pool.stats)
+    if since is not None:
+        st = {k: st[k] - since[k] for k in ("slot_steps", "prefill_chunks")}
+    exact = _launches_exact(cfg, st, run["launches"], PATHS["int8"], batch)
+    exact["ok"] = exact["ok"] and _path_launches_ok(
+        run["launches"], ("int8_matmul", "paged_attention"))
+    return exact
+
+
+def _streams_vs(decode, params, cfg, reqs, got: dict, want: dict) -> dict:
+    """Streams against a reference run (``want``: a never-preempted run,
+    solo generate): the divergent ones, each with the oracle's margin;
+    bad ones at or above the near-tie limit."""
+    div = _diverged(decode, params, cfg, reqs, got, want)
+    return {"differ": div, "bad": [d for d in div
+                                   if d["margin"] >= NEAR_TIE["bfloat16"]]}
+
+
+def phase_serve_overcommit(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
+    """Overcommit admission on bench.py:1060-1190's traffic, on the decode
+    model at full width (bf16, int8 weights from seed 0, the int8 KV pool:
+    bench.py runs it on bf16 weights and a float pool, which the port does
+    not have yet, ROADMAP queue 1 item 8). At block 16 and equal memory (a
+    third of the 24-request burst's whole footprint), batch 24, eos the
+    attractor token: the concurrent admissions of overcommit over refusal
+    admission (the admit ratio, which must exceed 1), then the burst served
+    under each policy after a warm pass, TTFT p99, queue-wait p50,
+    preemptions, grown blocks. Then the tight pool (12 requests, batch 16,
+    16 blocks, expected_new 2) with the host tier off and on (_tier_pair),
+    which must preempt, and swap with the tier on: the recompute tokens,
+    the resume gap p50, each arm's resume cost (serve_host_tier reads
+    them). Every stream is held to the same request served in a roomy pool
+    with overcommit off, and that roomy run to solo generate, up to a
+    near-tie; each measured run launches K1 and K2 exactly as its schedule
+    implies."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    eos = _attractor_eos(decode, serving, params, cfg, device)
+    reqs = _burst(serving, cfg.vocab_size, OC_BURST, OC_SEED)
+    blocks = max(2, sum(-(-(OC_PROMPT + r.max_new) // OC_BLOCK)
+                        for r in reqs) // 3)
+
+    def pool(batch=OC_BURST, kv_blocks=blocks):
+        return serving.PagedPool(params, cfg, batch, block_size=OC_BLOCK,
+                                 kv_blocks=kv_blocks, eos_id=eos,
+                                 kv_quant=True, device=device)
+
+    out = {"phase": "serve_overcommit", "eos_id": eos, "kv_blocks": blocks,
+           "block_size": OC_BLOCK, "requests": len(reqs)}
+    admits = {}
+    for oc in (True, False):
+        p = pool()
+        sched = serving.Scheduler(p, overcommit=oc)
+        admits[oc] = 0
+        for r in reqs:
+            res = sched.expected_new(r)
+            if p.admits(r, reserve_new=res):
+                p.admit(r, reserve_new=res)
+                admits[oc] += 1
+    out["concurrent_admits"] = {"overcommit": admits[True],
+                                "refusal": admits[False]}
+    out["admit_ratio"] = admits[True] / max(admits[False], 1)
+    roomy = serving.serve(params, cfg, reqs, OC_BURST, paged=True,
+                          kv_quant=True, block_size=OC_BLOCK, eos_id=eos,
+                          overcommit=False, device=device)
+    out["roomy_vs_solo"] = _streams_vs(
+        decode, params, cfg, reqs, roomy,
+        _solo_streams(decode, params, cfg, reqs, eos))
+    failed = ["roomy"] if out["roomy_vs_solo"]["bad"] else []
+    for name, oc in (("overcommit", True), ("refusal", False)):
+        for _warm in (True, False):
+            p = pool()
+            sched = serving.Scheduler(p, overcommit=oc)
+            run = _sched_run(torch, kernels, serving, p, sched, reqs)
+        tokens = sum(len(v) for v in run["done"].values())
+        out[name] = {
+            "ttft_p99_ms": _p(list(run["first_ms"].values()), 0.99),
+            "queue_wait_p50_ms": sched.queue_wait_p50_ms(),
+            "preemptions": p.stats["preemptions"],
+            "grown_blocks": p.stats["grown_blocks"],
+            "wall_s": run["wall_s"], "tokens": tokens,
+            "tokens_per_s": tokens / run["wall_s"],
+            "rounds": p.stats["rounds"], "launches": run["launches"],
+            "launches_exact": _path_ok(cfg, p, run, OC_BURST),
+            "graphs": _graphs_of(p),
+            "vs_roomy": _streams_vs(decode, params, cfg, reqs, run["done"],
+                                    roomy)}
+        if (out[name]["vs_roomy"]["bad"]
+                or not out[name]["launches_exact"]["ok"]
+                or sorted(run["done"]) != sorted(r.rid for r in reqs)):
+            failed.append(name)
+    tight_reqs = _burst(serving, cfg.vocab_size, OC_TIGHT, OC_TIGHT_SEED)
+    tight_roomy = serving.serve(params, cfg, tight_reqs, OC_TIGHT_BATCH,
+                                paged=True, kv_quant=True,
+                                block_size=OC_BLOCK, eos_id=eos,
+                                overcommit=False, device=device)
+    out["tight"] = _tier_pair(
+        torch, kernels, decode, serving, params, cfg, device, tight_reqs,
+        OC_TIGHT_BATCH, OC_TIGHT_BLOCKS, eos,
+        _solo_streams(decode, params, cfg, tight_reqs, eos), tight_roomy)
+    failed += [f"tight:{f}" for f in out["tight"].pop("failed")]
+    on = out["tight"]["tier_on"]
+    if on["preemptions"] < 1 or on["swap_preempts"] < 1:
+        failed.append("tight:no preemption or no swap")
+    if out["admit_ratio"] <= 1:
+        failed.append("admit_ratio")
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    if failed:
+        raise SystemExit(f"serve_overcommit failed: {failed}")
+    return out
+
+
+@contextlib.contextmanager
+def _observed(registry, name: str):
+    """The values observed into the histogram ``name`` (unlabelled) inside
+    the block, exactly (the histogram keeps buckets)."""
+    values, real = [], registry.observe
+
+    def observe(metric, value, *args, **kw):
+        if metric == name and not kw.get("labels"):
+            values.append(value)
+        return real(metric, value, *args, **kw)
+
+    registry.observe = observe
+    try:
+        yield values
+    finally:
+        del registry.observe
+
+
+def _ht_drive(pool, reqs) -> dict:
+    """bench.py:964-969: admit in order while the pool takes the queue's
+    head, one round, again."""
+    queue, done = list(reqs), {}
+    while queue or pool.has_active():
+        while queue and pool.admits(queue[0]):
+            pool.admit(queue.pop(0))
+        for rid, ev in pool.step_round().items():
+            if ev["done"]:
+                done[rid] = ev["generated"]
+    return done
+
+
+def _ht_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(HT_SEED)
+    return [rng.integers(1, vocab, HT_LEN).tolist()
+            for _ in range(HT_PROMPTS)]
+
+
+def _watch_restores(torch, pool, log: list) -> None:
+    """Wrap the pool's batched restore: each call's milliseconds (it waits
+    for the device), and whether every restored block holds, bitwise, the
+    host payload it was promoted from, in every pool tensor."""
+    real = pool._host_restore
+
+    def watched(ids, entries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = real(ids, entries)
+        ms = (time.perf_counter() - t0) * 1e3
+        idx = torch.tensor(ids, device=pool.device)
+        equal = all(torch.equal(a[idx].cpu(), torch.stack(
+                        [e["t"][li][n] for e in entries]))
+                    for li, layer in enumerate(pool.pools)
+                    for n, a in layer.items())
+        log.append({"ms": ms, "blocks": len(ids), "bytes": moved,
+                    "bytes_equal": equal})
+        return moved
+
+    pool._host_restore = watched
+
+
+def _demote_all(torch, pool) -> dict:
+    """Demote every cached block, holding each host payload bitwise to the
+    block's bytes on the device just before."""
+    want = {key: [{n: a[bid].to("cpu", copy=True)
+                   for n, a in layer.items()}
+                  for layer in pool.pools]
+            for bid, key in pool.allocator._cached.items()}
+    n = pool.demote_lru(pool.allocator.cached())
+    equal = all(torch.equal(pool.host.get(k)["t"][li][n2], t)
+                for k, layers in want.items() if k in pool.host
+                for li, layer in enumerate(layers)
+                for n2, t in layer.items())
+    return {"demoted": n, "parked": len(pool.host), "bytes_equal": equal}
+
+
+def _link_rate(torch, pool) -> dict:
+    """The host link for one pool block: an entry of the host tier
+    restored into a free block (the batched restore, one block, waiting
+    for the device) and a block fetched off it, XFER_REPEATS times each;
+    the median rates, GB/s. A free block's bytes are nobody's."""
+    key = next(iter(pool.host.keys()))
+    entry, bid = pool.host.get(key), pool.allocator._free[0]
+    h2d, d2h = [], []
+    for _ in range(XFER_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        type(pool)._host_restore(pool, [bid], [entry])
+        h2d.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pool._host_fetch(bid)
+        d2h.append(time.perf_counter() - t0)
+    nbytes = entry["bytes"]
+    return {"block_bytes": nbytes, "tensors": sum(len(t) for t in entry["t"]),
+            "h2d_gbps": nbytes / statistics.median(h2d) / 1e9,
+            "d2h_gbps": nbytes / statistics.median(d2h) / 1e9,
+            "h2d_ms": statistics.median(h2d) * 1e3,
+            "d2h_ms": statistics.median(d2h) * 1e3}
+
+
+def _prefill_clock(torch, serving, params, cfg, device) -> dict:
+    """The recompute arm's clock: the prefill phase's host time a token
+    (what the pool's EMA reads, no sync) against the same phase timed to
+    the device's end, for one 40-token prompt, twice (the second after the
+    first has warmed the chunk widths)."""
+    out = []
+    prompt = _ht_prompts(cfg.vocab_size)[0]
+    for i in range(2):
+        pool = serving.PagedPool(params, cfg, 1, block_size=HT_BLOCK,
+                                 kv_quant=True, prefix_cache=False,
+                                 device=device)
+        pool.admit(serving.Request(rid=i, tokens=prompt, max_new=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool._prefill_phase()
+        torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) * 1e3 / (len(prompt) - 1)
+        out.append({"ema_ms_per_tok": pool._prefill_ms_per_tok,
+                    "synced_ms_per_tok": synced})
+    return {"runs": out}
+
+
+def phase_serve_host_tier(torch, kernels, device, tight: dict,
+                          model_kw=DECODE_MODEL) -> dict:
+    """The host tier on bench.py:951-1057's traffic at block 16, on the
+    decode model at full width (bf16, int8 weights from seed 0, the int8
+    KV pool, where bench.py has bf16 weights and a float pool: ROADMAP
+    queue 1 item 8). The working set: ten 40-token prompts (max_new 8,
+    64 blocks, a host tier of 64), every cached block demoted, the same
+    prompts again: the host hit rate over phase B's prompt tokens (must be
+    HOST_HIT_RATE), the effective cache blocks; every demoted payload and
+    every promoted block bitwise the device bytes they came from. The
+    addresses: the same traffic on a pool that captured its steps, demoted
+    and reset (zeroed in place), promotes into the zeroed pool, and a
+    replayed decode chunk over the restored blocks equals the eager loop
+    on a clone. The burst of bench.py:1001-1044 (12 requests of 8 tokens,
+    max_new 24, 12 blocks, expected_new 2), tier off and on (_tier_pair),
+    every stream held to its solo generate: at block 16 its admission
+    watermark holds back every growth, so it never preempts, in the
+    reference as in the port (tests/test_torch_host_tier.py). The swap arm
+    against the recompute arm is read from ``tight``, serve_overcommit's
+    tight pair (bench.py:1160-1172's tight pool, tier off and on, run
+    once there, where it must swap). Then the host link's rate for one
+    block each way (the port's TPUBC_HOST_XFER_GBPS seed) and the
+    prefill clock."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    prompts = _ht_prompts(cfg.vocab_size)
+
+    def working_pool():
+        return serving.PagedPool(params, cfg, 8, block_size=HT_BLOCK,
+                                 kv_blocks=HT_POOL, host_blocks=HT_POOL,
+                                 kv_quant=True, device=device)
+
+    def phase_reqs(rid0):
+        return [serving.Request(rid=rid0 + i, tokens=t, max_new=HT_NEW)
+                for i, t in enumerate(prompts)]
+
+    out, failed = {"phase": "serve_host_tier", "block_size": HT_BLOCK}, []
+    pool = working_pool()
+    _ht_drive(pool, phase_reqs(0))
+    demote = _demote_all(torch, pool)
+    link = _link_rate(torch, pool)
+    restores: list = []
+    _watch_restores(torch, pool, restores)
+    hh0 = pool.stats.get("host_hit_tokens", 0)
+    pt0 = pool.stats["prompt_tokens"]
+    since = dict(pool.stats)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _ht_drive(pool, phase_reqs(100))
+    torch.cuda.synchronize()
+    run = {"launches": dict(kernels.LAUNCHES),
+           "wall_s": time.perf_counter() - t0}
+    ws = {"demote": demote,
+          "host_hit_rate": (pool.stats.get("host_hit_tokens", 0) - hh0)
+          / max(pool.stats["prompt_tokens"] - pt0, 1),
+          "effective_cache_blocks": pool.allocator.cached() + len(pool.host),
+          "restores": len(restores),
+          "restored_blocks": sum(r["blocks"] for r in restores),
+          "restore_bytes_equal": all(r["bytes_equal"] for r in restores),
+          "restore_ms_p50": _p([r["ms"] for r in restores], 0.5),
+          "host": pool.host.snapshot_json(), "wall_s": run["wall_s"],
+          "launches": run["launches"],
+          "launches_exact": _path_ok(cfg, pool, run, 8, since),
+          "graphs": _graphs_of(pool)}
+    out["working_set"] = ws
+    if (ws["host_hit_rate"] != HOST_HIT_RATE or not demote["bytes_equal"]
+            or not ws["restore_bytes_equal"] or not restores
+            or not ws["launches_exact"]["ok"]):
+        failed.append("working_set")
+    out["addresses"] = _restore_addresses(torch, serving, params, cfg,
+                                          working_pool, phase_reqs)
+    if not out["addresses"]["ok"]:
+        failed.append("addresses")
+    burst = _burst(serving, cfg.vocab_size, HT_BURST, HT_BURST_SEED, 200,
+                   HT_BURST_NEW)
+    out["burst"] = _tier_pair(torch, kernels, decode, serving, params, cfg,
+                              device, burst, 8, HT_BURST_BLOCKS, None,
+                              _solo_streams(decode, params, cfg, burst))
+    failed += [f"burst:{f}" for f in out["burst"].pop("failed")]
+    # The swap arm against the recompute arm, each resume's whole cost, from
+    # serve_overcommit's tight pair (the same traffic, run once).
+    out["swap_vs_recompute"] = {
+        arm: {k: tight[run][k] for k in (
+            "preemptions", "swap_preempts", "swap_out_blocks",
+            "swap_in_blocks", "resumes", "resume_redo_tokens",
+            "resume_priced_ms_p50", "restore_ms_p50", "prefill_ms_per_tok")}
+        for arm, run in (("recompute", "tier_off"), ("swap", "tier_on"))}
+    out["link"] = link
+    out["prefill_clock"] = _prefill_clock(torch, serving, params, cfg,
+                                          device)
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    if failed:
+        raise SystemExit(f"serve_host_tier failed: {failed}")
+    return out
+
+
+def _tier_pair(torch, kernels, decode, serving, params, cfg, device, reqs,
+               batch: int, kv_blocks: int, eos, solo: dict,
+               never=None) -> dict:
+    """``reqs`` through an overcommitted pool (expected_new 2) of
+    ``kv_blocks`` blocks of HT_BLOCK, tier off and on (HT_POOL blocks),
+    each stream held to its solo generate (``solo``), to a never-preempted
+    serve (``never``, when given; itself held to ``solo``) and the two
+    runs to each other, near-ties allowed. Each run: preemptions, swaps,
+    grown blocks, requeues, the recompute tokens and the resume gap p50,
+    the restore ms p50 (timed, waiting for the device), and each resume's
+    whole cost: its restore's ms plus its re-prefilled tokens at the
+    pool's prefill price (the dispatch-timed EMA the recompute arm reads,
+    as bench.py:1023-1030 prices them; a price, not a timed prefill)."""
+    from tpu_bootstrap_torch import telemetry
+
+    out, failed, done = {}, [], {}
+    if never is not None:
+        out["never_vs_solo"] = _streams_vs(decode, params, cfg, reqs, never,
+                                           solo)
+        if out["never_vs_solo"]["bad"]:
+            failed.append("never_vs_solo")
+    for name, host_blocks in (("tier_off", 0), ("tier_on", HT_POOL)):
+        p = serving.PagedPool(params, cfg, batch, block_size=HT_BLOCK,
+                              kv_blocks=kv_blocks, host_blocks=host_blocks,
+                              eos_id=eos, kv_quant=True, device=device)
+        sched = serving.Scheduler(p, overcommit=True, expected_new=2)
+        resumes, restores = [], []
+        _watch_restores(torch, p, restores)
+        real_admit = p.admit
+
+        def admit(r, real_admit=real_admit, p=p, resumes=resumes,
+                  restores=restores, **kw):
+            before = p.stats["prompt_tokens"] - p.stats["prefix_hit_tokens"]
+            n = len(restores)
+            real_admit(r, **kw)
+            if kw.get("preload") is None:
+                return
+            redo = (p.stats["prompt_tokens"] - p.stats["prefix_hit_tokens"]
+                    - before - 1)
+            restore_ms = sum(x["ms"] for x in restores[n:])
+            price = p._prefill_ms_per_tok
+            resumes.append({
+                "redo_tokens": redo, "restore_ms": restore_ms,
+                "priced_ms": None if price is None
+                else restore_ms + redo * price})
+
+        p.admit = admit
+        telemetry.metrics().reset()  # this run's counters alone
+        with _observed(telemetry.metrics(), "serve_resume_gap_ms") as gaps:
+            run = _sched_run(torch, kernels, serving, p, sched, reqs)
+        m = telemetry.metrics().to_json()
+        done[name] = run["done"]
+        priced = [x["priced_ms"] for x in resumes
+                  if x["priced_ms"] is not None]
+        out[name] = {
+            "preemptions": p.stats["preemptions"],
+            "swap_preempts": p.stats.get("swap_preempts", 0),
+            "swap_out_blocks": p.stats.get("swap_out_blocks", 0),
+            "swap_in_blocks": p.stats.get("swap_in_blocks", 0),
+            "grown_blocks": p.stats["grown_blocks"],
+            "requeues": sched.stats["requeues"],
+            "recompute_tokens": m.get("serve_preempt_recompute_tokens_total",
+                                      0),
+            "resume_gap_p50_ms": _p(gaps, 0.5), "resumes": len(resumes),
+            "resume_redo_tokens": [x["redo_tokens"] for x in resumes],
+            "resume_priced_ms_p50": _p(priced, 0.5),
+            "restore_ms_p50": _p([r["ms"] for r in restores], 0.5),
+            "restores": len(restores),
+            "restore_bytes_equal": all(r["bytes_equal"] for r in restores),
+            "host_gbps_ema": p._host_gbps_ema,
+            "prefill_ms_per_tok": p._prefill_ms_per_tok,
+            "wall_s": run["wall_s"], "launches": run["launches"],
+            "launches_exact": _path_ok(cfg, p, run, batch),
+            "graphs": _graphs_of(p),
+            "vs_solo": _streams_vs(decode, params, cfg, reqs, run["done"],
+                                   solo)}
+        if never is not None:
+            out[name]["vs_never_preempted"] = _streams_vs(
+                decode, params, cfg, reqs, run["done"], never)
+        if (out[name]["vs_solo"]["bad"]
+                or out[name].get("vs_never_preempted", {}).get("bad")
+                or not out[name]["launches_exact"]["ok"]
+                or not out[name]["restore_bytes_equal"]
+                or sorted(run["done"]) != sorted(r.rid for r in reqs)):
+            failed.append(name)
+    out["on_vs_off"] = _streams_vs(decode, params, cfg, reqs,
+                                   done["tier_on"], done["tier_off"])
+    if out["on_vs_off"]["bad"]:
+        failed.append("on_vs_off")
+    out["failed"] = failed
+    return out
+
+
+def _restore_addresses(torch, serving, params, cfg, working_pool,
+                       phase_reqs) -> dict:
+    """A pool that served phase A (its decode steps captured), every
+    cached block demoted, then reset: the pool tensors zeroed in place.
+    Phase B's first rows promote their prefixes back into the zeroed
+    pool; once a decode chunk over at least 4 rows is due at a captured
+    width, it runs through the captured step and, on a clone of the pools,
+    through the eager loop (_chunk_vs_eager). A restore or a reset that
+    rebound a pool tensor would leave the graphs reading other memory.
+    Also held: every pool tensor's address unchanged across all of it."""
+    pool = working_pool()
+    _ht_drive(pool, phase_reqs(0))
+    ptrs = [a.data_ptr() for layer in pool.pools for a in layer.values()]
+    pool.demote_lru(pool.allocator.cached())
+    pool.reset()
+    pending = phase_reqs(300)
+    for _ in range(100):
+        while pending and pool.admits(pending[0]):
+            pool.admit(pending.pop(0))
+        pool._prefill_phase()
+        dec = pool._decoding()
+        if dec:
+            chunk = pool._chunk_len(dec)
+            bt, last, pos = pool._decode_inputs(dec, chunk)
+            if (chunk > 1 and len(dec) >= 4
+                    and bt.shape[1] in pool._graphs._graphs):
+                break
+        pool.step_round()
+    else:
+        raise SystemExit("serve_host_tier: no captured width after restore")
+    promoted = pool.stats.get("swap_in_blocks", 0)
+    out = _chunk_vs_eager(torch, serving, pool, params, cfg, chunk, bt, last,
+                          pos, len(dec))
+    out["promoted_blocks"] = promoted
+    out["addresses_kept"] = ptrs == [a.data_ptr() for layer in pool.pools
+                                     for a in layer.values()]
+    out["ok"] = out["ok"] and out["addresses_kept"] and promoted > 0
     return out
 
 
@@ -2309,9 +2918,15 @@ def main() -> int:
                         ("serve_int4", phase_serve_int4),
                         ("serve_moe", phase_serve_moe),
                         ("serve_prefix", phase_serve_prefix),
+                        ("serve_overcommit", phase_serve_overcommit),
+                        ("serve_host_tier", phase_serve_host_tier),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
-        out[name] = run(name, phase, torch, kernels, device)
+        # The host tier's phase reads the tight pool's pair that
+        # serve_overcommit ran.
+        extra = ((out["serve_overcommit"]["tight"],)
+                 if name == "serve_host_tier" else ())
+        out[name] = run(name, phase, torch, kernels, device, *extra)
     out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
     out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
     out["train"] = run("train", phase_train, torch, kernels, device)
@@ -2323,6 +2938,18 @@ def main() -> int:
     return 0
 
 
+def path_launches(out: dict, name: str) -> dict:
+    """``name``'s launches in each later path's measured run (the counts
+    set to 0 just before it): the overcommit burst, the tight pool with
+    the tier off and on (the swapping run), the host tier's phase B."""
+    oc, ht = out["serve_overcommit"], out["serve_host_tier"]
+    tight = oc["tight"]
+    return {"serve_overcommit": oc["overcommit"]["launches"][name],
+            "serve_overcommit_tight": tight["tier_off"]["launches"][name],
+            "serve_overcommit_tight_swap": tight["tier_on"]["launches"][name],
+            "serve_host_tier": ht["working_set"]["launches"][name]}
+
+
 def kernel_lines(out: dict) -> list:
     k1, k2, k3, k4 = out["k1"], out["k2"], out["k3"], out["k4"]
     launches = out["serve"]["launches"]
@@ -2332,7 +2959,8 @@ def kernel_lines(out: dict) -> list:
           for shape in ("wqkv", "wo", "w_up", "w_down")),
         ("lm_head", "float32", False)])
     k2_main = next(r for r in k2["rows"] if r["Hk"] == 16 and r["D"] == 64
-                   and r["q"] == "bfloat16" and r["lengths_name"] == "ragged")
+                   and r["bs"] == 64 and r["q"] == "bfloat16"
+                   and r["lengths_name"] == "ragged")
     k5_main = next(r for r in out["k5"]["rows"] if r["Hk"] == 16
                    and r["D"] == 64 and r["L"] == K5_TIMED_L
                    and r["mask"] == "full" and r["q"] == "bfloat16")
@@ -2362,6 +2990,7 @@ def kernel_lines(out: dict) -> list:
          "ms": k1_step["kernel_ms"], "plain_ms": k1_step["plain_ms"],
          "bound_ms": k1_step["bound_ms"], "bound_by": k1_step["bound_by"],
          "library_ms": k1_step["library_ms"],
+         "launches_by_path": path_launches(out, "int8_matmul"),
          "at": "one decode step, T=8: 8 x (wqkv, wo, w_up, w_down) bf16 "
                "+ lm_head f32"},
         {"name": "paged_decode_attention_int8", "route": "cuda",
@@ -2372,6 +3001,7 @@ def kernel_lines(out: dict) -> list:
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"], "split": k2_main["plan"],
+         "launches_by_path": path_launches(out, "paged_attention"),
          "at": "one launch, B=8 H=Hk=16 D=64 bs=64 nb=8, bf16 q, lengths "
                + ",".join(map(str, K2_LENGTHS))},
         {"name": "flash_fwd", "route": "cuda", "source": src,

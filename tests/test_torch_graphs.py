@@ -176,7 +176,8 @@ def test_paged_graph_step_equals_chunk_kernel(stand_in, name):
     pool = _mid_serve_pool(params, cfg, specs, batch, rounds)
     dec = pool._decoding()
     assert dec and len(dec) < batch  # dummy rows in the chunk
-    chunk, bt, last, pos = pool._decode_plan(dec)
+    chunk = pool._chunk_len(dec)
+    bt, last, pos = pool._decode_inputs(dec, chunk)
     if name == "aliased_table":
         a, b = sorted((s for s in dec if s.rid in (0, 1)),
                       key=lambda s: s.rid)

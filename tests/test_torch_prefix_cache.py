@@ -51,8 +51,9 @@ POOL = dict(kv_quant=True, device="cpu")
 
 @pytest.fixture(autouse=True)
 def _reference_without_host_tier(monkeypatch):
-    """The reference's host tier (queue 1 item 5.2) is off, as the port
-    has none: its evictions discard, as the port's do."""
+    """The host tier (queue 1 item 5.2) is off in both packages here, so
+    evictions discard and the pools are held to each other on the prefix
+    cache alone; tests/test_torch_host_tier.py holds the tier."""
     monkeypatch.setenv("TPUBC_KV_HOST_BLOCKS", "0")
 
 

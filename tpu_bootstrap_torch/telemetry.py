@@ -3,11 +3,13 @@
 A copy of the subset of ``tpu_bootstrap.telemetry`` the port records
 (that module is framework-free, but the port imports nothing of the JAX
 package): named counters and gauges, fixed-bucket histograms, and
-``span`` timing, the train loop's heartbeat and the MFU denominator.
-Names are the reference's, so a scrape of either package reads the same
-keys: ``quant_<kernel>_{calls,weight_bytes,activation_bytes,bytes}_total``
-from the quantized matmul seam, the ``kv_blocks_*`` pool gauges, the
-``serve_*`` scheduler gauges and the train loop's ``workload_*`` gauges.
+``span`` timing, the train loop's heartbeat, the MFU denominator and the
+host-link rate the paged engine prices swaps with. Names are the
+reference's, so a scrape of either package reads the same keys:
+``quant_<kernel>_{calls,weight_bytes,activation_bytes,bytes}_total`` from
+the quantized matmul seam, the ``kv_blocks_*`` pool gauges, the ``serve_*``
+scheduler gauges (labelled series rendered ``name{k="v"}``) and the train
+loop's ``workload_*`` gauges.
 """
 
 from __future__ import annotations
@@ -39,6 +41,15 @@ class _Histogram:
         self.sum += value
         self.count += 1
 
+def _label_key(name: str, labels) -> str:
+    """A labelled series' key, rendered as the reference renders it:
+    ``name{k="v",...}`` with the keys sorted; no labels keep the bare
+    name."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+    return f"{name}{{{inner}}}"
+
 
 class MetricsRegistry:
     """Counters, gauges and histograms (thread-safe)."""
@@ -48,7 +59,8 @@ class MetricsRegistry:
         self._values: dict = {}      # guarded-by: _lock
         self._histograms: dict = {}  # guarded-by: _lock
 
-    def inc(self, name: str, delta=1) -> None:
+    def inc(self, name: str, delta=1, labels=None) -> None:
+        name = _label_key(name, labels)
         with self._lock:
             self._values[name] = self._values.get(name, 0) + delta
 
@@ -56,9 +68,11 @@ class MetricsRegistry:
         with self._lock:
             self._values[name] = value
 
-    def observe(self, name: str, value: float, buckets=None) -> None:
+    def observe(self, name: str, value: float, buckets=None,
+                labels=None) -> None:
         """Record one observation; ``buckets`` fixes the bounds on the
         histogram's first observation."""
+        name = _label_key(name, labels)
         with self._lock:
             h = self._histograms.get(name)
             if h is None:
@@ -91,6 +105,11 @@ def metrics() -> MetricsRegistry:
 
 
 _spans: deque = deque(maxlen=4096)
+
+
+def monotonic() -> float:
+    """Monotonic seconds: the clock of queue waits and resume gaps."""
+    return time.monotonic()
 
 
 @contextlib.contextmanager
@@ -137,6 +156,24 @@ def peak_tflops() -> float | None:
     return None
 
 
+# Host<->device transfer rate, GB/s: the seed of the paged engine's swap
+# arm until it has timed a transfer of its own (the reference's name;
+# TPUBC_HOST_XFER_GBPS overrides). The default is not the reference's TPU
+# host figure: it is the rate chip_smoke.py's serve_host_tier phase
+# measured for one pool block of the decode model (278,528 bytes in 32
+# tensors) restored host to device on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit (PERF.md section 6).
+HOST_XFER_ENV = "TPUBC_HOST_XFER_GBPS"
+DEFAULT_HOST_XFER_GBPS = 0.27
+
+
+def host_xfer_gbps() -> float:
+    try:
+        return float(os.environ.get(HOST_XFER_ENV, DEFAULT_HOST_XFER_GBPS))
+    except ValueError:
+        return DEFAULT_HOST_XFER_GBPS
+
+
 # Train-loop heartbeat: the step loop stamps (step, monotonic time) after
 # every step, so a wedged loop can be told from a slow one.
 _beat_lock = threading.Lock()
@@ -173,10 +210,14 @@ def record_kv_block_pool(total: int, used: int, free: int,
     reg.set_gauge("kv_blocks_compactness", round(compactness, 4))
 
 
-def record_scheduler(queue_depth: int, submitted: int,
-                     admitted: int) -> None:
-    """Scheduler gauges (reference names, without the overcommit EMA)."""
+def record_scheduler(queue_depth: int, expected_new: float, submitted: int,
+                     admitted: int, preemptions: int) -> None:
+    """Scheduler gauges (reference names): the waiting queue's depth, the
+    expected-generated-length EMA overcommit admission reserves by, the
+    admitted-over-submitted ratio and the pool's preemption count."""
     reg = _metrics
     reg.set_gauge("serve_sched_queue_depth", queue_depth)
+    reg.set_gauge("serve_expected_new", round(float(expected_new), 2))
     if submitted > 0:
         reg.set_gauge("serve_admitted_ratio", round(admitted / submitted, 4))
+    reg.set_gauge("serve_preemptions", preemptions)

@@ -14,7 +14,8 @@ sites and firing schedule; the port imports nothing of the JAX package).
 
 Repeating a site makes a multi-shot schedule. With ``TPUBC_FAULT`` unset,
 :func:`fire` is one global check. Tests drive the injector through
-:func:`install`. The port's seams so far: ``ckpt.save``.
+:func:`install`. The port's seams so far: ``ckpt.save``, ``pool.device`` and
+``swap.xfer``.
 """
 
 from __future__ import annotations

@@ -15,9 +15,14 @@ round (``replayed_tokens``) is the engine's price of admission.
 ``PagedPool`` keeps one shared pool of fixed-size KV blocks per layer, a
 block table per row, and chunked prefill interleaved into decode rounds:
 
-* Admission reserves a request's WHOLE footprint,
-  ceil((prompt + max_new) / block_size) blocks, and is refused when the
-  pool cannot cover it, so no round ever runs out of blocks.
+* Admission reserves the request's history plus a slice of its decode
+  budget: the WHOLE budget under refusal admission (``reserve_new`` None,
+  ``Scheduler(overcommit=False)``), the Scheduler's expected-length
+  estimate under overcommit (the default). A row short of blocks grows its
+  table lazily before each decode dispatch (``_capacity_fold``), and when
+  the pool cannot cover the growth a row is preempted by the victim
+  policy (``preempt_one``) and resumed later, so pressure resolves by
+  preemption, never by a write into a block the row does not own.
 * Each ``step_round`` first spends up to ``prefill_budget`` prompt tokens
   on rows still prefilling (round-robin, power-of-two chunk widths): the
   prompt chunk runs ``speculative._verify_chunk`` over the row's blocks
@@ -33,8 +38,9 @@ block table per row, and chunked prefill interleaved into decode rounds:
   (``_paged_graph_step``); on the CPU the eager loop
   ``_paged_chunk_kernel`` runs, the body the graphs are held to.
 * The chunk is the largest power of two that at least half the cohort
-  can consume (``_majority_chunk``); rows past their budget run on and
-  their overshoot is discarded by the event fold.
+  can consume (``_majority_chunk``), capped while prompts are pending and,
+  under overcommit, by the expected length (``chunk_hint``); rows past
+  their budget run on and their overshoot is discarded by the event fold.
 
 Automatic prefix caching (``prefix_cache``, on by default as in the
 reference): every FULL block a row fills is registered in the
@@ -48,21 +54,30 @@ matched chain reaches into the block the new row must write, that block
 is copied (copy-on-write, ``_copy_block``) instead of shared, so a row
 never writes a shared block and K2 only ever reads aliased ones.
 
+The host tier (``HostBlockPool``, on by default with the prefix cache,
+as large as the pool): an evicted cached block is demoted to host memory
+instead of discarded, a preempted row's registered blocks are swapped out
+there when the cost model prices the transfer below re-prefilling them
+(``_preempt_arm``), and admission promotes host hits back into fresh
+blocks with one batched restore.
+
 The pools are updated IN PLACE (the reference donates them to its
 jitted rounds): the frontier write, the prefill window scatter, the
-copy-on-write copy and defrag's relocation all write into the tensors the
-pool holds, which also keeps the addresses the captured steps read.
+copy-on-write copy, the host restore, defrag's relocation and reset's
+zeroing all write into the tensors the pool holds, which also keeps the
+addresses the captured steps read.
 
 Exactness: a request's tokens equal its solo greedy
 ``generate(kv_kernel=False)``, up to the order of float sums inside the
 kernels (the slot engine's speculative rounds commit the target's own
-argmaxes, so they equal its plain rounds).
+argmaxes, so they equal its plain rounds); a preempted and resumed stream
+equals its never-preempted one, whichever arm resumed it.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): the host tier, overcommit admission and preemption,
-sampling, the paged engine's speculative rounds and prompt lookup, the
-resident engine, the float-pool gather path, the request log, the device
-ledger, the fault seams other than ``pool.device`` and deadlines.
+queue 1 item): sampling, the paged engine's speculative rounds and prompt
+lookup, the resident engine, the float-pool gather path, the request log,
+the device ledger, the fault seams other than ``pool.device`` and
+``swap.xfer``, and deadlines.
 """
 
 from __future__ import annotations
@@ -71,8 +86,11 @@ import dataclasses
 import functools
 import hashlib
 import heapq
+import math
 import os
-from collections import OrderedDict
+import threading
+import time
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -92,6 +110,7 @@ from tpu_bootstrap_torch.workload.decode import (
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
     Params,
+    flops_model,
     kv_bytes_per_token,
     resolve_device,
 )
@@ -123,12 +142,19 @@ class _Slot:
     history: list  # prompt + generated so far
     remaining: int
     generated: list
+    # Victim-selection inputs: preemption evicts the lowest ``priority``
+    # first, the latest ``seq`` (arrival order) within it.
+    priority: int = 0
+    seq: int = 0
+    deadline: float | None = None
 
 
 @dataclasses.dataclass
 class _PagedSlot(_Slot):
     prompt_len: int = 0
     prefilled: int = 0  # prompt tokens whose KV has been written
+    prefill_chunks: int = 0
+    admit_round: int = 0
     blocks: list = dataclasses.field(default_factory=list)
     # Prefix-cache bookkeeping: n_shared counts the references into the
     # content-hash index (prefix hits this row never writes); registered
@@ -248,9 +274,9 @@ class BlockAllocator:
         # observability only, streams are untouched either way).
         self.digest_enabled = _digest_enabled()
         self._digest: set = set()
-        # Demotion seam for the host tier (queue 1 item 5.2): called with
-        # (bid, key) for every cached block an eviction reclaims, before
-        # its index entry goes. None: eviction discards.
+        # Demotion seam for the host tier: called with (bid, key) for every
+        # cached block an eviction reclaims, before its index entry goes.
+        # None: eviction discards.
         self.evict_hook = None
 
     # ---- accounting -------------------------------------------------------
@@ -394,6 +420,84 @@ class BlockAllocator:
         if not self._ref:
             return 1.0
         return len(self._ref) / max(self._ref)
+
+
+class HostBlockPool:
+    """The host-memory tier under the paged KV cache: KV blocks copied off
+    the card, keyed by the same radix chain keys as the allocator's
+    content index, so a block's life is HBM cached -> host -> gone. Fed by
+    demotion (the allocator's LRU evictions) and by preemption victims
+    swapped out; drained by admission promoting host hits back into the
+    pool, and by its own LRU past ``capacity``.
+
+    An entry is ``{"t": [{name: host tensor} per layer], "d": None,
+    "bytes": n}`` (``d`` is the reference's draft-pool slot, which the
+    port's paged engine does not have yet). Entries hold no device state,
+    so the tier survives ``PagedPool.reset``. A key names token content,
+    not a location, so the same key in both tiers is never stale."""
+
+    def __init__(self, capacity: int, block_size: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity, self.block_size = capacity, block_size
+        self._entries = OrderedDict()  # chain key -> entry, LRU order
+        self.bytes = 0
+        self.stats = {"puts": 0, "drops": 0, "promotions": 0,
+                      "hit_tokens": 0}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._entries
+
+    def keys(self):
+        """Chain keys in LRU order, oldest first."""
+        return self._entries.keys()
+
+    def put(self, key: bytes, entry: dict) -> None:
+        """Park one block. A key already parked only moves to the MRU end
+        (its payload is the same content); past capacity the oldest entry
+        drops."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return
+        self._entries[key] = entry
+        self.bytes += entry["bytes"]
+        self.stats["puts"] += 1
+        while len(self._entries) > self.capacity:
+            _k, dropped = self._entries.popitem(last=False)
+            self.bytes -= dropped["bytes"]
+            self.stats["drops"] += 1
+
+    def get(self, key: bytes):
+        return self._entries.get(key)
+
+    def pop(self, key: bytes) -> dict:
+        """Claim a parked block for promotion: it leaves the tier, and the
+        promoted block re-enters the content index under the same key."""
+        entry = self._entries.pop(key)
+        self.bytes -= entry["bytes"]
+        self.stats["promotions"] += 1
+        return entry
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self.bytes = 0
+
+    def snapshot_json(self) -> dict:
+        return {"blocks": len(self._entries), "capacity": self.capacity,
+                "bytes": self.bytes,
+                "hit_tokens": self.stats["hit_tokens"],
+                "swap_ins": self.stats["promotions"],
+                "swap_outs": self.stats["puts"],
+                "dropped": self.stats["drops"]}
+
+    def digest_json(self) -> dict:
+        """The fingerprints of every parked key, in the HBM digest's unit,
+        so ``digest_match_len`` scores host hits too."""
+        return {"blocks": len(self._entries), "bytes": self.bytes,
+                "fps": sorted(key_fingerprint(k) for k in self._entries)}
 
 
 def _gather_windows(pools: list, bt: torch.Tensor) -> list:
@@ -585,13 +689,22 @@ class SlotPool(_PoolBase):
         beyond its slots."""
         self.slots = [None] * self.batch_size
 
-    def admits(self, r: Request) -> bool:
-        """Capacity is slots, not blocks."""
-        return self.free_slots() > 0
+    def admits(self, r: Request, *, extra_slots: int = 0,
+               extra_blocks: int = 0, reserve_new: int | None = None,
+               preload: list | None = None) -> bool:
+        """Capacity is slots, not blocks: the Scheduler's block inputs
+        (``extra_blocks``, ``reserve_new``, ``preload``) mean nothing
+        here."""
+        return self.free_slots() > extra_slots
 
-    def admit(self, r: Request) -> None:
+    def admit(self, r: Request, *, reserve_new: int | None = None,
+              preload: list | None = None, seq: int = 0) -> None:
         """Place a validated request in a free slot (raises when full:
-        callers check ``admits``)."""
+        callers check ``admits``). The slot engine never overcommits nor
+        preempts, so it has nothing to resume."""
+        if preload:
+            raise ValueError("slot engines never preempt, so they have "
+                             "nothing to resume (preload is paged-only)")
         self.validate(r, self.cfg)
         self.slots[self._free_index()] = _Slot(
             rid=r.rid, history=list(r.tokens), remaining=r.max_new,
@@ -644,8 +757,11 @@ class PagedPool(_PoolBase):
     ``block_size`` tokens (default: ``batch_size`` max-length rows'
     worth), prompts prefilled in chunks of at most ``prefill_budget``
     tokens per round, full prompt blocks shared through the prefix cache
-    unless ``prefix_cache`` is off. Drive it with ``admit`` and
-    ``step_round``."""
+    unless ``prefix_cache`` is off, and a host tier of ``host_blocks``
+    blocks under it (None: ``TPUBC_KV_HOST_BLOCKS``, unset meaning as
+    many as ``kv_blocks``; 0: none). Drive it with ``admit`` and
+    ``step_round``; preempted rows' resume records collect in
+    ``preempted``."""
 
     def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
                  kv_blocks: int | None = None, block_size: int = 64,
@@ -653,15 +769,13 @@ class PagedPool(_PoolBase):
                  eos_id: int | None = None, temperature: float = 0.0,
                  draft_params: Params | None = None,
                  spec_lookup: bool = False, prefix_cache: bool = True,
-                 host_blocks: int = 0, device=None):
+                 host_blocks: int | None = None, device=None):
         if temperature != 0.0:
             raise _not_ported("sampling (temperature > 0)",
                               "5: sampling with threefry bit-parity")
         if draft_params is not None or spec_lookup:
             raise _not_ported("speculative serving (draft_params, "
                               "spec_lookup)", "5: paged spec rounds")
-        if host_blocks:
-            raise _not_ported("the host KV tier", "5.2: the host tier")
         if not kv_quant:
             raise _not_ported("the float KV pool (gather/einsum decode)",
                               "8: the other engines")
@@ -694,6 +808,10 @@ class PagedPool(_PoolBase):
         self.kv_quant = kv_quant
         self.eos_id = eos_id
         self.prefix_cache = prefix_cache
+        # Overcommit's decode-chunk cap, set by the Scheduler to its
+        # expected-length EMA before every round; None leaves the chunk
+        # rule as it is under refusal admission.
+        self.chunk_hint: int | None = None
         # rid -> prompt tokens served from cache at admission.
         self.request_cached_tokens: dict = {}
         self.allocator = BlockAllocator(kv_blocks, block_size)
@@ -702,12 +820,18 @@ class PagedPool(_PoolBase):
                                       quantized=True, device=self.device)
         self.slots: list = [None] * batch_size
         self._pre_rr = 0  # round-robin cursor over prefilling rows
+        # Resume records of preempted rows, drained by the Scheduler into
+        # its waiting queue after every step.
+        self.preempted: list = []
         self.stats = {"rounds": 0, "slot_steps": 0, "active_slot_steps": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
                       "blocks_total": kv_blocks, "blocks_peak": 0,
                       "defrags": 0, "prompt_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_hit_requests": 0,
-                      "cow_copies": 0}
+                      "cow_copies": 0, "preemptions": 0, "grown_blocks": 0}
+        # Measured prefill cost per token (an EMA over the prefill phase),
+        # the recompute arm's price; None until a prefill chunk has run.
+        self._prefill_ms_per_tok: float | None = None
         self._kv_bytes_per_tok = kv_bytes_per_token(cfg, kv_quant)
         # The decode chunk's captured steps (None off the card) and the
         # static buffers they read and advance: last tokens, frontiers, a
@@ -721,6 +845,7 @@ class PagedPool(_PoolBase):
         self._out = torch.zeros((batch_size, _bucket_down(cfg.max_seq_len)),
                                 dtype=torch.long, device=self.device)
         self._tables: dict = {}
+        self._host_init(host_blocks)
         telemetry.metrics().set_gauge("serve_target_stream_bytes",
                                       quant.decode_stream_bytes(params))
         self._record_block_gauges()
@@ -728,25 +853,45 @@ class PagedPool(_PoolBase):
     # ---- capacity ---------------------------------------------------------
 
     def blocks_needed(self, r: Request) -> int:
-        """Blocks the request's whole footprint reserves."""
+        """Blocks the request's whole footprint reserves (refusal
+        admission's reservation, and the bound ``validate`` checks)."""
         return -(-(len(r.tokens) + r.max_new) // self.block_size)
 
+    def _reserve_blocks(self, history_len: int, remaining: int,
+                        reserve_new: int | None) -> int:
+        """Blocks admission reserves now: the whole history plus the
+        reserved slice of the decode budget, all of it when
+        ``reserve_new`` is None (refusal admission), else the Scheduler's
+        estimate clamped into [1, remaining]."""
+        new = (remaining if reserve_new is None
+               else max(1, min(remaining, reserve_new)))
+        return -(-(history_len + new) // self.block_size)
+
     def admits(self, r: Request, *, extra_slots: int = 0,
-               extra_blocks: int = 0) -> bool:
-        """Whether the pool can take ``r`` now, with ``extra_slots`` and
-        ``extra_blocks`` already promised to requests ahead of it. Shared
-        prefix blocks cost nothing fresh, but a hit on a CACHED block (and
-        a cached copy-on-write source, pinned across the copy) revives it
-        out of the reclaimable set, so it is debited from ``available``."""
+               extra_blocks: int = 0, reserve_new: int | None = None,
+               preload: list | None = None) -> bool:
+        """Whether the pool can take ``r`` (resumed with ``preload``, its
+        tokens generated before a preemption) now, reserving
+        ``reserve_new`` decode tokens, with ``extra_slots`` and
+        ``extra_blocks`` already promised to requests ahead of it. HBM
+        prefix hits cost nothing fresh, but a hit on a CACHED block (and a
+        cached copy-on-write source, pinned across the copy) revives it
+        out of the reclaimable set, so it is debited from ``available``.
+        Host hits get no discount: each needs a fresh block to be promoted
+        into."""
         if self.free_slots() <= extra_slots:
             return False
-        plan, cow, _ = self._prefix_plan(list(r.tokens))
-        pinned = sum(1 for _tier, b, _k in plan
-                     if self.allocator.is_cached(b))
+        history = list(r.tokens) + list(preload or [])
+        remaining = r.max_new - len(preload or [])
+        plan, cow, _ = self._prefix_plan(history)
+        n_hbm = sum(1 for tier, _b, _k in plan if tier == "hbm")
+        pinned = sum(1 for tier, b, _k in plan
+                     if tier == "hbm" and self.allocator.is_cached(b))
         if cow is not None and self.allocator.is_cached(cow):
             pinned += 1
         return (self.allocator.available() - extra_blocks - pinned
-                >= self.blocks_needed(r) - len(plan))
+                >= self._reserve_blocks(len(history), remaining,
+                                        reserve_new) - n_hbm)
 
     def validate(self, r: Request, cfg: ModelConfig) -> None:
         _PoolBase.validate(r, cfg)
@@ -761,6 +906,173 @@ class PagedPool(_PoolBase):
         # The last prompt token is never prefilled: the first decode step
         # re-feeds it from the frontier and emits the first logits.
         return s.prefilled < s.prompt_len - 1
+
+    def reset(self) -> None:
+        """Abandon every in-flight row and empty the pool: a new allocator
+        (its content index described blocks that are zeroed now), the
+        pools zeroed, the host tier kept. The reference allocates new
+        arrays here; the port zeroes the ones it has IN PLACE, because
+        the captured decode steps read these tensors' addresses, and new
+        tensors would leave every graph reading freed memory."""
+        self.slots = [None] * self.batch_size
+        self.request_cached_tokens.clear()
+        self.preempted.clear()
+        self.allocator = BlockAllocator(self.allocator.num_blocks,
+                                        self.block_size)
+        for layer in self.pools:
+            for a in layer.values():
+                a.zero_()
+        if self.host is not None:
+            # Host entries hold no device state, so resumed rows promote
+            # from them; only the new allocator needs the seam again.
+            self.allocator.evict_hook = self._demote_block
+        self._record_block_gauges()
+
+    # ---- host tier --------------------------------------------------------
+
+    def _host_init(self, host_blocks: int | None) -> None:
+        """Build the host tier, or none. ``host_blocks`` None reads
+        TPUBC_KV_HOST_BLOCKS: unset or "auto" sizes the tier at the pool's
+        block count, 0 turns it off. The tier exists only with the prefix
+        cache (its keys are the cache's)."""
+        if host_blocks is None:
+            env = os.environ.get("TPUBC_KV_HOST_BLOCKS", "auto").lower()
+            host_blocks = (self.allocator.num_blocks
+                           if env in ("", "auto") else int(env))
+        if host_blocks < 0:
+            raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
+        self.host = (HostBlockPool(host_blocks, self.block_size)
+                     if host_blocks and self.prefix_cache else None)
+        # Measured host-link rate (an EMA over timed transfers); None until
+        # the first one, when the cost model prices with the seed.
+        self._host_gbps_ema: float | None = None
+        if self.host is not None:
+            # Demotion runs inside alloc()'s eviction pass, which only
+            # admission and the capacity fold call, both before a round's
+            # decode chunk: no host copy ever runs inside a graph capture.
+            self.allocator.evict_hook = self._demote_block
+
+    def _host_gbps(self) -> float:
+        """The rate transfers are priced at: the measured EMA once a
+        transfer has been timed, the seed before."""
+        return self._host_gbps_ema or telemetry.host_xfer_gbps()
+
+    def _note_bw(self, nbytes: float, secs: float) -> None:
+        """Fold one timed host<->device transfer into the rate EMA (the
+        prefill EMA's 0.8/0.2 blend) and publish it."""
+        if nbytes <= 0 or secs <= 0:
+            return
+        gbps = nbytes / secs / 1e9
+        self._host_gbps_ema = (
+            gbps if self._host_gbps_ema is None
+            else 0.8 * self._host_gbps_ema + 0.2 * gbps)
+        telemetry.metrics().set_gauge(
+            "serve_swap_bandwidth_gbps", round(self._host_gbps_ema, 4))
+
+    def _host_fetch(self, bid: int) -> dict:
+        """Copy ONE block of every layer (K, V and their scales) to host
+        memory: the demotion and swap-out transfer. Each copy waits for the
+        device, at a round boundary only. The ``swap.xfer`` fault fires
+        before the device is touched, so a failed transfer leaves nothing
+        half-copied."""
+        faults.fire("swap.xfer")
+        t = [{n: a[bid].to("cpu", copy=True) for n, a in layer.items()}
+             for layer in self.pools]
+        nbytes = sum(x.numel() * x.element_size() for layer in t
+                     for x in layer.values())
+        return {"t": t, "d": None, "bytes": nbytes}
+
+    def _host_restore(self, ids: list, entries: list) -> int:
+        """Promote host entries into blocks ``ids``: per pool tensor ONE
+        stacked host-to-device copy and one ``index_copy_`` into the
+        tensor the pool holds (in place: the captured steps read its
+        address). Waits for the device, so the time is the transfer's.
+        Returns the bytes moved."""
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        for li, layer in enumerate(self.pools):
+            for n, a in layer.items():
+                payload = torch.stack([e["t"][li][n] for e in entries])
+                a.index_copy_(0, idx, payload.to(self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return sum(e["bytes"] for e in entries)
+
+    def _demote_block(self, bid: int, key: bytes) -> None:
+        """``allocator.evict_hook``: an evicted cached block goes to the
+        host tier instead of away. A failed transfer degrades to a plain
+        eviction; a key already parked needs no second copy."""
+        if key in self.host:
+            return
+        t0 = time.perf_counter()
+        try:
+            entry = self._host_fetch(bid)
+        except faults.InjectedFault:
+            return
+        self.host.put(key, entry)
+        self._note_bw(entry["bytes"], time.perf_counter() - t0)
+        telemetry.metrics().inc("serve_swap_out_bytes_total",
+                                entry["bytes"])
+
+    def demote_lru(self, n: int = 1) -> int:
+        """Demote up to ``n`` of the oldest cached blocks through the
+        eviction seam (maintenance and tests; serving demotes in alloc()'s
+        own eviction pass). Returns how many were evicted."""
+        done = 0
+        while done < n and self.allocator.cached():
+            self.allocator.evict_one()
+            done += 1
+        return done
+
+    def _preempt_arm(self, s) -> tuple:
+        """Swap or recompute for one victim: the victim's KV bytes over the
+        host-link rate against its history re-prefilled at the measured
+        prefill cost (before any prefill was timed: the model's prefill
+        FLOPs at the card's bf16 peak, the H100 SXM's where no card
+        reports one). Returns (arm, swap_ms, recompute_ms); recompute
+        when the tier is off."""
+        swap_ms = (len(s.history) * self._kv_bytes_per_tok
+                   / (self._host_gbps() * 1e9) * 1e3)
+        per_tok = self._prefill_ms_per_tok
+        if per_tok is None:
+            peak = telemetry.peak_tflops() or telemetry.H100_SXM_BF16_TFLOPS
+            per_tok = flops_model(self.cfg)["prefill"] / (peak * 1e12) * 1e3
+        recomp_ms = max(len(s.history) - 1, 0) * per_tok
+        if self.host is None:
+            return "recompute", swap_ms, recomp_ms
+        return (("swap" if swap_ms < recomp_ms else "recompute"),
+                swap_ms, recomp_ms)
+
+    def _swap_out(self, s) -> None:
+        """Swap a victim out: park its registered full blocks on the host
+        tier (walking the chain keys over its history, skipping content
+        already parked), so its resume promotes them instead of
+        re-prefilling. A failed transfer stops the walk: what was parked
+        still serves the resume, the rest is recomputed."""
+        t0 = time.perf_counter()
+        bs = self.block_size
+        moved = blocks_moved = 0
+        key = b""
+        for j in range(s.registered):
+            key = block_hash(key, s.history[j * bs:(j + 1) * bs])
+            if key in self.host:
+                continue
+            try:
+                entry = self._host_fetch(s.blocks[j])
+            except faults.InjectedFault:
+                break
+            self.host.put(key, entry)
+            moved += entry["bytes"]
+            blocks_moved += 1
+        secs = time.perf_counter() - t0
+        if moved:
+            self._note_bw(moved, secs)
+            telemetry.metrics().inc("serve_swap_out_bytes_total", moved)
+        self.stats["swap_preempts"] = self.stats.get("swap_preempts", 0) + 1
+        self.stats["swap_out_blocks"] = (
+            self.stats.get("swap_out_blocks", 0) + blocks_moved)
+        telemetry.metrics().observe("serve_preempt_cost",
+                                    round(secs * 1e3, 3),
+                                    labels={"arm": "swap"})
 
     def _register_full(self, s) -> None:
         """Enter ``s``'s newly FULL blocks into the content-hash index: a
@@ -798,9 +1110,15 @@ class PagedPool(_PoolBase):
         self._record_block_gauges()
 
     def _cache_digest_json(self) -> dict:
-        """The allocator's digest (the host tier's half comes with it, queue
-        1 item 5.2)."""
-        return self.allocator.digest_json()
+        """The allocator's digest, with the host tier's under ``host`` when
+        the tier exists (empty when the digest is off)."""
+        base = self.allocator.digest_json()
+        if self.host is None:
+            return base
+        return {**base,
+                "host": (self.host.digest_json()
+                         if self.allocator.digest_enabled
+                         else {"blocks": 0, "bytes": 0, "fps": []})}
 
     def _record_block_gauges(self) -> None:
         a = self.allocator
@@ -820,19 +1138,24 @@ class PagedPool(_PoolBase):
         telemetry.metrics().set_gauge(
             "serve_kv_live_bytes",
             a.used() * self.block_size * self._kv_bytes_per_tok)
+        telemetry.metrics().set_gauge(
+            "serve_host_blocks", len(self.host) if self.host is not None else 0)
         self.stats["blocks_peak"] = a.stats["peak_used"]
 
     # ---- admission --------------------------------------------------------
 
     def _prefix_plan(self, tokens: list):
-        """The longest cached full-block chain covering ``tokens``: (plan,
+        """The longest cached full-block chain covering ``tokens`` (a
+        prompt, or a resumed row's prompt + generated): (plan,
         copy-on-write source id or None, chain key of the covered prefix).
-        Each plan entry is (tier, block id, key): ("hbm", id, key) for a
-        block in the pool (the host tier's ("host", None, key) comes with
-        queue 1 item 5.2). Plan blocks lie strictly below the row's first
-        write position (its last prompt token, re-fed at decode); a match
-        that would contain it is returned as the copy-on-write source.
-        Read-only: refcounts move in ``admit``."""
+        The plan walks through both tiers: each entry is ("hbm", block id,
+        key) for a block in the pool or ("host", None, key) for content
+        parked on the host tier (admission promotes it into a fresh
+        block). Plan blocks lie strictly below the row's first write
+        position (its last token, re-fed at decode); an HBM match that
+        would contain it is returned as the copy-on-write source, a host
+        match there is ignored (a round trip for one partial block).
+        Read-only: refcounts and host claims move in ``admit``."""
         if not self.prefix_cache:
             return [], None, b""
         bs = self.block_size
@@ -841,41 +1164,102 @@ class PagedPool(_PoolBase):
         for j in range(len(tokens) // bs):
             key = block_hash(key, tokens[j * bs:(j + 1) * bs])
             bid = self.allocator.lookup(key)
-            if bid is None:
+            if bid is not None:
+                hits.append(("hbm", bid, key))
+            elif self.host is not None and key in self.host:
+                hits.append(("host", None, key))
+            else:
                 break
-            hits.append(("hbm", bid, key))
         n_sh = min(len(hits), (len(tokens) - 1) // bs)
-        cow = hits[n_sh][1] if len(hits) > n_sh else None
+        cow = (hits[n_sh][1]
+               if len(hits) > n_sh and hits[n_sh][0] == "hbm" else None)
         chain = hits[n_sh - 1][2] if n_sh else b""
         return hits[:n_sh], cow, chain
 
-    def admit(self, r: Request) -> None:
-        """Reserve the request's block footprint and enqueue its prompt.
-        With the prefix cache, the longest cached chain over the prompt is
-        refcount-shared into the new table first: its tokens skip prefill
-        (``prefilled`` starts past them) and only the uncovered footprint
-        is allocated. The one device operation here is the occasional
-        copy-on-write block copy; the prefill rides the coming rounds."""
+    def admit(self, r: Request, *, reserve_new: int | None = None,
+              preload: list | None = None, seq: int = 0) -> None:
+        """Reserve the request's blocks and enqueue its prompt. The longest
+        cached chain over the history is taken first: HBM hits are
+        refcount-shared into the new table, host hits are promoted into
+        fresh blocks by one batched restore, and their tokens skip prefill
+        (``prefilled`` starts past them); only the uncovered footprint is
+        allocated. ``reserve_new`` reserves that many decode tokens (None:
+        the whole budget, refusal admission); the capacity fold grows the
+        rest lazily. ``preload`` resumes a preempted request: the tokens
+        it generated rejoin the history, which is re-prefilled through the
+        cache, and its stream goes on unchanged (KV is a function of token
+        and position alone). ``seq`` is its arrival order, for the victim
+        policy."""
         self.validate(r, self.cfg)
         i = self._free_index()
-        if not self.admits(r):
+        if not self.admits(r, reserve_new=reserve_new, preload=preload):
             raise RuntimeError(
                 f"request {r.rid}: pool has a free slot but not enough "
                 "free KV blocks (callers check admits() before admit)")
-        history = list(r.tokens)
+        history = list(r.tokens) + list(preload or [])
+        remaining = r.max_new - len(preload or [])
         plan, cow, chain = self._prefix_plan(history)
-        shared = [b for _tier, b, _k in plan]
+        # Claim host payloads before any refcount moves: a failed transfer
+        # truncates the plan there (the tail, and the copy-on-write above
+        # it, are recomputed) with the allocator untouched.
+        host_pay: dict = {}
+        for pi, (tier, _b, k) in enumerate(plan):
+            if tier != "host":
+                continue
+            try:
+                faults.fire("swap.xfer")
+            except faults.InjectedFault:
+                plan = plan[:pi]
+                cow = None
+                chain = plan[-1][2] if plan else b""
+                break
+            host_pay[pi] = self.host.pop(k)
+        shared = [b for tier, b, _k in plan if tier == "hbm"]
         for b in shared:
             self.allocator.incref(b)
         if cow is not None:
             # Pinned across the alloc below, whose eviction pass must not
             # reclaim it before the copy reads it.
             self.allocator.incref(cow)
-        fresh = self.allocator.alloc(self.blocks_needed(r) - len(shared))
+        fresh = self.allocator.alloc(
+            self._reserve_blocks(len(history), remaining, reserve_new)
+            - len(shared))
+        # The table in chain order: HBM hits keep their shared block, host
+        # hits take fresh blocks to be promoted into, the remaining fresh
+        # blocks cover the rest.
+        blocks, promote, fi = [], [], 0
+        for pi, (tier, b, k) in enumerate(plan):
+            if tier == "hbm":
+                blocks.append(b)
+            else:
+                blocks.append(fresh[fi])
+                promote.append((fresh[fi], k, host_pay[pi]))
+                fi += 1
+        blocks += fresh[fi:]
         prompt_len = len(history)
+        if promote:
+            t0 = time.perf_counter()
+            moved = self._host_restore([d for d, _k, _e in promote],
+                                       [e for _d, _k, e in promote])
+            secs = time.perf_counter() - t0
+            self._note_bw(moved, secs)
+            hit = len(promote) * self.block_size
+            reg = telemetry.metrics()
+            reg.observe("serve_swap_restore_ms", round(secs * 1e3, 3))
+            reg.inc("serve_swap_in_bytes_total", moved)
+            reg.inc("serve_host_hit_tokens_total", hit)
+            self.host.stats["hit_tokens"] += hit
+            self.stats["host_hit_tokens"] = (
+                self.stats.get("host_hit_tokens", 0) + hit)
+            self.stats["swap_in_blocks"] = (
+                self.stats.get("swap_in_blocks", 0) + len(promote))
+            for dest, k, _e in promote:
+                # Indexed again under its chain key: live (this row's
+                # reference) and hittable by the next sharer.
+                self.allocator.register(dest, k)
         hit_tokens = len(plan) * self.block_size
         if cow is not None:
-            _copy_block(self.pools, cow, fresh[0])
+            _copy_block(self.pools, cow, fresh[fi])
             self.allocator.free([cow])  # unpin
             hit_tokens = min(hit_tokens + self.block_size, prompt_len - 1)
             self.stats["cow_copies"] += 1
@@ -884,13 +1268,124 @@ class PagedPool(_PoolBase):
         if hit_tokens:
             self.stats["prefix_hit_requests"] += 1
             telemetry.metrics().inc("kv_prefix_hit_tokens_total", hit_tokens)
-        self.request_cached_tokens[r.rid] = hit_tokens
+        if preload is None:
+            # A resume keeps the answer of the request's first admission.
+            self.request_cached_tokens[r.rid] = hit_tokens
+        else:
+            # The preemption's price: the tokens the resume re-prefills,
+            # what the cache did not keep of the victim's blocks.
+            recomp = max(0, prompt_len - 1 - hit_tokens)
+            telemetry.metrics().inc("serve_preempt_recompute_tokens_total",
+                                    recomp)
+            if self._prefill_ms_per_tok is not None:
+                telemetry.metrics().observe(
+                    "serve_preempt_cost",
+                    round(recomp * self._prefill_ms_per_tok, 3),
+                    labels={"arm": "recompute"})
         self.slots[i] = _PagedSlot(
-            rid=r.rid, history=history, remaining=r.max_new, generated=[],
-            prompt_len=prompt_len, prefilled=hit_tokens,
-            blocks=shared + fresh, n_shared=len(shared),
-            registered=len(plan), chain_key=chain, cached_tokens=hit_tokens)
+            rid=r.rid, history=history, remaining=remaining,
+            generated=list(preload or []), priority=r.priority, seq=seq,
+            deadline=r.deadline, prompt_len=prompt_len,
+            prefilled=hit_tokens, admit_round=self.stats["rounds"],
+            blocks=blocks, n_shared=len(shared), registered=len(plan),
+            chain_key=chain, cached_tokens=hit_tokens)
         self._record_block_gauges()
+
+    # ---- overcommit: preemption and lazy growth ---------------------------
+
+    def _preempt(self, i: int, reason: str = "capacity") -> dict:
+        """Evict row ``i``: register its full blocks (so the resume mostly
+        hits the cache), choose its arm (swap parks the registered blocks
+        on the host tier now; recompute records the swap it did not take,
+        priced, as ``arm=swap_est``), decref its table, clear the slot and
+        park a resume record in ``preempted``. ``reason`` names the policy
+        key that chose the victim (the request log's, item 5.4)."""
+        s = self.slots[i]
+        if self.prefix_cache:
+            self._register_full(s)
+        arm, swap_ms, _recomp_ms = self._preempt_arm(s)
+        if arm == "swap":
+            self._swap_out(s)
+        else:
+            telemetry.metrics().observe("serve_preempt_cost",
+                                        round(swap_ms, 3),
+                                        labels={"arm": "swap_est"})
+        self.allocator.free(s.blocks)
+        s.blocks = []
+        self.slots[i] = None
+        self.stats["preemptions"] += 1
+        telemetry.metrics().inc("serve_preempt_total")
+        prompt = s.history[:len(s.history) - len(s.generated)]
+        rec = {"request": Request(rid=s.rid, tokens=prompt,
+                                  max_new=len(s.generated) + s.remaining,
+                                  priority=s.priority, deadline=s.deadline),
+               "preload": list(s.generated), "seq": s.seq,
+               "t": telemetry.monotonic()}  # serve_resume_gap_ms starts
+        self.preempted.append(rec)
+        self._record_block_gauges()
+        return rec
+
+    def preempt_one(self, below: int | None = None) -> dict | None:
+        """Evict ONE row by the victim policy: the lowest priority first,
+        then decode-phase rows before prefilling ones (a prefilling row has
+        shown a client nothing), the latest arrival within that; with
+        ``below``, only rows of a priority strictly below it. Returns the
+        resume record, or None when no row qualifies."""
+        cands = [(s.priority, self._prefilling(s), -s.seq, i)
+                 for i, s in enumerate(self.slots) if s is not None]
+        if below is not None:
+            cands = [c for c in cands if c[0] < below]
+        if not cands:
+            return None
+        cands.sort()
+        victim = cands[0]
+        if below is not None or any(c[0] != victim[0] for c in cands[1:]):
+            reason = "priority"
+        elif any(c[1] != victim[1] for c in cands[1:]):
+            reason = "phase"
+        else:
+            reason = "arrival"
+        return self._preempt(victim[3], reason)
+
+    def imminent_growth(self, horizon: int | None = None) -> int:
+        """Blocks the active rows need within the next ``horizon`` decode
+        tokens (default a block's worth): overcommit admission keeps them
+        free, since an admission into them would only become the next
+        round's preemption. Rows whose reservation covers the horizon add
+        nothing, so under refusal admission this is 0."""
+        if horizon is None:
+            horizon = self.block_size
+        need = 0
+        for s in self.slots:
+            if s is None:
+                continue
+            short = (len(s.history) + min(horizon, s.remaining)
+                     - len(s.blocks) * self.block_size)
+            if short > 0:
+                need += -(-short // self.block_size)
+        return need
+
+    def _capacity_fold(self, dec: list, tokens_of) -> list:
+        """Grow each row of ``dec`` to cover ``tokens_of(s)`` positions
+        before the decode dispatch, preempting by the victim policy while
+        the pool cannot cover the growth. Returns the surviving rows.
+        ``validate`` caps a row's whole footprint at the pool, so once
+        every other row is evicted the last one fits. Under refusal
+        admission every row owns its blocks already: a no-op."""
+        while dec:
+            need = {id(s): max(0, -(-tokens_of(s) // self.block_size)
+                               - len(s.blocks))
+                    for s in dec}
+            if sum(need.values()) <= self.allocator.available():
+                for s in dec:
+                    if need[id(s)]:
+                        s.blocks += self.allocator.alloc(need[id(s)])
+                        self.stats["grown_blocks"] += need[id(s)]
+                break
+            self.preempt_one()
+            alive = {id(s) for s in self.slots if s is not None}
+            dec = [s for s in dec if id(s) in alive]
+        return dec
 
     # ---- rounds -----------------------------------------------------------
 
@@ -917,6 +1412,8 @@ class PagedPool(_PoolBase):
                if s is not None and self._prefilling(s)]
         if not pre:
             return
+        t_phase = time.perf_counter()
+        toks_phase = 0
         # Round-robin start so one huge prompt cannot starve later
         # arrivals of the budget.
         start = self._pre_rr % len(pre)
@@ -935,30 +1432,56 @@ class PagedPool(_PoolBase):
                 _paged_prefill_chunk(self.params, self.pools, bt, tokens,
                                      pos, self.cfg)
                 s.prefilled += w
+                s.prefill_chunks += 1
                 budget -= w
+                toks_phase += w
                 self.stats["prefill_tokens"] += w
                 self.stats["prefill_chunks"] += 1
                 telemetry.metrics().observe(
                     "serve_prefill_chunk_tokens", w,
                     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+            if not self._prefilling(s):
+                # Over how many chunks and rounds a prompt's prefill spread.
+                telemetry.metrics().observe(
+                    "serve_prefill_interleave_chunks", s.prefill_chunks,
+                    buckets=(1, 2, 4, 8, 16, 32))
+                telemetry.metrics().observe(
+                    "serve_prefill_interleave_rounds",
+                    self.stats["rounds"] - s.admit_round,
+                    buckets=(1, 2, 4, 8, 16, 32, 64))
             if budget <= 0:
                 break
+        if toks_phase > 0:
+            # The recompute arm's price: the phase's host time a token (the
+            # reference's clock, the dispatch: no device sync here).
+            ms_per_tok = (time.perf_counter() - t_phase) * 1e3 / toks_phase
+            self._prefill_ms_per_tok = (
+                ms_per_tok if self._prefill_ms_per_tok is None
+                else 0.8 * self._prefill_ms_per_tok + 0.2 * ms_per_tok)
 
     def _decoding(self) -> list:
         return [s for s in self.slots
                 if s is not None and not self._prefilling(s)
                 and s.remaining > 0]
 
-    def _decode_plan(self, dec: list) -> tuple:
-        """The decode chunk of a round over the rows ``dec``: (chunk, block
-        table (B, nb) on the device, last tokens (B,) and frontiers (B,)
-        on the host; rows outside ``dec`` are dummies at token 0,
-        position 0 and an all-null table)."""
+    def _chunk_len(self, dec: list) -> int:
+        """The decode chunk of a round over the rows ``dec``: the majority
+        rule, capped at the prefill budget while prompts are pending (so
+        prefill chunks interleave at budget cadence, the TTFT bound) and,
+        under overcommit, at the expected length (``chunk_hint``: chunks
+        follow expectation, which bounds each round's growth)."""
         chunk = _majority_chunk(dec, self.cfg.max_seq_len)
         if any(self._prefilling(s) for s in self.slots if s is not None):
-            # Pending prompts keep decode rounds short, so prefill chunks
-            # interleave at budget cadence (the TTFT bound).
             chunk = min(chunk, _bucket_down(self.prefill_budget))
+        if self.chunk_hint is not None:
+            chunk = min(chunk, _bucket_down(max(1, self.chunk_hint)))
+        return chunk
+
+    def _decode_inputs(self, dec: list, chunk: int) -> tuple:
+        """The device inputs of a ``chunk``-step decode over the rows
+        ``dec``: (block table (B, nb) on the device, last tokens (B,) and
+        frontiers (B,) on the host); rows outside ``dec`` are dummies at
+        token 0, position 0 and an all-null table."""
         decoding = {id(s) for s in dec}
         rows = [s if s is not None and id(s) in decoding else None
                 for s in self.slots]
@@ -969,7 +1492,7 @@ class PagedPool(_PoolBase):
         nb = self._bucket_blocks(max(
             -(-(len(s.history) + chunk - 1) // self.block_size)
             for s in dec))
-        return chunk, self._table(nb, rows=dec), last, pos
+        return self._table(nb, rows=dec), last, pos
 
     def _decode_chunk(self, bt: torch.Tensor, last: torch.Tensor,
                       pos: torch.Tensor, chunk: int) -> list:
@@ -997,19 +1520,31 @@ class PagedPool(_PoolBase):
         return self._out[:, :chunk].tolist()
 
     def step_round(self) -> dict:
-        """One round: the prefill phase, then one decode chunk for the
-        rows whose prompts are done. Returns the event fold's dict."""
+        """One round: the prefill phase, then the decode chunk's length,
+        the capacity fold (growth, or preemption under pressure) and one
+        decode chunk for the surviving rows whose prompts are done. Returns
+        the event fold's dict."""
         active = [s for s in self.slots if s is not None]
         if not active:
             return {}
         self.stats["rounds"] += 1
         self._prefill_phase()
         dec = self._decoding()
+        chunk = 0
+        if dec:
+            # The capacity fold before any device input is built: every row
+            # of the dispatch must own the blocks of the positions this
+            # round keeps (at most its remaining budget: the overshoot is
+            # discarded and lands in the null block); under pressure rows
+            # are preempted instead.
+            chunk = self._chunk_len(dec)
+            dec = self._capacity_fold(
+                dec, lambda s: len(s.history) + min(chunk, s.remaining) - 1)
         if not dec:
             self._register_phase()  # prefill chunks fill blocks too
             self._record_block_gauges()
-            return {}  # an all-prefill round
-        chunk, bt, last, pos = self._decode_plan(dec)
+            return {}  # an all-prefill (or all-preempted) round
+        bt, last, pos = self._decode_inputs(dec, chunk)
         with telemetry.span("serve.decode_chunk", chunk=chunk,
                             nb=bt.shape[1], rows=len(dec)):
             out = self._decode_chunk(bt, last, pos, chunk)
@@ -1065,25 +1600,67 @@ class PagedPool(_PoolBase):
 
 
 class Scheduler:
-    """Admission and queueing for a pool (``PagedPool`` or ``SlotPool``): a
-    waiting queue ordered by priority class (higher first), then arrival,
-    with admission at every round boundary by the pool's ``admits`` (the
-    paged pool's whole footprint, the slot pool's free slots;
-    head-of-line: a small request does not overtake a big one that does
-    not fit yet). Overcommit with
-    preemption, deadlines (their EDF order and shedding), the request log
-    and the device ledger of the reference are not ported."""
+    """Admission, queueing and preemption for a pool (``PagedPool`` or
+    ``SlotPool``): a waiting queue ordered by priority class (higher
+    first), then arrival, admitted at every round boundary
+    (head-of-line: a small request does not overtake a big one that does
+    not fit yet).
 
-    def __init__(self, pool, *, overcommit: bool = False):
-        if overcommit:
-            raise _not_ported("overcommit admission and preemption",
-                              "5: overcommit and preemption")
+    Overcommit (the paged engine only; on unless ``overcommit`` or
+    ``TPUBC_OVERCOMMIT`` says 0): admission reserves the EXPECTED
+    footprint, the prompt plus an EMA of observed generated lengths
+    (seeded by ``expected_new`` or ``TPUBC_EXPECTED_NEW``, 16), and keeps
+    the blocks the running rows are about to grow into free
+    (``imminent_growth``); the pool grows tables lazily and preempts under
+    pressure. A waiting request that outranks running rows evicts rows of
+    strictly lower priority until it fits. Preempted rows re-enter the
+    queue under their original key and resume where they stopped. With
+    overcommit off, admission reserves the whole footprint and never
+    preempts. Deadlines, the request log and the device ledger of the
+    reference are not ported."""
+
+    def __init__(self, pool, *, overcommit: bool | None = None,
+                 expected_new: int | None = None, ema_alpha: float = 0.25):
         self.pool = pool
-        # Heap entries (-priority, seq, Request): seq is unique, so Request
-        # never enters a comparison.
-        self._waiting: list = []
-        self._seq = 0
-        self.stats = {"submitted": 0, "admitted": 0, "retired": 0}
+        if overcommit is None:
+            overcommit = os.environ.get(
+                "TPUBC_OVERCOMMIT", "1").lower() not in ("0", "false")
+        # Only a block pool can overcommit: the slot engine has nothing to
+        # grow into nor to preempt for.
+        self.overcommit = bool(overcommit) and hasattr(pool, "allocator")
+        if expected_new is None:
+            expected_new = int(os.environ.get("TPUBC_EXPECTED_NEW", "16"))
+        if expected_new < 1:
+            raise ValueError(f"expected_new must be >= 1, got {expected_new}")
+        if not 0 < ema_alpha <= 1:
+            raise ValueError(f"ema_alpha must be in (0, 1], got {ema_alpha}")
+        # The engine thread mutates the queue; readers on other threads
+        # (the reference's /poolz) take the lock, never across device work.
+        self._lock = threading.Lock()
+        self._ema = float(expected_new)  # guarded-by: _lock
+        self._alpha = ema_alpha
+        # Heap entries (-priority, deadline-or-inf, seq, Request, preload):
+        # seq is unique, so Request never enters a comparison.
+        self._waiting: list = []  # guarded-by: _lock
+        self._seq = 0  # guarded-by: _lock
+        self._qstart: dict = {}  # rid -> submit time  # guarded-by: _lock
+        self._preempt_t: dict = {}  # rid -> eviction time  # guarded-by: _lock
+        self._waits = deque(maxlen=512)  # recent queue waits, ms  # guarded-by: _lock
+        self.stats = {"submitted": 0, "admitted": 0, "requeues": 0,  # guarded-by: _lock
+                      "retired": 0}
+
+    # ---- queue ------------------------------------------------------------
+
+    def expected_new(self, r: Request,
+                     preload: list | None = None) -> int | None:
+        """Decode tokens admission reserves blocks for now: None (the
+        whole budget) without overcommit, else the EMA clamped into [1,
+        the remaining budget]."""
+        if not self.overcommit:
+            return None
+        rem = r.max_new - len(preload or [])
+        with self._lock:
+            return max(1, min(rem, math.ceil(self._ema)))
 
     def submit(self, r: Request) -> None:
         """Validate loudly and enqueue; admission happens at the next
@@ -1091,33 +1668,129 @@ class Scheduler:
         if r.deadline is not None:
             raise _not_ported("deadlines", "5: deadlines")
         self.pool.validate(r, self.pool.cfg)
-        heapq.heappush(self._waiting, (-r.priority, self._seq, r))
-        self._seq += 1
-        self.stats["submitted"] += 1
+        with self._lock:
+            self._push_locked(r, None, self._seq)
+            self._seq += 1
+            self.stats["submitted"] += 1
+            self._qstart[r.rid] = telemetry.monotonic()
         self._record_gauges()
 
+    def _push_locked(self, r: Request, preload, seq: int) -> None:
+        heapq.heappush(self._waiting, (
+            -r.priority,
+            r.deadline if r.deadline is not None else float("inf"),
+            seq, r, preload))
+
+    def _drain_preempted(self) -> None:
+        """Re-enqueue every row the pool evicted since the last drain."""
+        recs = list(getattr(self.pool, "preempted", ()))
+        if not recs:
+            return
+        self.requeue(recs)
+        self.pool.preempted.clear()
+
+    def requeue(self, recs: list) -> None:
+        """Re-enqueue resume records under their original keys: ahead of
+        everything that arrived after them in their class."""
+        with self._lock:
+            for rec in recs:
+                self._push_locked(rec["request"], rec["preload"], rec["seq"])
+                self.stats["requeues"] += 1
+                if "t" in rec:
+                    self._preempt_t[rec["request"].rid] = rec["t"]
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._waiting)
+
     def pending(self) -> bool:
-        return bool(self._waiting)
+        with self._lock:
+            return bool(self._waiting)
+
+    def queue_wait_p50_ms(self) -> float:
+        with self._lock:
+            w = sorted(self._waits)
+            return w[len(w) // 2] if w else 0.0
+
+    # ---- rounds -----------------------------------------------------------
 
     def _admit_phase(self) -> None:
-        while self._waiting and self.pool.admits(self._waiting[0][2]):
-            self.pool.admit(heapq.heappop(self._waiting)[2])
-            self.stats["admitted"] += 1
+        while True:
+            with self._lock:
+                if not self._waiting:
+                    break
+                # A peek: the engine thread is the only popper.
+                negp, _dl, seq, r, preload = self._waiting[0]
+            reserve = self.expected_new(r, preload)
+            # The admission watermark: an admission into the blocks the
+            # running rows grow into within a block of tokens would only
+            # become the next round's preemption.
+            extra = self.pool.imminent_growth() if self.overcommit else 0
+            if self.pool.admits(r, reserve_new=reserve, preload=preload,
+                                extra_blocks=extra):
+                with self._lock:
+                    heapq.heappop(self._waiting)
+                self.pool.admit(r, reserve_new=reserve, preload=preload,
+                                seq=seq)
+                if preload is None:
+                    with self._lock:
+                        self.stats["admitted"] += 1
+                else:
+                    with self._lock:
+                        tp = self._preempt_t.pop(r.rid, None)
+                    if tp is not None:
+                        telemetry.metrics().observe(
+                            "serve_resume_gap_ms",
+                            (telemetry.monotonic() - tp) * 1e3)
+                with self._lock:
+                    t0 = self._qstart.pop(r.rid, None)
+                    if t0 is not None:
+                        wait_ms = (telemetry.monotonic() - t0) * 1e3
+                        self._waits.append(wait_ms)
+                if t0 is not None:
+                    reg = telemetry.metrics()
+                    reg.observe("serve_queue_wait_ms", wait_ms)
+                    reg.observe("serve_queue_wait_ms", wait_ms,
+                                labels={"priority": str(r.priority)})
+                continue
+            # Priority preemption: strictly lower classes only (evicting a
+            # peer would thrash arrival order within a class).
+            if (self.overcommit
+                    and self.pool.preempt_one(below=-negp) is not None):
+                self._drain_preempted()
+                continue
+            break
+        self._record_gauges()
 
     def step(self) -> dict:
-        """One scheduling round: admit what fits, run the pool's round,
-        count retirements."""
+        """One scheduling round: admit (preempting for priority), run the
+        pool's round, drain its preempted rows back into the queue and fold
+        the retirements' lengths into the expected-length EMA."""
         self._admit_phase()
+        if self.overcommit:
+            with self._lock:
+                self.pool.chunk_hint = max(1, math.ceil(self._ema))
         events = self.pool.step_round()
-        self.stats["retired"] += sum(1 for ev in events.values()
-                                     if ev["done"])
+        self._drain_preempted()
+        retired = [rid for rid, ev in events.items() if ev["done"]]
+        with self._lock:
+            for rid in retired:
+                self.stats["retired"] += 1
+                self._ema += self._alpha * (
+                    len(events[rid]["generated"]) - self._ema)
         self._record_gauges()
         return events
 
     def _record_gauges(self) -> None:
-        telemetry.record_scheduler(queue_depth=len(self._waiting),
-                                   submitted=self.stats["submitted"],
-                                   admitted=self.stats["admitted"])
+        with self._lock:
+            depth, ema = len(self._waiting), self._ema
+            submitted = self.stats["submitted"]
+            admitted = self.stats["admitted"]
+        telemetry.record_scheduler(
+            queue_depth=depth, expected_new=ema, submitted=submitted,
+            admitted=admitted,
+            preemptions=getattr(self.pool, "stats", {}).get(
+                "preemptions", 0))
 
 
 def serve(params: Params, cfg: ModelConfig, requests: list,
@@ -1128,22 +1801,26 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
           resident: bool = False, paged: bool = False,
           kv_blocks: int | None = None, block_size: int = 64,
           prefill_budget: int = 64, prefix_cache: bool = True,
-          overcommit: bool = False, spec_lookup: bool = False,
+          overcommit: bool | None = None, spec_lookup: bool = False,
           device=None) -> dict:
     """Run every request through a ``batch_size``-row pool; returns {rid:
     generated token list}. Greedy; ``eos_id`` finishes a row at the first
     emission of that token (inclusive). ``paged=True`` is the block-paged
     engine (``kv_quant=True`` only; ``kv_blocks``, ``block_size``,
-    ``prefill_budget``, ``prefix_cache`` go to it); ``paged=False`` the
+    ``prefill_budget``, ``prefix_cache`` go to it, and its host tier is
+    sized by ``TPUBC_KV_HOST_BLOCKS``); admission overcommits and preempts
+    unless ``overcommit=False`` (None reads ``TPUBC_OVERCOMMIT``, on by
+    default, as in the reference); ``paged=False`` the
     replay-slot engine, whose rounds run the speculative verify-commit
     loop when ``draft_params``/``draft_cfg``/``gamma`` are given (greedy:
     the streams are unchanged). ``stats``, if given, is filled with the
     pool's accounting (rounds, slot_steps, active_slot_steps, and the
-    engine's own: prefill_tokens, blocks_peak, ... or replayed_tokens,
-    verify_rounds, committed_tokens, draft_steps) plus a
-    ``"scheduler"`` sub-dict, and for the paged engine the allocator's
-    stats (``"allocator"``) and, on the card, its graphs' (``"graphs"``:
-    captured, capture_s, replays).
+    engine's own: prefill_tokens, blocks_peak, preemptions, grown_blocks,
+    the swap counters, ... or replayed_tokens, verify_rounds,
+    committed_tokens, draft_steps) plus a ``"scheduler"`` sub-dict, and for
+    the paged engine the allocator's stats (``"allocator"``), the host
+    tier's snapshot (``"host"``, when the tier exists) and, on the card,
+    its graphs' (``"graphs"``: captured, capture_s, replays).
 
     ``device`` None means the card (and raises without CUDA); ``params``
     must already live there. The resident engine and the reference's
@@ -1187,6 +1864,8 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
         stats["scheduler"] = dict(sched.stats)
         if paged:
             stats["allocator"] = dict(pool.allocator.stats)
+            if pool.host is not None:
+                stats["host"] = pool.host.snapshot_json()
             if pool._graphs is not None:
                 stats["graphs"] = dict(pool._graphs.stats)
     return done
