@@ -128,7 +128,26 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               recompute arm's, read from serve_overcommit's tight pair;
               the host link's rate for one block each way; the prefill
               clock.
-14. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+14. serve_faults -- the request log, the device ledger, crash recovery and
+              deadlines on the serve phase's 32 requests (batch 8, block
+              64) through an explicit Scheduler: (a) TIMED_RUNS runs with
+              the log and ledger on and as many off, interleaved: streams
+              bitwise equal, K1 and K2 launches equal and as the schedule
+              implies, tokens/s of each side, the ledger's busy, idle and
+              wall ms, busy share and MFU (989 TFLOP/s), conserving
+              (per-request + unattributed == busy, busy + idle == wall,
+              1e-6 relative), and a profiled run's ledger busy share
+              beside the profiler's device busy share; (b) FAULT_SCHEDULE
+              (pool.device twice, alloc, sched.admit) with the prefix
+              cache on: 4 recoveries, no live block left, the recovery ms,
+              every stream equal to the unfaulted run's (near-ties
+              allowed), then a persistent fault that must raise after
+              GIVE_UP_RESTARTS recoveries; (c) deadlines on a virtual
+              clock (a second a round): queued requests shed with no
+              token, running ones cancelled with a prefix of their
+              unfaulted stream (two mid-decode), deadline_shed the number
+              that expired, the blocks the cancels freed allocated again.
+15. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
@@ -137,12 +156,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-15. speculative -- bench.py's self-speculation: the bf16 target drafted by
+16. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-16. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+17. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -151,13 +170,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-17. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+18. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-18. train  -- the training slice end to end: make_train_step on the
+19. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -167,7 +186,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-19. train_long -- the reference's long-context configuration (seq 8192,
+20. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -188,6 +207,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -645,6 +665,13 @@ def phase_k2(torch, kernels, decode, decode_attention, timer, device) -> dict:
             failures += [{"sweep": key, "split": s} for s in failed]
     emit({"phase": "k2", "tolerance": K2_TOL, "max_abs_err": max_err,
           "rows": rows})
+    # K2 at the decode model's D 64 on blocks of 16 (K2_BLOCK16), bf16: its
+    # time beside its bound (the bytes over HBM_BYTES_PER_S) and SDPA's.
+    emit({"phase": "k2_block16", "rows": [
+        {k: r[k] for k in ("Hk", "D", "bs", "nb", "kernel_ms", "bound_ms",
+                           "bound_by", "library_ms")}
+        for r in rows if r["bs"] == 16 and r["D"] == 64
+        and r["q"] == "bfloat16"]})
     emit({"phase": "k2_split_sweep", "sweep": sweeps})
     if failures:
         raise SystemExit(f"k2 failed: {failures}")
@@ -2166,6 +2193,307 @@ def _restore_addresses(torch, serving, params, cfg, working_pool,
     return out
 
 
+# serve_faults: the serve phase's 32 requests through an explicit Scheduler
+# (serve()'s settings: batch 8, block 64, prefix cache and overcommit off).
+FAULT_BATCH = 8
+# pool.device twice, alloc and sched.admit once each, mid-run: the 11th
+# and 41st rounds that dispatch, the 13th block allocation (an admission)
+# and the 21st admission.
+FAULT_SCHEDULE = ("pool.device:1:10,pool.device:1:40,alloc:1:12,"
+                  "sched.admit:1:20")
+FAULT_FIRED = {"pool.device": 2, "alloc": 1, "sched.admit": 1}
+GIVE_UP_RESTARTS = 3
+# Deadlines run on a virtual clock that advances one second a round, so
+# where they land follows from the schedule alone (the schedule is a
+# function of the traffic's lengths). DL_QUEUED wait in priority class 0
+# behind the other requests (class 1) and expire at round 3; DL_RUNNING
+# (class 1, admitted first by EDF): rids 1 and 2 expire mid-decode (24 of
+# 29 and 48 of 57 tokens), rid 0 while it prefills, rid 3 finishes first.
+DL_QUEUED = tuple(range(24, 30))
+DL_QUEUED_AT = 2.5
+DL_RUNNING = {0: 10.5, 1: 1.5, 2: 16.5, 3: 12.5}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fault_sched(serving, params, cfg, device, observe: bool = True,
+                 **pool_kw):
+    """A pool with serve()'s settings and its Scheduler, the request log
+    and the device ledger on or off (read when the Scheduler is built)."""
+    flag = "1" if observe else "0"
+    with _env({"TPUBC_REQUEST_EVENTS": flag, "TPUBC_DEVICE_LEDGER": flag}):
+        pool = serving.PagedPool(params, cfg, FAULT_BATCH, kv_quant=True,
+                                 **{"prefix_cache": False, **pool_kw},
+                                 device=device)
+        return pool, serving.Scheduler(pool, overcommit=False)
+
+
+def _ledger_fields(sched, wall_s: float | None = None) -> dict:
+    """The ledger of a run and what it implies over the whole run: the
+    busy share, the MFU at 989 TFLOP/s, and the conservation checks (the
+    per-request device ms plus the unattributed ms equal busy, busy plus
+    idle equal wall, each within 1e-6 relative)."""
+    led = dict(sched.ledger)
+    per_rid = sum(rec.device_ms for rec in sched.log._recs.values())
+    busy, wall = led["busy_ms"], led["wall_ms"]
+    return {**led, "per_rid_device_ms": per_rid,
+            "serve_engine_busy_frac": busy / wall,
+            "serve_mfu": led["flops"] / (wall * 1e-3 * BF16_FLOPS),
+            "conserves_per_rid": abs(per_rid + led["unattributed_ms"]
+                                     - busy) <= 1e-6 * busy,
+            "conserves_wall": abs(busy + led["idle_ms"] - wall)
+            <= 1e-6 * wall,
+            "run_wall_ms": None if wall_s is None else wall_s * 1e3}
+
+
+def _observe_pair(torch, kernels, serving, params, cfg, device, reqs) -> dict:
+    """(a): TIMED_RUNS runs with the request log and the ledger on and as
+    many with both off, interleaved (on, off, on, ...), each on a pool of
+    its own: the streams bitwise equal and the launch counts equal across
+    all runs, tokens/s of each side, the ledger of the last run on; then
+    one profiled run of the first PROFILED_REQUESTS requests with both on,
+    its ledger's busy share beside the profiler's device busy share."""
+    from tpu_bootstrap_torch import telemetry
+
+    serving.serve(params, cfg, _serve_requests(serving, cfg.vocab_size, 2,
+                                               seed=1), 8, **SERVE_KW)
+    runs = {True: [], False: []}
+    for _ in range(TIMED_RUNS):
+        for on in (True, False):
+            pool, sched = _fault_sched(serving, params, cfg, device, on)
+            run = _sched_run(torch, kernels, serving, pool, sched, reqs)
+            run.update(sched=sched, pool=pool)
+            runs[on].append(run)
+    last = runs[True][-1]
+    tokens = sum(len(v) for v in last["done"].values())
+    out = {}
+    for on, name in ((True, "on"), (False, "off")):
+        tps = [tokens / r["wall_s"] for r in runs[on]]
+        out[name] = {"tokens_per_s": statistics.median(tps),
+                     "tokens_per_s_runs": tps,
+                     "tokens_per_s_spread": max(tps) - min(tps)}
+    every = runs[True] + runs[False]
+    out["streams_equal"] = all(r["done"] == last["done"] for r in every)
+    out["launches_equal"] = all(r["launches"] == last["launches"]
+                                for r in every)
+    out["launches"] = last["launches"]
+    out["launches_exact"] = _path_ok(cfg, last["pool"], last, FAULT_BATCH)
+    out["ledger"] = _ledger_fields(last["sched"], last["wall_s"])
+    off = runs[False][-1]["sched"]
+    out["off_recorded_nothing"] = (off.ledger["rounds"] == 0
+                                   and off.log.snapshot()["requests"] == [])
+    gauges = telemetry.metrics().to_json()
+    holder = {}
+
+    def profiled():
+        pool, sched = _fault_sched(serving, params, cfg, device)
+        for r in reqs[:PROFILED_REQUESTS]:
+            sched.submit(r)
+        while sched.pending() or pool.has_active():
+            sched.step()
+        holder["sched"] = sched
+
+    prof = _profile(torch, profiled, {"k1_ms": K1_KERNEL,
+                                      "k2_ms": "paged_attention_kernel"})
+    out["last_round_gauges"] = {k: gauges.get(k) for k in
+                                ("serve_engine_busy_frac", "serve_mfu")}
+    out["profiled"] = {
+        "requests": PROFILED_REQUESTS,
+        "ledger": _ledger_fields(holder["sched"]),
+        "profiler_device_busy_share": prof["device_busy_ms"]
+        / prof["wall_ms"],
+        "profiler": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                          "idle_share", "k1_ms", "k2_ms")}}
+    out["done"] = last["done"]
+    out["ok"] = (out["streams_equal"] and out["launches_equal"]
+                 and out["launches_exact"]["ok"]
+                 and out["ledger"]["conserves_per_rid"]
+                 and out["ledger"]["conserves_wall"]
+                 and out["profiled"]["ledger"]["conserves_per_rid"]
+                 and out["off_recorded_nothing"])
+    return out
+
+
+def _recovery_run(torch, kernels, decode, serving, params, cfg, device,
+                  reqs, want: dict) -> dict:
+    """(b): FAULT_SCHEDULE over the traffic, the prefix cache on (so a
+    recovery salvages the rows' registered blocks): FAULT_FIRED fired,
+    one recovery each, no live block left, every stream equal to the
+    unfaulted run's up to a near-tie, K1 and K2 launched as the schedule
+    implies; then a persistent fault on a small pool gives up with the
+    fault after GIVE_UP_RESTARTS recoveries."""
+    from tpu_bootstrap_torch import telemetry
+    from tpu_bootstrap_torch.workload import faults
+
+    pool, sched = _fault_sched(serving, params, cfg, device,
+                               prefix_cache=True)
+    inj = faults.install(FAULT_SCHEDULE)
+    try:
+        with _observed(telemetry.metrics(), "serve_recovery_ms") as rec_ms:
+            run = _sched_run(torch, kernels, serving, pool, sched, reqs)
+    finally:
+        faults.install(None)
+    out = {"schedule": FAULT_SCHEDULE, "fired": inj.stats()["fired"],
+           "recoveries": sched.stats["recoveries"],
+           "recovery_ms": rec_ms, "recovery_ms_p50": _p(rec_ms, 0.5),
+           "crash_preempts": pool.stats.get("crash_preempts", 0),
+           "prefix_hit_tokens": pool.stats["prefix_hit_tokens"],
+           "live_blocks_after": pool.allocator.used(),
+           "launches": run["launches"],
+           "launches_exact": _path_ok(cfg, pool, run, FAULT_BATCH),
+           "wall_s": run["wall_s"],
+           "vs_unfaulted": _streams_vs(decode, params, cfg, reqs,
+                                       run["done"], want)}
+    with _env({"TPUBC_ENGINE_MAX_RESTARTS": str(GIVE_UP_RESTARTS)}):
+        small, persistent = _fault_sched(serving, params, cfg, device)
+    faults.install(",".join(f"pool.device:1:{i}" for i in range(12)))
+    raised = None
+    try:
+        for r in reqs[:2]:
+            persistent.submit(r)
+        for _ in range(20):
+            persistent.step()
+    except faults.InjectedFault as e:
+        raised = str(e)
+    finally:
+        faults.install(None)
+    out["give_up"] = {"raised": raised,
+                      "recoveries": persistent.stats["recoveries"]}
+    out["ok"] = (out["fired"] == FAULT_FIRED
+                 and out["recoveries"] == sum(FAULT_FIRED.values())
+                 and out["live_blocks_after"] == 0
+                 and sorted(run["done"]) == sorted(r.rid for r in reqs)
+                 and not out["vs_unfaulted"]["bad"]
+                 and out["launches_exact"]["ok"]
+                 and raised is not None
+                 and out["give_up"]["recoveries"] == GIVE_UP_RESTARTS)
+    return out
+
+
+def _deadline_run(torch, kernels, decode, serving, params, cfg, device,
+                  reqs, want: dict) -> dict:
+    """(c): the traffic with DL_QUEUED and DL_RUNNING's deadlines on the
+    virtual clock: every queued one shed with no token, the running ones
+    cancelled with a prefix of their unfaulted stream (up to a near-tie,
+    at least one mid-decode), deadline_shed the number that expired, and
+    the blocks a cancel freed allocated again to the cohort."""
+    from tpu_bootstrap_torch import telemetry
+
+    dl = [serving.Request(
+        rid=r.rid, tokens=r.tokens, max_new=r.max_new,
+        priority=0 if r.rid in DL_QUEUED else 1,
+        deadline=(DL_QUEUED_AT if r.rid in DL_QUEUED
+                  else DL_RUNNING.get(r.rid))) for r in reqs]
+    pool, sched = _fault_sched(serving, params, cfg, device)
+    freed, later = set(), set()
+    cancel, alloc = pool.cancel, pool.allocator.alloc
+
+    def watched_cancel(i, reason="deadline"):
+        freed.update(pool.slots[i].blocks)
+        return cancel(i, reason)
+
+    def watched_alloc(n):
+        ids = alloc(n)
+        if freed:
+            later.update(ids)
+        return ids
+
+    pool.cancel, pool.allocator.alloc = watched_cancel, watched_alloc
+    clock = {"t": 0.0}
+    telemetry.set_clock(lambda: clock["t"])
+    done, expired = {}, {}
+    try:
+        kernels.reset_launches()
+        for r in dl:
+            sched.submit(r)
+        while sched.pending() or pool.has_active():
+            for rid, ev in sched.step().items():
+                if ev["done"]:
+                    done[rid] = ev["generated"]
+                if ev.get("deadline"):
+                    expired[rid] = clock["t"]
+            clock["t"] += 1.0
+        torch.cuda.synchronize()
+    finally:
+        telemetry.set_clock(None)
+    cancelled = sorted(set(expired) - set(DL_QUEUED))
+    mid = [rid for rid in cancelled
+           if 0 < len(done[rid]) < next(r.max_new for r in dl
+                                        if r.rid == rid)]
+    prefix = _streams_vs(decode, params, cfg,
+                         [r for r in dl if r.rid in cancelled],
+                         {rid: done[rid] for rid in cancelled},
+                         {rid: want[rid][:len(done[rid])]
+                          for rid in cancelled})
+    rest = [r for r in dl if r.rid not in expired]
+    out = {"queued_shed": {rid: len(done[rid]) for rid in DL_QUEUED},
+           "cancelled": {rid: len(done[rid]) for rid in cancelled},
+           "cancelled_mid_decode": mid,
+           "deadline_shed": sched.stats["deadline_shed"],
+           "expired": len(expired), "rounds": pool.stats["rounds"],
+           "freed_blocks": len(freed),
+           "freed_blocks_reused": len(freed & later),
+           "launches": dict(kernels.LAUNCHES),
+           "prefix_vs_unfaulted": prefix,
+           "rest_vs_unfaulted": _streams_vs(
+               decode, params, cfg, rest, {r.rid: done[r.rid] for r in rest},
+               want)}
+    out["ok"] = (set(DL_QUEUED) <= set(expired)
+                 and all(n == 0 for n in out["queued_shed"].values())
+                 and mid and not prefix["bad"]
+                 and not out["rest_vs_unfaulted"]["bad"]
+                 and out["deadline_shed"] == len(expired)
+                 and sorted(done) == sorted(r.rid for r in dl)
+                 and out["freed_blocks_reused"] > 0
+                 and pool.allocator.used() == 0)
+    return out
+
+
+def phase_serve_faults(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
+    """The request log, the device ledger, crash recovery and deadlines on
+    the serve phase's traffic (the decode model at full width, int8
+    weights from seed 0, the int8 KV pool, block 64, batch 8, the 32
+    requests of _serve_requests, seed 0), through an explicit Scheduler:
+    (a) _observe_pair, (b) _recovery_run, (c) _deadline_run. The streams
+    of (a)'s last run with both on are the unfaulted ones (b) and (c) are
+    held to."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    out = {"phase": "serve_faults", "requests": len(reqs),
+           "batch": FAULT_BATCH}
+    out["observe"] = _observe_pair(torch, kernels, serving, params, cfg,
+                                   device, reqs)
+    want = out["observe"].pop("done")
+    out["recovery"] = _recovery_run(torch, kernels, decode, serving, params,
+                                    cfg, device, reqs, want)
+    out["deadlines"] = _deadline_run(torch, kernels, decode, serving, params,
+                                     cfg, device, reqs, want)
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    failed = [k for k in ("observe", "recovery", "deadlines")
+              if not out[k]["ok"]]
+    if failed:
+        raise SystemExit(f"serve_faults failed: {failed}")
+    return out
+
+
 def _gen_prompt(torch, cfg, device):
     """bench.py:483's decode prompt shape, (8, 64) tokens from a seed."""
     rng = np.random.default_rng(1)
@@ -2920,6 +3248,7 @@ def main() -> int:
                         ("serve_prefix", phase_serve_prefix),
                         ("serve_overcommit", phase_serve_overcommit),
                         ("serve_host_tier", phase_serve_host_tier),
+                        ("serve_faults", phase_serve_faults),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
         # The host tier's phase reads the tight pool's pair that
@@ -2941,13 +3270,19 @@ def main() -> int:
 def path_launches(out: dict, name: str) -> dict:
     """``name``'s launches in each later path's measured run (the counts
     set to 0 just before it): the overcommit burst, the tight pool with
-    the tier off and on (the swapping run), the host tier's phase B."""
-    oc, ht = out["serve_overcommit"], out["serve_host_tier"]
+    the tier off and on (the swapping run), the host tier's phase B, and
+    serve_faults' last run with the log and ledger on, its faulted run
+    and its deadline run."""
+    oc, ht, sf = (out["serve_overcommit"], out["serve_host_tier"],
+                  out["serve_faults"])
     tight = oc["tight"]
     return {"serve_overcommit": oc["overcommit"]["launches"][name],
             "serve_overcommit_tight": tight["tier_off"]["launches"][name],
             "serve_overcommit_tight_swap": tight["tier_on"]["launches"][name],
-            "serve_host_tier": ht["working_set"]["launches"][name]}
+            "serve_host_tier": ht["working_set"]["launches"][name],
+            "serve_faults": sf["observe"]["launches"][name],
+            "serve_faults_recovery": sf["recovery"]["launches"][name],
+            "serve_faults_deadlines": sf["deadlines"]["launches"][name]}
 
 
 def kernel_lines(out: dict) -> list:

@@ -12,9 +12,8 @@ equal the never-swapped ones exactly, and a restore writes the pool
 tensors in place, bitwise the demoted bytes.
 
 Not mirrored: test_host_tier.py:141 (sampled streams and prompt lookup,
-queue 1 items 5.7 and 5.8), :166 (marked slow in the reference), the
-quarantine half of :284 (item 5.5) and the kv_quant=False case of :120
-(the float pool, item 8)."""
+queue 1 items 5.7 and 5.8), :166 (marked slow in the reference) and
+the kv_quant=False case of :120 (the float pool, item 8)."""
 
 import jax
 import numpy as np
@@ -349,10 +348,9 @@ def test_measured_bandwidth_ema_feeds_the_model():
 
 
 def test_allocator_churn_demote_promote_defrag(monkeypatch):
-    """test_host_tier.py:284 without quarantine (item 5.5): random
-    demotion, defrag and preemption churn under an overcommitted
-    Scheduler; the invariants hold after every step and every stream
-    equals its solo run."""
+    """test_host_tier.py:284: random demotion, defrag, preemption and
+    quarantine churn under an overcommitted Scheduler; the invariants hold
+    after every step and every stream equals its solo run."""
     monkeypatch.setenv("TPUBC_HOST_XFER_GBPS", "1000")
     rng = np.random.default_rng(23)
     sysp = rng.integers(1, 32, 16).tolist()
@@ -369,7 +367,7 @@ def test_allocator_churn_demote_promote_defrag(monkeypatch):
             for rid, ev in sched.step().items():
                 if ev["done"]:
                     got[rid] = ev["generated"]
-            op = rng.integers(0, 3)
+            op = rng.integers(0, 4)
             if op == 0 and pool.allocator.cached():
                 pool.demote_lru(int(rng.integers(1, 3)))
             elif op == 1:
@@ -377,6 +375,8 @@ def test_allocator_churn_demote_promote_defrag(monkeypatch):
             elif op == 2 and pool.has_active():
                 pool.preempt_one()
                 sched._drain_preempted()
+            elif op == 3:
+                sched.requeue(pool.quarantine(reason="drill"))
             _check_allocator(pool)
     while sched.pending() or pool.has_active():
         for rid, ev in sched.step().items():

@@ -20,8 +20,7 @@ and pick a rate at which short victims recompute and long ones swap.
 
 Not mirrored: test_scheduler.py:195 and :383-417 (prompt lookup, queue 1
 item 5.8), :450-480 (the ingress, item 6), the sampled cases of :171
-(item 5.7) and its kv_quant=False cases (the float pool, item 8);
-deadlines in :74 (item 5.6)."""
+(item 5.7) and its kv_quant=False cases (the float pool, item 8)."""
 
 import jax
 import numpy as np
@@ -292,17 +291,22 @@ def test_serve_defaults_equal_reference_defaults(monkeypatch, pinned_cost):
 
 
 def test_queue_orders_by_priority_then_deadline_then_arrival():
-    """test_scheduler.py:74 without deadlines (item 5.6): the higher
-    class first, arrival within a class."""
+    """test_scheduler.py:74: the higher class first; within class 0,
+    explicit deadlines (EDF) ahead of the deadline-less rid 0, the earlier
+    deadline first. (Deadline 1.0 has passed on the monotonic clock: rid 3
+    is shed at the first round boundary, and its event follows rid 2's in
+    that round, as in the reference.)"""
     pool = tserving.PagedPool(TPARAMS, TCFG, 1, block_size=8, **POOL)
     sched = tserving.Scheduler(pool)
-    for rid, prio in ((0, 0), (1, 0), (2, 2), (3, 0)):
+    for rid, prio, dl in ((0, 0, None), (1, 0, 1e9), (2, 2, None),
+                          (3, 0, 1.0)):
         sched.submit(tserving.Request(rid=rid, tokens=[rid + 1, rid + 2],
-                                      max_new=2, priority=prio))
+                                      max_new=2, priority=prio, deadline=dl))
     order = []
     while sched.pending() or pool.has_active():
         order += [rid for rid, ev in sched.step().items() if ev["done"]]
-    assert order == [2, 0, 1, 3], order
+    assert order == [2, 3, 1, 0], order
+    assert sched.stats["deadline_shed"] == 1
 
 
 def test_expected_footprint_ema_converges_and_clamps():

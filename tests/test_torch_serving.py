@@ -225,7 +225,8 @@ def test_scheduler_admits_by_priority_then_arrival():
         order += [rid for rid, ev in sched.step().items() if ev["done"]]
     assert order == [1, 3, 0, 2]
     assert sched.stats == {"submitted": 4, "admitted": 4, "requeues": 0,
-                           "retired": 4}
+                           "retired": 4, "deadline_shed": 0,
+                           "recoveries": 0}
 
 
 def test_block_allocator_differential_against_reference():
@@ -298,12 +299,30 @@ def test_options_not_ported_raise(kw, item):
 
 
 def test_deadlines_and_host_tier_not_ported_raise():
-    """Deadlines (queue 1 item 5.6) still raise at submit; the host tier
-    is ported (tests/test_torch_host_tier.py)."""
-    pool = tserving.PagedPool(TPARAMS, TCFG, 1, kv_quant=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="deadlines"):
-        tserving.Scheduler(pool).submit(
-            tserving.Request(rid=0, tokens=[1], max_new=1, deadline=5.0))
+    """Deadlines are ported (queue 1 item 5.6; the host tier in
+    tests/test_torch_host_tier.py): a request whose deadline has passed is
+    accepted at submit and shed at the next round boundary exactly as the
+    reference sheds it, with no round dispatched, beside a deadline-less
+    request that runs; the two packages' events and stats agree."""
+    def run(mod, pool):
+        sched = mod.Scheduler(pool)
+        past = mod.telemetry.monotonic() - 1.0
+        sched.submit(mod.Request(rid=0, tokens=[1, 2, 3], max_new=4,
+                                 deadline=past))
+        sched.submit(mod.Request(rid=1, tokens=[4, 5], max_new=2))
+        first = sched.step()
+        return first, dict(sched.stats), pool.stats["rounds"]
+
+    want = run(jserving, jserving.PagedPool(JPARAMS, JCFG, 1, block_size=16,
+                                            kv_quant=True))
+    got = run(tserving, tserving.PagedPool(TPARAMS, TCFG, 1, block_size=16,
+                                           kv_quant=True, device="cpu"))
+    assert got == want
+    events, stats, rounds = got
+    assert events[0] == {"new": [], "done": True, "generated": [],
+                         "deadline": True, "error": "deadline exceeded"}
+    assert stats["deadline_shed"] == 1 and stats["submitted"] == 2
+    assert rounds == 1  # the round ran rid 1 only
 
 
 def test_device_none_raises_without_cuda():

@@ -73,15 +73,22 @@ kernels (the slot engine's speculative rounds commit the target's own
 argmaxes, so they equal its plain rounds); a preempted and resumed stream
 equals its never-preempted one, whichever arm resumed it.
 
+The Scheduler keeps the request log (``RequestLog``: each request's
+lifecycle events, a span tree at retirement) and the device ledger (each
+round's busy time billed to the rows it advanced, FLOPs-weighted), sheds
+or cancels requests past their deadline at the round boundary, and
+recovers a failed round of the paged engine as a preemption of every
+resident row (``PagedPool.quarantine``), fed by the ``pool.device``,
+``alloc``, ``sched.admit`` and ``swap.xfer`` fault seams.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item): sampling, the paged engine's speculative rounds and prompt
-lookup, the resident engine, the float-pool gather path, the request log,
-the device ledger, the fault seams other than ``pool.device`` and
-``swap.xfer``, and deadlines.
+lookup, the resident engine and the float-pool gather path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -130,10 +137,15 @@ class Request:
     rid: int
     tokens: list  # prompt token ids
     max_new: int  # decode budget
-    # Higher ``priority`` admits first. Deadlines are not ported: a request
-    # with one is refused at submit.
+    # Higher ``priority`` admits first; within a class, an earlier
+    # ``deadline`` (absolute telemetry.monotonic() seconds, None for none)
+    # admits first, and a request still waiting or running past it is
+    # shed or cancelled at the next round boundary.
     priority: int = 0
     deadline: float | None = None
+    # The client's trace id: the request's span tree roots under it (empty:
+    # the process root id).
+    trace_id: str = ""
 
 
 @dataclasses.dataclass
@@ -240,6 +252,329 @@ def _digest_enabled() -> bool:
         "TPUBC_CACHE_DIGEST", "1").lower() not in ("0", "false")
 
 
+REQUEST_EVENTS_ENV = "TPUBC_REQUEST_EVENTS"
+DEVICE_LEDGER_ENV = "TPUBC_DEVICE_LEDGER"
+
+
+def device_ledger_enabled() -> bool:
+    """The device-time ledger's switch: on unless ``TPUBC_DEVICE_LEDGER``
+    is 0. Off, the Scheduler attaches no token dict to the pool, every
+    recording site is one attribute read, and the streams are those of a
+    run with the ledger on (the ledger only observes)."""
+    return os.environ.get(DEVICE_LEDGER_ENV, "1").lower() not in (
+        "0", "false")
+
+
+def request_events_enabled() -> bool:
+    """The request log's switch: off with ``TPUBC_REQUEST_EVENTS=0`` or
+    when tracing is off (``TPUBC_TRACE_BUFFER=0``); either way the streams
+    are unchanged and the serving path appends no event."""
+    if os.environ.get(REQUEST_EVENTS_ENV, "1").lower() in ("0", "false"):
+        return False
+    try:
+        if int(os.environ.get("TPUBC_TRACE_BUFFER", "4096")) <= 0:
+            return False
+    except ValueError:
+        pass
+    return True
+
+
+@dataclasses.dataclass
+class RequestRecord:
+    """One request's lifecycle in the request log: its bounded event list
+    and the summary fields the snapshot and the retirement spans read."""
+
+    rid: int
+    trace_id: str
+    priority: int
+    deadline: float | None
+    submit_us: int
+    state: str = "queued"  # queued | running | preempted | retired
+    events: list = dataclasses.field(default_factory=list)
+    dropped_events: int = 0
+    legs: int = 0          # admissions: 1 + the resumes
+    preemptions: int = 0
+    retire_reason: str = ""
+    generated: int = 0
+    footprint_blocks: int = 0
+    cached_tokens: int = 0
+    # What a replayable arrival record needs (``arrivals``).
+    prompt_len: int = 0
+    max_new: int = 0
+    # The engine busy ms billed to this request by the device ledger, and
+    # its split by work kind.
+    device_ms: float = 0.0
+    device_by_kind: dict = dataclasses.field(default_factory=dict)
+
+
+# The phase a request is in AFTER each event kind: the gap between two
+# events is billed to the phase in effect during it, so the phases
+# partition [first event, last event]. prefill_chunk keeps the phase
+# (prefill on a first leg, recompute on a resumed one).
+_PHASE_AFTER = {
+    "enqueued": "queue",
+    "preempted": "queue",   # waiting to resume is queue wait
+    "admitted": "prefill",
+    "resumed": "recompute",
+    "decode_round": "decode",
+    "grown": "decode",
+}
+
+
+def _phase_segments(events: list) -> list:
+    """[(phase, start_us, dur_us)]: the runs of one phase over the gaps
+    between consecutive events (the child spans of a request's span)."""
+    segs: list = []
+    if not events:
+        return segs
+    cur = "queue"
+    prev_t = events[0]["t_us"]
+    for e in events[1:]:
+        t = e["t_us"]
+        if t > prev_t:
+            if segs and segs[-1][0] == cur:
+                segs[-1] = (cur, segs[-1][1], segs[-1][2] + (t - prev_t))
+            else:
+                segs.append((cur, prev_t, t - prev_t))
+        prev_t = t
+        nxt = _PHASE_AFTER.get(e["kind"])
+        if nxt is not None:
+            cur = nxt
+    return segs
+
+
+class RequestLog:
+    """The serving engine's flight recorder: a bounded ring of recent and
+    in-flight requests (``TPUBC_REQUESTZ_RING``, default 256; retired
+    records evicted first, least recently touched first), each with a
+    bounded event list (``TPUBC_REQUEST_EVENT_CAP``, default 512; the
+    overflow counted in ``dropped_events``): enqueued, admitted,
+    prefill_chunk, decode_round, grown, preempted, resumed, retired,
+    appended by the Scheduler and the pool as they happen. At retirement
+    a request becomes a ``serve.request`` span in ``telemetry.tracer()``
+    with one ``serve.phase.<phase>`` child per phase run, and its phase
+    times roll into the ``serve_phase_share_*`` gauges. Off
+    (``request_events_enabled``), every method returns at once."""
+
+    PHASES = ("queue", "prefill", "decode", "recompute")
+
+    def __init__(self, capacity: int | None = None,
+                 max_events: int | None = None,
+                 enabled: bool | None = None):
+        if capacity is None:
+            try:
+                capacity = int(os.environ.get("TPUBC_REQUESTZ_RING", "256"))
+            except ValueError:
+                capacity = 256
+        if max_events is None:
+            try:
+                max_events = int(
+                    os.environ.get("TPUBC_REQUEST_EVENT_CAP", "512"))
+            except ValueError:
+                max_events = 512
+        self.capacity = max(1, capacity)
+        self.max_events = max(8, max_events)
+        self.enabled = (request_events_enabled() if enabled is None
+                        else enabled)
+        self._lock = threading.Lock()
+        self._recs: OrderedDict = OrderedDict()  # rid -> RequestRecord  # guarded-by: _lock
+        self._phase_totals = {p: 0.0 for p in self.PHASES}  # guarded-by: _lock
+
+    # ---- recording --------------------------------------------------------
+
+    def start(self, rid: int, *, trace_id: str = "", priority: int = 0,
+              deadline: float | None = None, queue_position: int = 0,
+              prompt_len: int = 0, max_new: int = 0) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            t = telemetry.now_us()
+            rec = RequestRecord(
+                rid=rid, trace_id=trace_id or telemetry.root_trace_id(),
+                priority=priority, deadline=deadline, submit_us=t,
+                prompt_len=prompt_len, max_new=max_new)
+            rec.events.append({
+                "kind": "enqueued", "t_us": t, "priority": priority,
+                "deadline": deadline, "queue_position": queue_position})
+            self._recs[rid] = rec
+            self._recs.move_to_end(rid)
+            while len(self._recs) > self.capacity:
+                # Retired records go first; only a ring smaller than the
+                # in-flight set drops a live one.
+                victim = next((r for r, v in self._recs.items()
+                               if v.state == "retired"), None)
+                if victim is None:
+                    victim = next(iter(self._recs))
+                del self._recs[victim]
+
+    def event(self, rid: int, kind: str, **attrs) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            rec = self._recs.get(rid)
+            if rec is None:
+                return  # evicted, or started before the log
+            if len(rec.events) >= self.max_events:
+                rec.dropped_events += 1
+                return
+            e = {"kind": kind, "t_us": telemetry.now_us()}
+            e.update(attrs)
+            rec.events.append(e)
+            if kind in ("admitted", "resumed"):
+                rec.state = "running"
+                rec.legs += 1
+                if kind == "admitted":
+                    rec.cached_tokens = int(attrs.get("cached_tokens", 0))
+            elif kind == "preempted":
+                rec.state = "preempted"
+                rec.preemptions += 1
+            self._recs.move_to_end(rid)
+
+    def add_device(self, rid: int, ms: float,
+                   by_kind: dict | None = None) -> None:
+        """Bill ``ms`` of engine busy time to a request (the ledger's
+        attribution); unknown or evicted rids are ignored."""
+        if not self.enabled or ms <= 0:
+            return
+        with self._lock:
+            rec = self._recs.get(rid)
+            if rec is None:
+                return
+            rec.device_ms += ms
+            if by_kind:
+                for k, v in by_kind.items():
+                    rec.device_by_kind[k] = (
+                        rec.device_by_kind.get(k, 0.0) + v)
+
+    def retire(self, rid: int) -> None:
+        """Close a record: fold its retired event's summary in, emit its
+        span tree and roll its phase times into the share gauges.
+        Idempotent."""
+        if not self.enabled:
+            return
+        with self._lock:
+            rec = self._recs.get(rid)
+            if rec is None or rec.state == "retired":
+                return
+            rec.state = "retired"
+            last = rec.events[-1]
+            if last["kind"] == "retired":
+                rec.retire_reason = last.get("reason", "")
+                rec.generated = int(last.get("generated", 0))
+                rec.footprint_blocks = int(last.get("footprint_blocks", 0))
+            segs = _phase_segments(rec.events)
+            tr = telemetry.tracer()
+            parent = tr.add_span(
+                "serve.request", rec.submit_us,
+                last["t_us"] - rec.submit_us,
+                trace_id=rec.trace_id, rid=rec.rid, priority=rec.priority,
+                reason=rec.retire_reason, tokens=rec.generated,
+                preemptions=rec.preemptions, legs=rec.legs,
+                cached_tokens=rec.cached_tokens)
+            for ph, start, dur in segs:
+                tr.add_span(f"serve.phase.{ph}", start, dur,
+                            trace_id=rec.trace_id,
+                            parent_id=parent.span_id, rid=rec.rid)
+                self._phase_totals[ph] += dur
+            tot = sum(self._phase_totals.values())
+            if tot > 0:
+                reg = telemetry.metrics()
+                for ph, v in self._phase_totals.items():
+                    reg.set_gauge(f"serve_phase_share_{ph}",
+                                  round(v / tot, 4))
+
+    def abort_inflight(self, reason: str = "error") -> None:
+        """Retire every record still open (a failed round's victims must
+        not show as running forever)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            rids = [rid for rid, rec in self._recs.items()
+                    if rec.state != "retired"]
+        for rid in rids:
+            self.event(rid, "retired", reason=reason)
+            self.retire(rid)
+
+    # ---- reading ----------------------------------------------------------
+
+    def _phases_locked(self, rec: RequestRecord) -> dict:
+        out = {f"{p}_ms": 0.0 for p in self.PHASES}
+        for ph, _, dur in _phase_segments(rec.events):
+            out[f"{ph}_ms"] += dur / 1e3
+        out = {k: round(v, 3) for k, v in out.items()}
+        out["total_ms"] = round(
+            (rec.events[-1]["t_us"] - rec.submit_us) / 1e3, 3)
+        out["preemptions"] = rec.preemptions
+        out["legs"] = rec.legs
+        out["device_ms"] = round(rec.device_ms, 3)
+        if rec.device_by_kind:
+            out["device_ms_by_kind"] = {
+                k: round(v, 3) for k, v in rec.device_by_kind.items()}
+        return out
+
+    def phases(self, rid: int) -> dict | None:
+        """One request's phase breakdown (queue, prefill, decode and
+        recompute ms, total, preemptions, legs, device ms), or None."""
+        with self._lock:
+            rec = self._recs.get(rid)
+            return None if rec is None else self._phases_locked(rec)
+
+    def trace_of(self, rid: int) -> str:
+        with self._lock:
+            rec = self._recs.get(rid)
+            return "" if rec is None else rec.trace_id
+
+    def phase_shares(self) -> dict:
+        """The cumulative share of retired-request time in each phase."""
+        with self._lock:
+            tot = sum(self._phase_totals.values())
+            if tot <= 0:
+                return {p: 0.0 for p in self.PHASES}
+            return {p: round(v / tot, 4)
+                    for p, v in self._phase_totals.items()}
+
+    def snapshot(self, rid: int | None = None) -> dict:
+        """Every record (or ``rid``'s), most recently touched first."""
+        with self._lock:
+            recs = list(self._recs.values())
+            if rid is not None:
+                recs = [r for r in recs if r.rid == rid]
+            return {
+                "enabled": self.enabled,
+                "capacity": self.capacity,
+                "requests": [{
+                    "rid": r.rid,
+                    "trace_id": r.trace_id,
+                    "state": r.state,
+                    "priority": r.priority,
+                    "deadline": r.deadline,
+                    "submit_us": r.submit_us,
+                    "legs": r.legs,
+                    "preemptions": r.preemptions,
+                    "reason": r.retire_reason,
+                    "generated": r.generated,
+                    "footprint_blocks": r.footprint_blocks,
+                    "cached_tokens": r.cached_tokens,
+                    "dropped_events": r.dropped_events,
+                    "phases": self._phases_locked(r),
+                    "events": [dict(e) for e in r.events],
+                } for r in reversed(recs)],
+            }
+
+    def arrivals(self) -> list:
+        """One flat record a request in arrival order: what a replay of
+        the traffic needs."""
+        with self._lock:
+            recs = sorted(self._recs.values(), key=lambda r: r.submit_us)
+            return [{"rid": r.rid,
+                     "t_arrival_us": r.submit_us,
+                     "prompt_len": r.prompt_len,
+                     "max_new": r.max_new,
+                     "priority": r.priority,
+                     "deadline": r.deadline,
+                     "trace_id": r.trace_id} for r in recs]
+
+
 class BlockAllocator:
     """Bookkeeping of the shared KV block pool: ids 1..num_blocks (id 0
     is the null block that pads short tables and is never owned),
@@ -301,6 +636,9 @@ class BlockAllocator:
     # ---- alloc / refcount lifecycle ---------------------------------------
 
     def alloc(self, n: int) -> list:
+        # The injected invariant breach fires before any mutation, so
+        # recovery quarantines an allocator that is still self-consistent.
+        faults.fire("alloc")
         if n < 1:
             raise ValueError(f"alloc of {n} blocks")
         if n > self.available():
@@ -404,6 +742,20 @@ class BlockAllocator:
         self._free = [i for i in range(1, self.num_blocks + 1)
                       if i not in taken]
         heapq.heapify(self._free)
+
+    def quarantine_to_cache(self) -> None:
+        """Crash recovery's allocator half (``PagedPool.quarantine``): drop
+        every live reference (the tables they mirrored died with the
+        crashed round's slots), keeping registered content as cached so
+        the resumed rows' re-prefill hits it; unregistered live blocks
+        return to the heap. Tolerates any refcount state. Afterwards: no
+        live block, cached == registered, the heap the rest."""
+        for bid in list(self._ref):
+            del self._ref[bid]
+            if bid in self._key_of:
+                self._cached[bid] = self._key_of[bid]
+            else:
+                heapq.heappush(self._free, bid)
 
     def digest_json(self) -> dict:
         """The routable digest of the cache: the 64-bit fingerprint of
@@ -574,9 +926,64 @@ def _copy_block(pools: list, src: int, dst: int) -> None:
 
 class _PoolBase:
     """What every serving engine shares: admission validation, the
-    free-slot scan and the per-round event fold."""
+    free-slot scan, the per-round event fold, cancellation and the
+    request-log and ledger recording sites."""
 
     eos_id: int | None = None
+    # The Scheduler's RequestLog when its events are on; a pool driven
+    # bare keeps None and pays one attribute read a would-be event.
+    request_log: RequestLog | None = None
+    # The device ledger's scratch for the round: {rid: {"prefill" |
+    # "decode": tokens}} advanced this round. The Scheduler attaches a
+    # fresh dict before each round and folds it after; None (a bare pool,
+    # or the ledger off) makes every recording site a no-op.
+    ledger_tokens: dict | None = None
+
+    def _levent(self, rid: int, kind: str, **attrs) -> None:
+        """Append one lifecycle event for ``rid`` (no-op without a log)."""
+        log = self.request_log
+        if log is not None:
+            log.event(rid, kind, **attrs)
+
+    def _ledger_add(self, rid: int, kind: str, n: int) -> None:
+        """Count ``n`` tokens of ``kind`` work for ``rid`` this round
+        (no-op without an attached ledger)."""
+        led = self.ledger_tokens
+        if led is not None and n > 0:
+            row = led.setdefault(rid, {})
+            row[kind] = row.get(kind, 0) + n
+
+    def _slot_json(self, i: int, s) -> dict:
+        return {"slot": i, "rid": s.rid, "priority": s.priority,
+                "seq": s.seq, "deadline": s.deadline,
+                "history_tokens": len(s.history),
+                "generated": len(s.generated), "remaining": s.remaining}
+
+    def snapshot(self) -> dict:
+        """The pool's state: engine, occupancy, each row and the stats.
+        Call it from the engine's thread, between rounds."""
+        slots = [self._slot_json(i, s)
+                 for i, s in enumerate(list(self.slots)) if s is not None]
+        return {"engine": type(self).__name__,
+                "batch_size": self.batch_size,
+                "active": len(slots),
+                "free_slots": self.batch_size - len(slots),
+                "slots": slots,
+                "stats": dict(self.stats)}
+
+    def cancel(self, i: int, reason: str = "deadline") -> dict:
+        """Cancel the row in slot ``i`` at a round boundary (deadline
+        enforcement): its terminal event, its resources released through
+        the retirement hook (the paged engine returns its blocks), the
+        slot cleared; returns the terminal stream event with the prefix
+        it committed."""
+        s = self.slots[i]
+        self._levent(s.rid, "retired", reason=reason,
+                     generated=len(s.generated),
+                     footprint_blocks=len(getattr(s, "blocks", ()) or ()))
+        self._on_retire(i, s)
+        self.slots[i] = None
+        return {"new": [], "done": True, "generated": list(s.generated)}
 
     @staticmethod
     def validate(r: Request, cfg: ModelConfig) -> None:
@@ -607,12 +1014,13 @@ class _PoolBase:
                 return i
         raise RuntimeError("no free slot (check free_slots before admit)")
 
-    def _emit_events(self, out: list, counts: list) -> dict:
+    def _emit_events(self, out: list, counts: list,
+                     kind: str = "decode") -> dict:
         """Fold one round's per-slot outputs (``out[i]`` a token list,
         ``counts[i]`` how many it may keep) into slot state: extend
         histories, cut at eos, clamp to each row's remaining budget,
-        retire finished rows. Returns {rid: {"new", "done",
-        "generated"}}."""
+        retire finished rows. The kept steps count as ``kind`` work in
+        the ledger. Returns {rid: {"new", "done", "generated"}}."""
         events = {}
         for i, s in enumerate(self.slots):
             if s is None:
@@ -620,6 +1028,9 @@ class _PoolBase:
             keep = min(counts[i], s.remaining)
             if keep <= 0:
                 continue
+            # The ledger bills the executed steps: eos may cut what is
+            # delivered below ``keep``, but the device ran every step.
+            self._ledger_add(s.rid, kind, keep)
             got = list(out[i][:keep])
             s.generated += got
             s.history += got
@@ -633,7 +1044,21 @@ class _PoolBase:
             done = s.remaining == 0
             events[s.rid] = {"new": got, "done": done,
                              "generated": s.generated}
+            if self.request_log is not None and got:
+                self._levent(s.rid, "decode_round", tokens=len(got),
+                             round=self.stats.get("rounds", 0))
             if done:
+                if self.request_log is not None:
+                    # Before _on_retire clears the table: the footprint is
+                    # part of the record.
+                    reason = ("eos" if (self.eos_id is not None and got
+                                        and got[-1] == self.eos_id)
+                              else "budget")
+                    self._levent(
+                        s.rid, "retired", reason=reason,
+                        generated=len(s.generated),
+                        footprint_blocks=len(
+                            getattr(s, "blocks", ()) or ()))
                 self._on_retire(i, s)
                 self.slots[i] = None
         return events
@@ -706,9 +1131,12 @@ class SlotPool(_PoolBase):
             raise ValueError("slot engines never preempt, so they have "
                              "nothing to resume (preload is paged-only)")
         self.validate(r, self.cfg)
+        self._levent(r.rid, "admitted", engine="slot",
+                     prompt=len(r.tokens))
         self.slots[self._free_index()] = _Slot(
             rid=r.rid, history=list(r.tokens), remaining=r.max_new,
-            generated=[])
+            generated=[], priority=r.priority, seq=seq,
+            deadline=r.deadline)
 
     def step_round(self) -> dict:
         """One round over the active slots; returns the event fold's
@@ -746,6 +1174,10 @@ class SlotPool(_PoolBase):
             self.stats["committed_tokens"] += len(active) * chunk
         self.stats["rounds"] += 1
         self.stats["replayed_tokens"] += sum(len(s.history) for s in active)
+        # The replay is this engine's prefill: a row's share of the round
+        # grows with its history, not only its chunk of new tokens.
+        for s in active:
+            self._ledger_add(s.rid, "prefill", len(s.history))
         self.stats["slot_steps"] += self.batch_size * chunk
         self.stats["active_slot_steps"] += len(active) * chunk
         return self._emit_events(out.tolist(), [chunk] * self.batch_size)
@@ -845,6 +1277,12 @@ class PagedPool(_PoolBase):
         self._out = torch.zeros((batch_size, _bucket_down(cfg.max_seq_len)),
                                 dtype=torch.long, device=self.device)
         self._tables: dict = {}
+        # Set while an in-place write of the pools is under way (a prefill
+        # chunk's scatter, a copy-on-write copy, a host restore, a decode
+        # chunk, defrag): a failure that leaves it set may have written
+        # some layers of a block and not others, so quarantine resets the
+        # pools instead of salvaging their content.
+        self._torn = False
         self._host_init(host_blocks)
         telemetry.metrics().set_gauge("serve_target_stream_bytes",
                                       quant.decode_stream_bytes(params))
@@ -922,11 +1360,74 @@ class PagedPool(_PoolBase):
         for layer in self.pools:
             for a in layer.values():
                 a.zero_()
+        self._torn = False
         if self.host is not None:
             # Host entries hold no device state, so resumed rows promote
             # from them; only the new allocator needs the seam again.
             self.allocator.evict_hook = self._demote_block
         self._record_block_gauges()
+
+    @contextlib.contextmanager
+    def _writing(self):
+        """An in-place write of the pools: ``_torn`` stays set if the
+        block raises."""
+        self._torn = True
+        yield
+        self._torn = False
+
+    def quarantine(self, reason: str = "crash") -> list:
+        """Crash-is-preemption: a failed round preempts every resident row
+        at once. Each row becomes the resume record ``_preempt`` parks
+        (prompt, and what it generated as preload), with a
+        ``preempted(reason=crash)`` event; the records, and any preempted
+        ones not yet drained, are returned for the Scheduler to requeue.
+        KV is a function of token and position alone, so the resumed
+        streams equal uninterrupted ones.
+
+        The reference asks whether its donated arrays were consumed; the
+        port writes its pools in place, and asks whether a write was cut
+        short (``_torn``). If none was (a failure at ``pool.device``,
+        ``alloc``, ``sched.admit`` or ``swap.xfer``, all before or between
+        writes), the registered content is salvaged into the cache
+        (``quarantine_to_cache``) and the re-prefill mostly hits it; if one
+        was, ``reset`` zeroes the pools in place (the captured steps keep
+        their addresses) and nothing is salvaged."""
+        recs = list(self.preempted)
+        self.preempted.clear()
+        alive = not self._torn
+        for s in self.slots:
+            if s is None:
+                continue
+            self._levent(s.rid, "preempted", reason=reason,
+                         phase=("prefill" if self._prefilling(s)
+                                else "decode"),
+                         generated=len(s.generated),
+                         blocks_freed=len(s.blocks))
+            self.stats["crash_preempts"] = (
+                self.stats.get("crash_preempts", 0) + 1)
+            prompt = s.history[:len(s.history) - len(s.generated)]
+            recs.append({"request": Request(rid=s.rid, tokens=prompt,
+                                            max_new=(len(s.generated)
+                                                     + s.remaining),
+                                            priority=s.priority,
+                                            deadline=s.deadline),
+                         "preload": list(s.generated), "seq": s.seq,
+                         "t": telemetry.monotonic()})
+        if alive:
+            try:
+                if self.prefix_cache:
+                    for s in self.slots:
+                        if s is not None:
+                            self._register_full(s)
+                self.allocator.quarantine_to_cache()
+            except Exception:  # noqa: BLE001 - the salvage is best-effort
+                alive = False
+        self.slots = [None] * self.batch_size
+        self.request_cached_tokens.clear()
+        if not alive:
+            self.reset()
+        self._record_block_gauges()
+        return recs
 
     # ---- host tier --------------------------------------------------------
 
@@ -1239,8 +1740,9 @@ class PagedPool(_PoolBase):
         prompt_len = len(history)
         if promote:
             t0 = time.perf_counter()
-            moved = self._host_restore([d for d, _k, _e in promote],
-                                       [e for _d, _k, e in promote])
+            with self._writing():
+                moved = self._host_restore([d for d, _k, _e in promote],
+                                           [e for _d, _k, e in promote])
             secs = time.perf_counter() - t0
             self._note_bw(moved, secs)
             hit = len(promote) * self.block_size
@@ -1259,7 +1761,8 @@ class PagedPool(_PoolBase):
                 self.allocator.register(dest, k)
         hit_tokens = len(plan) * self.block_size
         if cow is not None:
-            _copy_block(self.pools, cow, fresh[fi])
+            with self._writing():
+                _copy_block(self.pools, cow, fresh[fi])
             self.allocator.free([cow])  # unpin
             hit_tokens = min(hit_tokens + self.block_size, prompt_len - 1)
             self.stats["cow_copies"] += 1
@@ -1282,6 +1785,13 @@ class PagedPool(_PoolBase):
                     "serve_preempt_cost",
                     round(recomp * self._prefill_ms_per_tok, 3),
                     labels={"arm": "recompute"})
+        self._levent(
+            r.rid, "resumed" if preload else "admitted",
+            blocks=len(blocks), shared_blocks=len(shared),
+            fresh_blocks=len(fresh), promoted_blocks=len(promote),
+            expected_new=reserve_new, remaining=remaining,
+            cached_tokens=hit_tokens, cow=int(cow is not None),
+            prompt=prompt_len)
         self.slots[i] = _PagedSlot(
             rid=r.rid, history=history, remaining=remaining,
             generated=list(preload or []), priority=r.priority, seq=seq,
@@ -1299,7 +1809,7 @@ class PagedPool(_PoolBase):
         on the host tier now; recompute records the swap it did not take,
         priced, as ``arm=swap_est``), decref its table, clear the slot and
         park a resume record in ``preempted``. ``reason`` names the policy
-        key that chose the victim (the request log's, item 5.4)."""
+        key that chose the victim, in the request log's event."""
         s = self.slots[i]
         if self.prefix_cache:
             self._register_full(s)
@@ -1310,6 +1820,9 @@ class PagedPool(_PoolBase):
             telemetry.metrics().observe("serve_preempt_cost",
                                         round(swap_ms, 3),
                                         labels={"arm": "swap_est"})
+        self._levent(s.rid, "preempted", reason=reason, arm=arm,
+                     phase=("prefill" if self._prefilling(s) else "decode"),
+                     generated=len(s.generated), blocks_freed=len(s.blocks))
         self.allocator.free(s.blocks)
         s.blocks = []
         self.slots[i] = None
@@ -1381,6 +1894,8 @@ class PagedPool(_PoolBase):
                     if need[id(s)]:
                         s.blocks += self.allocator.alloc(need[id(s)])
                         self.stats["grown_blocks"] += need[id(s)]
+                        self._levent(s.rid, "grown", blocks=need[id(s)],
+                                     total_blocks=len(s.blocks))
                 break
             self.preempt_one()
             alive = {id(s) for s in self.slots if s is not None}
@@ -1429,14 +1944,19 @@ class PagedPool(_PoolBase):
                     dtype=torch.long, device=self.device)
                 pos = torch.tensor([s.prefilled], dtype=torch.long,
                                    device=self.device)
-                _paged_prefill_chunk(self.params, self.pools, bt, tokens,
-                                     pos, self.cfg)
+                with self._writing():
+                    _paged_prefill_chunk(self.params, self.pools, bt,
+                                         tokens, pos, self.cfg)
                 s.prefilled += w
                 s.prefill_chunks += 1
                 budget -= w
                 toks_phase += w
                 self.stats["prefill_tokens"] += w
                 self.stats["prefill_chunks"] += 1
+                self._ledger_add(s.rid, "prefill", w)
+                self._levent(s.rid, "prefill_chunk", tokens=w,
+                             prefilled=s.prefilled,
+                             round=self.stats["rounds"])
                 telemetry.metrics().observe(
                     "serve_prefill_chunk_tokens", w,
                     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
@@ -1527,6 +2047,9 @@ class PagedPool(_PoolBase):
         active = [s for s in self.slots if s is not None]
         if not active:
             return {}
+        # A device fault or abort, before this round writes anything: the
+        # quarantine's salvage case.
+        faults.fire("pool.device")
         self.stats["rounds"] += 1
         self._prefill_phase()
         dec = self._decoding()
@@ -1546,7 +2069,7 @@ class PagedPool(_PoolBase):
             return {}  # an all-prefill (or all-preempted) round
         bt, last, pos = self._decode_inputs(dec, chunk)
         with telemetry.span("serve.decode_chunk", chunk=chunk,
-                            nb=bt.shape[1], rows=len(dec)):
+                            nb=bt.shape[1], rows=len(dec)), self._writing():
             out = self._decode_chunk(bt, last, pos, chunk)
         self.stats["slot_steps"] += self.batch_size * chunk
         self.stats["active_slot_steps"] += sum(
@@ -1560,6 +2083,47 @@ class PagedPool(_PoolBase):
         self._register_phase()
         self._record_block_gauges()
         return events
+
+    # ---- introspection ----------------------------------------------------
+
+    def _slot_json(self, i: int, s) -> dict:
+        d = super()._slot_json(i, s)
+        d.update({"blocks": len(s.blocks), "shared_blocks": s.n_shared,
+                  "registered_blocks": s.registered,
+                  "prompt_len": s.prompt_len, "prefilled": s.prefilled,
+                  "cached_tokens": s.cached_tokens,
+                  "prefilling": self._prefilling(s)})
+        return d
+
+    def snapshot(self) -> dict:
+        """The pool's state, paged half: the block accounting (live,
+        cached and free mirror the allocator exactly), each row's blocks,
+        the watermark headroom, the cache digest and the host tier. The
+        port's decode always runs the paged kernel K2."""
+        snap = super().snapshot()
+        a = self.allocator
+        imminent = self.imminent_growth()
+        snap.update({
+            "block_size": self.block_size,
+            "prefix_cache": self.prefix_cache,
+            "paged_kernel": True,
+            "blocks": {"total": a.num_blocks, "live": a.used(),
+                       "cached": a.cached(),
+                       "free": a.available() - a.cached(),
+                       "available": a.available(),
+                       "peak_used": a.stats["peak_used"],
+                       "evictions": a.stats["evictions"],
+                       "hash_hits": a.stats["hash_hits"],
+                       "compactness": round(a.compactness(), 4)},
+            "imminent_growth_blocks": imminent,
+            "watermark_headroom_blocks": a.available() - imminent,
+            "cache_digest": self._cache_digest_json(),
+            "host": (self.host.snapshot_json() if self.host is not None
+                     else {"blocks": 0, "capacity": 0, "bytes": 0,
+                           "hit_tokens": 0, "swap_ins": 0,
+                           "swap_outs": 0, "dropped": 0}),
+        })
+        return snap
 
     # ---- maintenance ------------------------------------------------------
 
@@ -1587,9 +2151,10 @@ class PagedPool(_PoolBase):
         for old, new in mapping.items():
             perm[new] = old
         perm = perm.to(self.device)
-        for layer in self.pools:
-            for a in layer.values():
-                a.copy_(a[perm])
+        with self._writing():
+            for layer in self.pools:
+                for a in layer.values():
+                    a.copy_(a[perm])
         for s in self.slots:
             if s is not None:
                 s.blocks = [mapping[b] for b in s.blocks]
@@ -1599,12 +2164,22 @@ class PagedPool(_PoolBase):
         return moved
 
 
+def _device_fatal(exc: BaseException) -> bool:
+    """An error the CUDA runtime raised (an illegal address, a failed
+    launch): it may leave the context unusable for the rest of the
+    process, so no in-process recovery is tried."""
+    fatal = getattr(torch, "AcceleratorError", None)
+    return ((fatal is not None and isinstance(exc, fatal))
+            or "CUDA error" in str(exc))
+
+
 class Scheduler:
-    """Admission, queueing and preemption for a pool (``PagedPool`` or
-    ``SlotPool``): a waiting queue ordered by priority class (higher
-    first), then arrival, admitted at every round boundary
-    (head-of-line: a small request does not overtake a big one that does
-    not fit yet).
+    """Admission, queueing, preemption, deadlines and recovery for a pool
+    (``PagedPool`` or ``SlotPool``): a waiting queue ordered by priority
+    class (higher first), then deadline (EDF; requests without one after
+    every deadline of their class), then arrival, admitted at every round
+    boundary (head-of-line: a small request does not overtake a big one
+    that does not fit yet).
 
     Overcommit (the paged engine only; on unless ``overcommit`` or
     ``TPUBC_OVERCOMMIT`` says 0): admission reserves the EXPECTED
@@ -1616,8 +2191,24 @@ class Scheduler:
     strictly lower priority until it fits. Preempted rows re-enter the
     queue under their original key and resume where they stopped. With
     overcommit off, admission reserves the whole footprint and never
-    preempts. Deadlines, the request log and the device ledger of the
-    reference are not ported."""
+    preempts.
+
+    Each round first sheds waiting requests past their deadline and
+    cancels running ones (``_shed_expired``: their blocks return to the
+    cohort, their stream ends with what it committed). A round of the
+    paged engine that raises is recovered as a preemption of every
+    resident row (``_recover``), up to ``TPUBC_ENGINE_MAX_RESTARTS``
+    failures in a row; then, on the slot engine, or on an error of the
+    CUDA runtime, the exception propagates.
+
+    The Scheduler owns the request log (``log``) and the device ledger
+    (``ledger``): each round's work section (shed, admit, the pool's round,
+    the drain) is its busy time, billed to the rows the round advanced in
+    proportion to their FLOPs-weighted tokens (``flops_model``); the time
+    since the previous round ended is its wall. On the card the section
+    ends in the round's token read for a decode round; an all-prefill
+    round reads nothing back, so its device work is billed to the next
+    round's busy time, as in the reference."""
 
     def __init__(self, pool, *, overcommit: bool | None = None,
                  expected_new: int | None = None, ema_alpha: float = 0.25):
@@ -1635,7 +2226,7 @@ class Scheduler:
         if not 0 < ema_alpha <= 1:
             raise ValueError(f"ema_alpha must be in (0, 1], got {ema_alpha}")
         # The engine thread mutates the queue; readers on other threads
-        # (the reference's /poolz) take the lock, never across device work.
+        # take the lock, never across device work.
         self._lock = threading.Lock()
         self._ema = float(expected_new)  # guarded-by: _lock
         self._alpha = ema_alpha
@@ -1647,7 +2238,37 @@ class Scheduler:
         self._preempt_t: dict = {}  # rid -> eviction time  # guarded-by: _lock
         self._waits = deque(maxlen=512)  # recent queue waits, ms  # guarded-by: _lock
         self.stats = {"submitted": 0, "admitted": 0, "requeues": 0,  # guarded-by: _lock
-                      "retired": 0}
+                      "retired": 0, "deadline_shed": 0, "recoveries": 0}
+        # Crash recovery (engine-thread state): the failures in a row, so a
+        # persistent fault re-raises after TPUBC_ENGINE_MAX_RESTARTS.
+        self._fail_streak = 0
+        self._max_restarts = int(os.environ.get(
+            "TPUBC_ENGINE_MAX_RESTARTS", "8"))
+        self.last_error = ""  # guarded-by: _lock
+        # Retirements a second: the queue-drain estimate of retry_after_s.
+        self._retire_window = telemetry.RateWindow()
+        # The request log: the Scheduler sees every transition, the pool
+        # appends its own events through its request_log.
+        self.log = RequestLog()
+        pool.request_log = self.log if self.log.enabled else None
+        # The device ledger: step() attaches a fresh {rid: {kind: tokens}}
+        # to the pool before its round and folds it after; off
+        # (TPUBC_DEVICE_LEDGER=0), pool.ledger_tokens stays None.
+        self.ledger_enabled = device_ledger_enabled()
+        # The price list weighting prefill and decode tokens (and the
+        # numerator of serve_mfu), and its denominator (None: no MFU).
+        self._flops = flops_model(pool.cfg)
+        self._peak = telemetry.peak_tflops()
+        self._prio: dict = {}  # rid -> priority class  # guarded-by: _lock
+        # Busy ms billed to each live request (retirement pops it into the
+        # cumulative ledger below).
+        self.device_ms_by_rid: dict = {}
+        self.ledger = {"rounds": 0, "busy_ms": 0.0, "idle_ms": 0.0,
+                       "wall_ms": 0.0, "attributed_ms": 0.0,
+                       "unattributed_ms": 0.0,
+                       "retired_device_ms": 0.0, "flops": 0.0}
+        self._last_step_end: float | None = None
+        telemetry.record_peak_provenance()
 
     # ---- queue ------------------------------------------------------------
 
@@ -1665,14 +2286,18 @@ class Scheduler:
     def submit(self, r: Request) -> None:
         """Validate loudly and enqueue; admission happens at the next
         step()'s round boundary."""
-        if r.deadline is not None:
-            raise _not_ported("deadlines", "5: deadlines")
         self.pool.validate(r, self.pool.cfg)
+        with self._lock:
+            position = len(self._waiting)
+        self.log.start(r.rid, trace_id=r.trace_id, priority=r.priority,
+                       deadline=r.deadline, queue_position=position,
+                       prompt_len=len(r.tokens), max_new=r.max_new)
         with self._lock:
             self._push_locked(r, None, self._seq)
             self._seq += 1
             self.stats["submitted"] += 1
             self._qstart[r.rid] = telemetry.monotonic()
+            self._prio[r.rid] = r.priority
         self._record_gauges()
 
     def _push_locked(self, r: Request, preload, seq: int) -> None:
@@ -1691,7 +2316,8 @@ class Scheduler:
 
     def requeue(self, recs: list) -> None:
         """Re-enqueue resume records under their original keys: ahead of
-        everything that arrived after them in their class."""
+        everything that arrived after them in their class (preemption and
+        crash recovery share it)."""
         with self._lock:
             for rec in recs:
                 self._push_locked(rec["request"], rec["preload"], rec["seq"])
@@ -1703,14 +2329,28 @@ class Scheduler:
         with self._lock:
             return len(self._waiting)
 
+    def retry_after_s(self, depth: int | None = None) -> int:
+        """A Retry-After for a refused request: the queue's depth over the
+        observed retirement rate, clamped to [1, 30] s; 1 before any
+        retirement."""
+        if depth is None:
+            depth = self.queue_depth()
+        rate = self._retire_window.per_sec()
+        if rate <= 0 or depth <= 0:
+            return 1
+        return max(1, min(30, math.ceil(depth / rate)))
+
     def pending(self) -> bool:
         with self._lock:
             return bool(self._waiting)
 
     def queue_wait_p50_ms(self) -> float:
         with self._lock:
-            w = sorted(self._waits)
-            return w[len(w) // 2] if w else 0.0
+            return self._queue_wait_p50_locked()
+
+    def _queue_wait_p50_locked(self) -> float:
+        w = sorted(self._waits)
+        return w[len(w) // 2] if w else 0.0
 
     # ---- rounds -----------------------------------------------------------
 
@@ -1728,10 +2368,18 @@ class Scheduler:
             extra = self.pool.imminent_growth() if self.overcommit else 0
             if self.pool.admits(r, reserve_new=reserve, preload=preload,
                                 extra_blocks=extra):
+                faults.fire("sched.admit")
                 with self._lock:
                     heapq.heappop(self._waiting)
-                self.pool.admit(r, reserve_new=reserve, preload=preload,
-                                seq=seq)
+                try:
+                    self.pool.admit(r, reserve_new=reserve, preload=preload,
+                                    seq=seq)
+                except Exception:
+                    # Recovery must not lose the request: it goes back
+                    # under its key before the pool is quarantined.
+                    with self._lock:
+                        self._push_locked(r, preload, seq)
+                    raise
                 if preload is None:
                     with self._lock:
                         self.stats["admitted"] += 1
@@ -1762,24 +2410,207 @@ class Scheduler:
             break
         self._record_gauges()
 
-    def step(self) -> dict:
-        """One scheduling round: admit (preempting for priority), run the
-        pool's round, drain its preempted rows back into the queue and fold
-        the retirements' lengths into the expected-length EMA."""
-        self._admit_phase()
-        if self.overcommit:
-            with self._lock:
-                self.pool.chunk_hint = max(1, math.ceil(self._ema))
-        events = self.pool.step_round()
-        self._drain_preempted()
-        retired = [rid for rid, ev in events.items() if ev["done"]]
+    def _shed_expired(self) -> dict:
+        """Deadlines at the round boundary: expired waiting requests leave
+        the queue, expired residents are cancelled (their blocks freed for
+        the cohort); both end with a terminal event carrying the prefix
+        they committed."""
+        now = telemetry.monotonic()
+        events: dict = {}
         with self._lock:
+            expired = [e for e in self._waiting if e[1] <= now]
+            if expired:
+                keep = [e for e in self._waiting if e[1] > now]
+                heapq.heapify(keep)
+                self._waiting = keep
+        for (_negp, _dl, _seq, r, preload) in expired:
+            with self._lock:
+                self._qstart.pop(r.rid, None)
+                self._preempt_t.pop(r.rid, None)
+                self.stats["deadline_shed"] += 1
+            telemetry.metrics().inc("serve_deadline_shed_total")
+            self.log.event(r.rid, "retired", reason="deadline",
+                           generated=len(preload or []))
+            events[r.rid] = {"new": [], "done": True,
+                             "generated": list(preload or []),
+                             "deadline": True,
+                             "error": "deadline exceeded"}
+        for i, s in enumerate(self.pool.slots):
+            if s is None or s.deadline is None or s.deadline > now:
+                continue
+            events[s.rid] = {**self.pool.cancel(i, reason="deadline"),
+                             "deadline": True,
+                             "error": "deadline exceeded"}
+            with self._lock:
+                self.stats["deadline_shed"] += 1
+            telemetry.metrics().inc("serve_deadline_shed_total")
+        return events
+
+    def _recover(self, exc: Exception) -> None:
+        """Crash-is-preemption: quarantine the pool and requeue every row
+        it held under its original key; the next rounds re-prefill them
+        and their streams go on as if uninterrupted."""
+        t0 = time.perf_counter()
+        self._fail_streak += 1
+        recs = self.pool.quarantine()
+        self.requeue(recs)
+        with self._lock:
+            self.stats["recoveries"] += 1
+            self.last_error = f"{type(exc).__name__}: {exc}"
+        reg = telemetry.metrics()
+        reg.inc("serve_engine_restarts_total")
+        reg.observe("serve_recovery_ms", (time.perf_counter() - t0) * 1e3)
+
+    def step(self) -> dict:
+        """One scheduling round: shed expired deadlines, admit (preempting
+        for priority), run the pool's round, drain its preempted rows back
+        into the queue, fold the retirements' lengths into the
+        expected-length EMA and close the round's ledger. A failed round
+        of the paged engine is recovered (``_recover``) up to
+        ``TPUBC_ENGINE_MAX_RESTARTS`` failures in a row."""
+        t_start = time.perf_counter()
+        led: dict | None = None
+        if self.ledger_enabled:
+            led = {}
+            self.pool.ledger_tokens = led
+        shed: dict = {}
+        try:
+            shed = self._shed_expired()
+            self._admit_phase()
+            if self.overcommit:
+                with self._lock:
+                    self.pool.chunk_hint = max(1, math.ceil(self._ema))
+            events = self.pool.step_round()
+            self._fail_streak = 0
+        except Exception as e:  # noqa: BLE001 - the recovery boundary
+            if led is not None:
+                self._ledger_fold(led, t_start, time.perf_counter())
+                led = None
+            if (not hasattr(self.pool, "quarantine")
+                    or self._fail_streak >= self._max_restarts
+                    or _device_fatal(e)):
+                raise
+            self._recover(e)
+            events = {}
+        events.update(shed)
+        self._drain_preempted()
+        if led is not None:
+            self._ledger_fold(led, t_start, time.perf_counter())
+        retired = [rid for rid, ev in events.items() if ev["done"]]
+        if retired:
+            self._retire_window.add(len(retired))
+            with self._lock:
+                for rid in retired:
+                    self.stats["retired"] += 1
+                    if events[rid].get("deadline"):
+                        # A shed stream's length says nothing of how long
+                        # completed traffic runs.
+                        continue
+                    self._ema += self._alpha * (
+                        len(events[rid]["generated"]) - self._ema)
             for rid in retired:
-                self.stats["retired"] += 1
-                self._ema += self._alpha * (
-                    len(events[rid]["generated"]) - self._ema)
+                self.log.retire(rid)
+                self.ledger["retired_device_ms"] += (
+                    self.device_ms_by_rid.pop(rid, 0.0))
+                with self._lock:
+                    self._prio.pop(rid, None)
         self._record_gauges()
         return events
+
+    def _ledger_fold(self, led: dict, t_start: float, t_end: float) -> None:
+        """Close one round's ledger. Busy is the work section's wall time;
+        the round's wall runs from the end of the previous step (the first
+        round: the section itself), so idle = wall - busy and busy + idle
+        == wall. Busy is split across the rows the round advanced in
+        proportion to their FLOPs-weighted tokens, so the per-request
+        device ms sum to the attributed busy time; a round that advanced
+        no token is unattributed."""
+        self.pool.ledger_tokens = None
+        busy_ms = (t_end - t_start) * 1e3
+        wall_ms = (busy_ms if self._last_step_end is None
+                   else max(busy_ms, (t_end - self._last_step_end) * 1e3))
+        self._last_step_end = t_end
+        idle_ms = wall_ms - busy_ms
+        prices = self._flops
+        weights: dict = {}
+        flops = 0.0
+        for rid, kinds in led.items():
+            w = 0.0
+            for kind, n in kinds.items():
+                w += n * prices.get(kind, prices["decode"])
+            if w > 0:
+                weights[rid] = w
+                flops += w
+        reg = telemetry.metrics()
+        attributed = 0.0
+        if flops > 0:
+            with self._lock:
+                prio = {rid: self._prio.get(rid, 0) for rid in weights}
+            for rid, w in weights.items():
+                ms = busy_ms * w / flops
+                attributed += ms
+                self.device_ms_by_rid[rid] = (
+                    self.device_ms_by_rid.get(rid, 0.0) + ms)
+                self.log.add_device(rid, ms, {
+                    f"{kind}_ms": busy_ms * n * prices.get(
+                        kind, prices["decode"]) / flops
+                    for kind, n in led[rid].items()})
+                reg.inc("serve_device_ms_total", ms,
+                        labels={"priority": str(prio[rid])})
+            reg.inc("serve_model_flops_total", flops)
+        elif busy_ms > 0:
+            reg.inc("serve_device_unattributed_ms_total", busy_ms)
+        l = self.ledger
+        l["rounds"] += 1
+        l["busy_ms"] += busy_ms
+        l["idle_ms"] += idle_ms
+        l["wall_ms"] += wall_ms
+        l["attributed_ms"] += attributed
+        l["unattributed_ms"] += busy_ms if flops <= 0 else 0.0
+        l["flops"] += flops
+        if wall_ms > 0:
+            reg.set_gauge("serve_engine_busy_frac",
+                          round(busy_ms / wall_ms, 4))
+            if self._peak is not None:
+                reg.set_gauge("serve_mfu", round(
+                    flops / (wall_ms * 1e-3 * self._peak * 1e12), 9))
+
+    def request_timing(self, rid: int) -> dict | None:
+        """One request's phase breakdown (None with the log off or for an
+        unknown rid)."""
+        return self.log.phases(rid) if self.log.enabled else None
+
+    def snapshot(self) -> dict:
+        """The queue in admission order (priority class, deadline,
+        arrival), the overcommit EMA, the ledger and the counters, under
+        one lock hold."""
+        with self._lock:
+            waiting = [{"rid": r.rid, "priority": r.priority,
+                        "deadline": (None if dl == float("inf") else dl),
+                        "seq": seq, "resume": preload is not None}
+                       for (_negp, dl, seq, r, preload)
+                       in sorted(self._waiting)]
+            return {"overcommit": self.overcommit,
+                    "expected_new_ema": round(self._ema, 3),
+                    "queue_depth": len(waiting),
+                    "waiting": waiting,
+                    "queue_wait_p50_ms": round(
+                        self._queue_wait_p50_locked(), 2),
+                    "ledger": {k: (round(v, 3) if isinstance(v, float)
+                                   else v)
+                               for k, v in self.ledger.items()},
+                    "stats": dict(self.stats)}
+
+    def reset(self, reason: str = "error") -> None:
+        """Drop every queued request (a failed or drained engine; resetting
+        the pool is the caller's). The EMA survives: it describes the
+        traffic. The log retires every open record with ``reason``."""
+        with self._lock:
+            self._waiting.clear()
+            self._qstart.clear()
+            self._preempt_t.clear()
+            self._prio.clear()
+        self.log.abort_inflight(reason)
 
     def _record_gauges(self) -> None:
         with self._lock:
@@ -1822,6 +2653,11 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
     tier's snapshot (``"host"``, when the tier exists) and, on the card,
     its graphs' (``"graphs"``: captured, capture_s, replays).
 
+    A request's ``deadline`` is honoured as the reference honours it: a
+    request still waiting past it returns no token, one running past it
+    returns the prefix it committed. A failed round of the paged engine is
+    recovered (crash-is-preemption) and the streams go on unchanged.
+
     ``device`` None means the card (and raises without CUDA); ``params``
     must already live there. The resident engine and the reference's
     other options raise ``NotImplementedError``."""
@@ -1847,9 +2683,9 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
                         eos_id=eos_id, temperature=temperature,
                         draft_params=draft_params, draft_cfg=draft_cfg,
                         gamma=gamma, device=device)
-    sched = Scheduler(pool, overcommit=overcommit)
     for r in requests:
         pool.validate(r, cfg)  # every request fails loudly before compute
+    sched = Scheduler(pool, overcommit=overcommit)
     done: dict = {}
     with telemetry.span("serve.batch", requests=len(requests),
                         batch_size=batch_size):
