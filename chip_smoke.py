@@ -147,7 +147,35 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               token, running ones cancelled with a prefix of their
               unfaulted stream (two mid-decode), deadline_shed the number
               that expired, the blocks the cancels freed allocated again.
-15. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+15. serve_ingress -- the front door (workload/ingress.py) on serve's traffic
+              and settings (batch 8, block 64, int8 weights and KV, prefix
+              cache and overcommit off), on 127.0.0.1 with urllib client
+              threads: (a) one untimed burst of the 32 requests (every
+              decode graph captured); (b) INGRESS_RUNS timed bursts,
+              streamed: every stream held to the solo oracle up to
+              near-ties and counted equal to serve's, K1 and K2 launched as
+              the pool's schedule implies, each final object carrying done,
+              timing, trace_id and cached_tokens 0, tokens/s from the first
+              POST to the last end beside serve's, TTFT, inter-token and
+              total latency p50/p99; (c) the same requests at Poisson
+              arrivals (numpy default_rng(1)) at half the bursts' median
+              rate: client latencies and queue wait beside
+              /metrics.json?window's TTFT; then the same arrivals with a
+              POST /profilez?ms=1000 (TPUBC_PROFILEZ=1) that must answer
+              in profiler mode with a busy share and an MFU, its Chrome
+              trace holding K1 and K2 device time;
+              (d) a burst whose last 4 requests carry deadline_ms 250: each
+              finishes or answers 504 with a prefix of its oracle stream, no
+              live block after; (e) /healthz, /poolz (the allocator's
+              numbers), /cachez (empty), /requestz, /metrics (parsed),
+              /traces.json; (f) drain() once 8 streams have tokens: each
+              ends done or draining, a later POST 503 with Retry-After; (g)
+              python -m tpu_bootstrap_torch.workload.train with
+              WORKLOAD_MODE=serve as a subprocess on WORKLOAD_SERVE_PORT: up
+              within 120 s, 4 streams equal to the in-process ingress's up
+              to near-ties, SIGTERM drains and exits 0; then
+              serve_demo_from_env in process prints its serve done line.
+16. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
@@ -156,12 +184,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-16. speculative -- bench.py's self-speculation: the bf16 target drafted by
+17. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-17. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+18. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -170,13 +198,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-18. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+19. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-19. train  -- the training slice end to end: make_train_step on the
+20. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -186,7 +214,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-20. train_long -- the reference's long-context configuration (seq 8192,
+21. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -1208,6 +1236,8 @@ def phase_serve(torch, kernels, device) -> dict:
               "diverged": {"bfloat16": diverged, "float32": diverged32},
               "graph_vs_eager": graph, "profile": profile}
     emit(result)
+    # serve_ingress holds the front door's streams to these.
+    result["streams"], result["solo"] = done, solo
     bad = [d for dt in NEAR_TIE for d in result["diverged"][dt]
            if d["margin"] >= NEAR_TIE[dt]]
     if (not run["ok"] or bad or not exact["ok"] or not graph["ok"]
@@ -2494,6 +2524,616 @@ def phase_serve_faults(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
     return out
 
 
+# serve_ingress: the front door (workload/ingress.py) on serve's traffic.
+INGRESS_BATCH = 8
+INGRESS_KW = dict(paged=True, kv_quant=True, block_size=64,
+                  prefix_cache=False, overcommit=False)
+INGRESS_RUNS = 3  # timed bursts
+OPEN_LOOP_LOAD = 0.5  # of the burst's median request rate
+OPEN_LOOP_SEED = 1
+PROFILEZ_MS = 1000
+DEADLINE_MS, DEADLINE_LAST = 250, 4
+DRAIN_REQUESTS, DRAIN_TIMEOUT_MS = 8, 200
+ENTRY_REQUESTS, ENTRY_DEMO_REQUESTS = 4, 8
+ENTRY_UP_S = 120
+HTTP_S = 300  # every HTTP call's timeout
+
+
+def _http(port: int, path: str, body=None, timeout: float = HTTP_S):
+    """(status, headers, body) of one call to the ingress on localhost:
+    JSON lines of a stream as a list, other JSON as itself, text as
+    text."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            kind = r.headers.get("Content-Type", "")
+            if kind == "application/jsonl":
+                return r.status, r.headers, [json.loads(ln) for ln in r
+                                             if ln.strip()]
+            raw = r.read()
+            return r.status, r.headers, (
+                json.loads(raw) if kind == "application/json"
+                else raw.decode())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
+
+
+CONNECT_RETRIES = 5
+
+
+def _client(port: int, body: dict, rec: dict) -> None:
+    """One client: POST ``body`` streamed (or not), stamping on the host
+    clock the POST, every token-bearing line and the end. A connection
+    reset or refused before any byte of the answer (the HTTP server's
+    listen backlog overflowing under a burst: the request never reached a
+    handler) is retried, as a client would, up to CONNECT_RETRIES times;
+    ``retries`` counts them."""
+    import http.client
+    import urllib.error
+    import urllib.request
+
+    rec["t_post"] = time.perf_counter()
+    rec["lines"], rec["stamps"], rec["retries"] = [], [], 0
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    while True:
+        try:
+            with urllib.request.urlopen(req, timeout=HTTP_S) as r:
+                rec["code"] = r.status
+                if body.get("stream", True):
+                    for ln in r:
+                        if ln.strip():
+                            rec["lines"].append(json.loads(ln))
+                            rec["stamps"].append(time.perf_counter())
+                else:
+                    rec["lines"].append(json.loads(r.read()))
+                    rec["stamps"].append(time.perf_counter())
+        except urllib.error.HTTPError as e:
+            rec["code"] = e.code
+            rec["lines"].append(json.loads(e.read()))
+            rec["stamps"].append(time.perf_counter())
+        except Exception as e:  # noqa: BLE001 - counted as a failed stream
+            reason = getattr(e, "reason", e)
+            if (not rec["lines"] and rec["retries"] < CONNECT_RETRIES
+                    and isinstance(reason, (ConnectionResetError,
+                                            ConnectionRefusedError,
+                                            http.client.RemoteDisconnected))):
+                rec["retries"] += 1
+                time.sleep(0.05 * 2 ** rec["retries"])
+                continue
+            rec["error"] = f"{type(e).__name__}: {e}"
+        break
+    rec["t_done"] = time.perf_counter()
+
+
+def _ingress_traffic(port: int, bodies: list, offsets=None) -> dict:
+    """Every body posted by a thread of its own: all at once, or each at
+    its offset (s) from the start. Returns the records and the wall time
+    from the first POST to the last end, with the client's TTFT,
+    inter-token and total latency (ms) over the streams."""
+    import threading
+
+    recs = [{} for _ in bodies]
+    t0 = time.perf_counter()
+
+    def run(i):
+        if offsets is not None:
+            delay = t0 + offsets[i] - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+        _client(port, bodies[i], recs[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_S)
+    ttft, inter, total = [], [], []
+    for rec in recs:
+        stamps = [s for s, ln in zip(rec.get("stamps", []), rec["lines"])
+                  if ln.get("tokens")]
+        counts = [len(ln["tokens"]) for ln in rec["lines"] if ln.get("tokens")]
+        if stamps:
+            ttft.append((stamps[0] - rec["t_post"]) * 1e3)
+            inter += [(b - a) * 1e3 / n for a, b, n
+                      in zip(stamps, stamps[1:], counts[1:])]
+        total.append((rec["t_done"] - rec["t_post"]) * 1e3)
+    wall = max(r["t_done"] for r in recs) - min(r["t_post"] for r in recs)
+    return {"recs": recs, "wall_s": wall,
+            "connect_retries": sum(r.get("retries", 0) for r in recs),
+            "tokens": sum(len(_rec_tokens(r)) for r in recs),
+            "ttft_ms": {"p50": _p(ttft, 0.5), "p99": _p(ttft, 0.99)},
+            "inter_token_ms": {"p50": _p(inter, 0.5), "p99": _p(inter, 0.99)},
+            "total_ms": {"p50": _p(total, 0.5), "p99": _p(total, 0.99)}}
+
+
+def _rec_tokens(rec: dict) -> list:
+    return [t for ln in rec["lines"] for t in ln.get("tokens", [])]
+
+
+def _final(rec: dict) -> dict:
+    return rec["lines"][-1] if rec.get("lines") else {}
+
+
+def _stats_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if isinstance(after[k], int)}
+
+
+def _ingress_burst(torch, kernels, srv, cfg, reqs) -> dict:
+    """One burst of ``reqs``, streamed, the launch counts set to 0 just
+    before and read just after, held to the schedule the pool's stats
+    imply over the burst."""
+    before = dict(srv.pool.stats)
+    kernels.reset_launches()
+    run = _ingress_traffic(srv.port, [{"tokens": r.tokens,
+                                       "max_new": r.max_new} for r in reqs])
+    torch.cuda.synchronize()
+    run["launches"] = dict(kernels.LAUNCHES)
+    run["done"] = {r.rid: _rec_tokens(rec)
+                   for r, rec in zip(reqs, run["recs"])}
+    run["launches_exact"] = _launches_exact(
+        cfg, _stats_delta(srv.pool.stats, before), run["launches"],
+        PATHS["int8"], INGRESS_BATCH)
+    run["tokens_per_s"] = run["tokens"] / run["wall_s"]
+    return run
+
+
+def _finals_ok(reqs, run: dict) -> bool:
+    """Every stream complete, ending in a final object with done, timing,
+    trace_id and cached_tokens 0."""
+    return all(
+        rec.get("code") == 200 and "error" not in rec
+        and _final(rec).get("done") is True and "timing" in _final(rec)
+        and _final(rec).get("trace_id") and _final(rec).get(
+            "cached_tokens") == 0 and len(_rec_tokens(rec)) == r.max_new
+        for r, rec in zip(reqs, run["recs"]))
+
+
+def _trace_kernels(path: str) -> dict:
+    """Device time (ms) in a torch.profiler Chrome trace: all kernels, K1's
+    and K2's."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if all(f in e.get("name", "") for f in K1_KERNEL)]
+    k2 = [e for e in kern if "paged_attention_kernel" in e.get("name", "")]
+    return {"kernels": len(kern),
+            "device_ms": sum(e.get("dur", 0) for e in kern) / 1e3,
+            "k1_events": len(k1), "k1_ms": sum(e["dur"] for e in k1) / 1e3,
+            "k2_events": len(k2), "k2_ms": sum(e["dur"] for e in k2) / 1e3}
+
+
+def _open_loop(torch, decode, srv, params, cfg, reqs, rate: float,
+               solo: dict, profile: bool) -> dict:
+    """(c): ``reqs`` at Poisson arrivals of ``rate`` a second (gaps from
+    numpy's default_rng(OPEN_LOOP_SEED)): the client's latencies and
+    queue wait beside the server's windowed TTFT quantiles. With
+    ``profile``, a /profilez capture of PROFILEZ_MS posted a quarter of
+    the way into the arrivals: in profiler mode, with a busy share and an
+    MFU, its Chrome trace holding K1 and K2 device time; the profiler's
+    device share beside the ledger's busy share, and the capture's wall
+    time from the POST to the answer (the engine thread stops the
+    profiler and writes its trace between two rounds)."""
+    import threading
+
+    gaps = np.random.default_rng(OPEN_LOOP_SEED).exponential(1 / rate,
+                                                             len(reqs))
+    offsets = np.concatenate([[0.0], np.cumsum(gaps[:-1])]).tolist()
+    prof = {}
+    started = time.time()
+
+    def capture():
+        time.sleep(offsets[len(offsets) // 4])
+        t0 = time.perf_counter()
+        prof["answer"] = _http(srv.port, f"/profilez?ms={PROFILEZ_MS}", {})
+        prof["wall_s"] = time.perf_counter() - t0
+
+    pt = threading.Thread(target=capture)
+    if profile:
+        pt.start()
+    run = _ingress_traffic(srv.port, [{"tokens": r.tokens,
+                                       "max_new": r.max_new} for r in reqs],
+                           offsets)
+    if profile:
+        pt.join(HTTP_S)
+    torch.cuda.synchronize()
+    run["done"] = {r.rid: _rec_tokens(rec)
+                   for r, rec in zip(reqs, run["recs"])}
+    waits = [_final(rec).get("timing", {}).get("queue_ms", -1.0)
+             for rec in run["recs"]]
+    window = math.ceil(run["wall_s"]) + 1
+    server = {}
+    for w in (60, window):
+        series = _http(srv.port, f"/metrics.json?window={w}")[2]["series"]
+        server[str(w)] = {k: series["serve_ttft_ms"][k]
+                          for k in ("count_delta", "p50", "p99")}
+    out = {"rate_per_s": rate, "requests": len(reqs),
+           **{k: run[k] for k in ("wall_s", "tokens", "ttft_ms",
+                                  "total_ms", "inter_token_ms",
+                                  "connect_retries")},
+           "tokens_per_s": run["tokens"] / run["wall_s"],
+           "queue_wait_ms_p50": _p(waits, 0.5), "server_ttft_ms": server,
+           "vs_solo": _streams_vs(decode, params, cfg, reqs, run["done"],
+                                  solo)}
+    out["ok"] = _finals_ok(reqs, run) and not out["vs_solo"]["bad"]
+    if not profile:
+        return out
+    code, _, answer = prof.get("answer", (None, None, {}))
+    trace = None
+    if answer.get("artifact_dir"):
+        files = sorted(
+            (os.path.join(answer["artifact_dir"], n)
+             for n in os.listdir(answer["artifact_dir"])
+             if n.startswith(f"profilez-{os.getpid()}-")),
+            key=os.path.getmtime)
+        fresh = [p for p in files if os.path.getmtime(p) >= started]
+        trace = _trace_kernels(fresh[-1]) if fresh else None
+    out["profilez"] = {"code": code, "wall_s": prof.get("wall_s"),
+                       **{k: answer.get(k) for k in (
+                           "mode", "measured_ms", "busy_frac", "mfu",
+                           "profiler_error")}, "trace": trace}
+    if trace is not None and answer.get("measured_ms"):
+        out["profilez"]["device_share"] = (trace["device_ms"]
+                                           / answer["measured_ms"])
+    out["ok"] = (out["ok"] and code == 200
+                 and answer.get("mode") == "profiler"
+                 and answer.get("busy_frac") is not None
+                 and answer.get("mfu") is not None and trace is not None
+                 and trace["k1_ms"] > 0 and trace["k2_ms"] > 0)
+    return out
+
+
+def _deadline_burst(torch, decode, srv, params, cfg, reqs,
+                    solo: dict) -> dict:
+    """(d): the burst again, its last DEADLINE_LAST requests posted last,
+    not streamed, with deadline_ms DEADLINE_MS: each finishes or ends with
+    deadline_exceeded (a 504) and a prefix of its oracle stream; the rest
+    held as in the burst; no live block afterwards."""
+    import threading
+
+    head, tail = reqs[:-DEADLINE_LAST], reqs[-DEADLINE_LAST:]
+    recs = {r.rid: {} for r in reqs}
+    threads = [threading.Thread(target=_client, args=(
+        srv.port, {"tokens": r.tokens, "max_new": r.max_new}, recs[r.rid]))
+        for r in head]
+    for t in threads:
+        t.start()
+    late = [threading.Thread(target=_client, args=(
+        srv.port, {"tokens": r.tokens, "max_new": r.max_new,
+                   "stream": False, "deadline_ms": DEADLINE_MS},
+        recs[r.rid])) for r in tail]
+    for t in late:
+        t.start()
+    for t in threads + late:
+        t.join(HTTP_S)
+    torch.cuda.synchronize()
+    ended = {}
+    for r in tail:
+        ans = _final(recs[r.rid])
+        ended[r.rid] = {"code": recs[r.rid].get("code"),
+                        "tokens": len(ans.get("tokens", [])),
+                        "deadline_exceeded": bool(ans.get(
+                            "deadline_exceeded"))}
+    prefix = _streams_vs(decode, params, cfg, tail,
+                         {r.rid: _final(recs[r.rid]).get("tokens", [])
+                          for r in tail},
+                         {r.rid: solo[r.rid][:ended[r.rid]["tokens"]]
+                          for r in tail})
+    rest = {r.rid: _rec_tokens(recs[r.rid]) for r in head}
+    live = _http(srv.port, "/poolz")[2]["pool"]["blocks"]["live"]
+    out = {"deadline_ms": DEADLINE_MS, "ended": ended,
+           "expired": sum(e["deadline_exceeded"] for e in ended.values()),
+           "prefix_vs_solo": prefix,
+           "rest_vs_solo": _streams_vs(decode, params, cfg, head, rest,
+                                       solo),
+           "live_blocks_after": live}
+    out["ok"] = (all((e["code"] == 200 and not e["deadline_exceeded"])
+                     or (e["code"] == 504 and e["deadline_exceeded"])
+                     for e in ended.values())
+                 and not prefix["bad"] and not out["rest_vs_solo"]["bad"]
+                 and all(recs[r.rid].get("code") == 200
+                         and _final(recs[r.rid]).get("done")
+                         and len(rest[r.rid]) == r.max_new for r in head)
+                 and live == 0)
+    return out
+
+
+def _endpoints(srv, served: int) -> dict:
+    """(e): the routes, read with the server idle."""
+    pool = srv.pool
+    h = _http(srv.port, "/healthz")
+    pz = _http(srv.port, "/poolz")[2]
+    cz = _http(srv.port, "/cachez")[2]
+    code, _, jsonl = _http(srv.port, "/requestz?format=jsonl")
+    arrivals = [json.loads(ln) for ln in jsonl.splitlines() if ln.strip()]
+    rz = _http(srv.port, "/requestz")[2]
+    text = _http(srv.port, "/metrics")[2]
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'[-+0-9.eEinfa]+$')
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    inf = [ln for ln in lines if ln.startswith('serve_ttft_ms_bucket{le="+Inf"}')]
+    spans = _http(srv.port, "/traces.json")[2]["spans"]
+    blocks = pz["pool"]["blocks"]
+    out = {
+        "healthz": h[2], "served_expected": served,
+        "poolz_blocks": blocks,
+        "cachez": cz["digest"],
+        "requestz_jsonl_records": len(arrivals),
+        "requestz_records": len(rz["requests"]),
+        "metrics_lines": len(lines),
+        "metrics_unparsed": [ln for ln in lines if not sample.match(ln)][:5],
+        "ttft_histogram_count": int(inf[0].split()[-1]) if inf else None,
+        "serve_request_spans": sum(s["name"] == "serve.request"
+                                   for s in spans)}
+    out["ok"] = (h[0] == 200 and h[2]["ok"] is True
+                 and h[2]["served"] == served
+                 and blocks["live"] == pool.allocator.used()
+                 and blocks["cached"] == pool.allocator.cached()
+                 and blocks["available"] == pool.allocator.available()
+                 and blocks["total"] == pool.allocator.num_blocks
+                 and cz["digest"]["blocks"] == 0 and cz["digest"]["fps"] == []
+                 and code == 200
+                 and len({a["rid"] for a in arrivals}) == len(arrivals)
+                 == min(served, rz["capacity"])
+                 and all("phases" in r for r in rz["requests"])
+                 and "# TYPE serve_ttft_ms histogram" in text
+                 and not out["metrics_unparsed"]
+                 and out["ttft_histogram_count"] is not None
+                 and out["serve_request_spans"] > 0)
+    return out
+
+
+def _drain_run(srv, reqs) -> dict:
+    """(f): DRAIN_REQUESTS streams posted, drain(DRAIN_TIMEOUT_MS) once
+    their first tokens arrive: every stream ends with done, finished or
+    with a final draining chunk; a later POST is a 503 with
+    Retry-After."""
+    import threading
+
+    recs = [{} for _ in reqs]
+    threads = [threading.Thread(target=_client, args=(
+        srv.port, {"tokens": r.tokens, "max_new": r.max_new}, rec))
+        for r, rec in zip(reqs, recs)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + HTTP_S
+    while not any(_rec_tokens(rec) for rec in recs if "lines" in rec):
+        if time.perf_counter() > deadline:
+            break
+        time.sleep(0.005)
+    drain_ms = srv.drain(timeout_ms=DRAIN_TIMEOUT_MS)
+    for t in threads:
+        t.join(HTTP_S)
+    code, headers, body = _http(srv.port, "/v1/generate",
+                                {"tokens": reqs[0].tokens, "max_new": 1})
+    finals = [_final(rec) for rec in recs]
+    out = {"drain_ms": drain_ms, "requests": len(reqs),
+           "finished": sum(bool(f.get("done")) and not f.get("draining")
+                           for f in finals),
+           "draining": sum(bool(f.get("draining")) for f in finals),
+           "after": {"code": code, "retry_after": headers.get("Retry-After"),
+                     "draining": body.get("draining")}}
+    out["ok"] = (all(f.get("done") for f in finals)
+                 and out["finished"] + out["draining"] == len(reqs)
+                 and code == 503 and headers.get("Retry-After")
+                 and body.get("draining") is True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _model_env() -> str:
+    """WORKLOAD_MODEL's terms for the decode model in bf16."""
+    return ",".join([f"{k}={v}" for k, v in DECODE_MODEL.items()]
+                    + ["compute_dtype=bfloat16"])
+
+
+def _ingress_entry(torch, decode, serving, params, cfg, reqs,
+                   want: dict) -> dict:
+    """(g): ``python -m tpu_bootstrap_torch.workload.train`` with
+    WORKLOAD_MODE=serve as a JobSet runs it (the decode model, int8
+    weights and KV, the paged engine, WORKLOAD_SERVE_PORT): /healthz up
+    within ENTRY_UP_S, ENTRY_REQUESTS of the burst's requests streamed
+    equal to the in-process ingress's (``want``) up to near-ties, a
+    SIGTERM that drains and exits 0 within TPUBC_DRAIN_TIMEOUT_MS plus
+    30 s; then serve_demo_from_env in this process on
+    ENTRY_DEMO_REQUESTS synthetic requests, which must print its serve
+    done line."""
+    import signal
+
+    port = _free_port()
+    env = {**os.environ, "WORKLOAD_MODE": "serve",
+           "WORKLOAD_MODEL": _model_env(), "WORKLOAD_QUANT": "int8",
+           "WORKLOAD_KV_QUANT": "1", "WORKLOAD_PAGED": "1",
+           "WORKLOAD_SERVE_PORT": str(port)}
+    env.pop("TPUBC_PROFILEZ", None)
+    root = Path(__file__).resolve().parent
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_bootstrap_torch.workload.train"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    out = {"port": port}
+    try:
+        up = None
+        while time.perf_counter() - t0 < ENTRY_UP_S and proc.poll() is None:
+            try:
+                if _http(port, "/healthz", timeout=5)[0] == 200:
+                    up = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        out["up_s"] = up
+        if up is not None:
+            sub = reqs[:ENTRY_REQUESTS]
+            run = _ingress_traffic(port, [{"tokens": r.tokens,
+                                           "max_new": r.max_new}
+                                          for r in sub])
+            got = {r.rid: _rec_tokens(rec) for r, rec in zip(sub,
+                                                              run["recs"])}
+            out["streams_equal"] = sum(got[r.rid] == want[r.rid]
+                                       for r in sub)
+            out["vs_in_process"] = _streams_vs(decode, params, cfg, sub, got,
+                                               want)
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            limit = float(os.environ.get("TPUBC_DRAIN_TIMEOUT_MS",
+                                         "5000")) / 1e3 + 30
+            try:
+                out["exit_code"] = proc.wait(timeout=limit)
+            except subprocess.TimeoutExpired:
+                out["exit_code"] = None
+            out["exit_s"] = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log = proc.stdout.read()
+        proc.stdout.close()
+    out["log_tail"] = log.splitlines()[-6:]
+    demo = {"WORKLOAD_MODEL": _model_env(), "WORKLOAD_QUANT": "int8",
+            "WORKLOAD_KV_QUANT": "1", "WORKLOAD_PAGED": "1",
+            "WORKLOAD_REQUESTS": str(ENTRY_DEMO_REQUESTS),
+            "WORKLOAD_SERVE_PORT": "0"}
+    buf = io.StringIO()
+    with _env(demo), contextlib.redirect_stdout(buf):
+        serving.serve_demo_from_env(device=params["embed"].device)
+    done = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("serve done:")]
+    out["demo"] = done[-1] if done else None
+    out["ok"] = (out.get("up_s") is not None
+                 and not out["vs_in_process"]["bad"]
+                 and out.get("exit_code") == 0 and bool(done)
+                 and f"serve done: {ENTRY_DEMO_REQUESTS} requests" in done[-1])
+    return out
+
+
+def phase_serve_ingress(torch, kernels, device, serve_out=None,
+                        model_kw=DECODE_MODEL) -> dict:
+    """The front door end to end: ingress.IngressServer on serve's traffic
+    and settings (the decode model at full width, bf16, int8 weights from
+    seed 0, the int8 KV pool, batch 8, block 64, prefix cache and
+    overcommit off) on 127.0.0.1, its clients urllib threads. (a) one
+    untimed burst of the 32 requests, capturing every table width's decode
+    graph; (b) INGRESS_RUNS timed bursts: streams held to the solo greedy
+    oracle up to near-ties (and counted equal to phase serve's), K1 and K2
+    launches to the schedule, each final object's keys, tokens/s from the
+    first POST to the last end beside phase serve's, TTFT, inter-token and
+    total latency; (c) the open loop (_open_loop) at OPEN_LOOP_LOAD of the
+    bursts' median request rate, then the same arrivals again with a
+    /profilez capture in them (the capture stalls the engine while the
+    profiler writes its trace, so the latencies are the first run's);
+    (d) the deadline burst; (e) the
+    endpoints; (f) the drain; (g) the serve-mode entry (_ingress_entry).
+    ``serve_out`` is phase serve's result: its streams and solo oracle."""
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+    from tpu_bootstrap_torch.workload.ingress import IngressServer
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    if serve_out is not None and "solo" in serve_out:
+        solo, serve_streams = serve_out["solo"], serve_out["streams"]
+    else:
+        solo = _solo_streams(decode, params, cfg, reqs)
+        serve_streams = None
+    out = {"phase": "serve_ingress", "requests": len(reqs),
+           "batch": INGRESS_BATCH}
+    with _env({"TPUBC_PROFILEZ": "1"}):
+        srv = IngressServer(params, cfg, port=0, host="127.0.0.1",
+                            batch_size=INGRESS_BATCH, device=device,
+                            **INGRESS_KW).start()
+        try:
+            t0 = time.perf_counter()
+            warm = _ingress_traffic(srv.port, [{"tokens": r.tokens,
+                                                "max_new": r.max_new}
+                                               for r in reqs])
+            out["warm_up"] = {"wall_s": warm["wall_s"],
+                              "s": time.perf_counter() - t0,
+                              "ok": _finals_ok(reqs, warm),
+                              "connect_retries": warm["connect_retries"],
+                              "graphs": dict(srv.pool._graphs.stats)
+                              if srv.pool._graphs is not None else None}
+            runs = [_ingress_burst(torch, kernels, srv, cfg, reqs)
+                    for _ in range(INGRESS_RUNS)]
+            last = runs[-1]
+            tps = [r["tokens_per_s"] for r in runs]
+            burst = {
+                "tokens": last["tokens"], "wall_s": [r["wall_s"]
+                                                     for r in runs],
+                "tokens_per_s": statistics.median(tps),
+                "tokens_per_s_runs": tps,
+                "serve_tokens_per_s": (serve_out or {}).get("tokens_per_s"),
+                **{k: last[k] for k in ("ttft_ms", "inter_token_ms",
+                                        "total_ms", "launches",
+                                        "launches_exact")},
+                "connect_retries": [r["connect_retries"] for r in runs],
+                "runs_agree": all(r["done"] == last["done"] for r in runs),
+                "launches_agree": all(r["launches"] == last["launches"]
+                                      for r in runs),
+                "finals_ok": all(_finals_ok(reqs, r) for r in runs),
+                "vs_solo": _streams_vs(decode, params, cfg, reqs,
+                                       last["done"], solo),
+                "equal_to_serve": (None if serve_streams is None else sum(
+                    last["done"][r.rid] == serve_streams[r.rid]
+                    for r in reqs))}
+            # Arrivals race the engine's round boundaries, so each run may
+            # batch the burst otherwise: its launches are held to its own
+            # schedule, its streams to the oracle.
+            burst["ok"] = (burst["finals_ok"]
+                           and all(r["launches_exact"]["ok"] for r in runs)
+                           and not any(_streams_vs(
+                               decode, params, cfg, reqs, r["done"],
+                               solo)["bad"] for r in runs[:-1])
+                           and not burst["vs_solo"]["bad"])
+            out["burst"] = burst
+            rate = OPEN_LOOP_LOAD * len(reqs) / statistics.median(
+                r["wall_s"] for r in runs)
+            out["open_loop"] = _open_loop(torch, decode, srv, params, cfg,
+                                          reqs, rate, solo, profile=False)
+            out["open_loop_profiled"] = _open_loop(
+                torch, decode, srv, params, cfg, reqs, rate, solo,
+                profile=True)
+            out["deadlines"] = _deadline_burst(torch, decode, srv, params,
+                                               cfg, reqs, solo)
+            served = len(reqs) * (INGRESS_RUNS + 4)
+            out["endpoints"] = _endpoints(srv, served)
+            out["drain"] = _drain_run(srv, reqs[:DRAIN_REQUESTS])
+        finally:
+            srv.stop()
+    out["entry"] = _ingress_entry(torch, decode, serving, params, cfg, reqs,
+                                  last["done"])
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    failed = [k for k in ("warm_up", "burst", "open_loop",
+                          "open_loop_profiled", "deadlines", "endpoints",
+                          "drain", "entry") if not out[k]["ok"]]
+    if failed:
+        raise SystemExit(f"serve_ingress failed: {failed}")
+    return out
+
+
 def _gen_prompt(torch, cfg, device):
     """bench.py:483's decode prompt shape, (8, 64) tokens from a seed."""
     rng = np.random.default_rng(1)
@@ -3249,12 +3889,16 @@ def main() -> int:
                         ("serve_overcommit", phase_serve_overcommit),
                         ("serve_host_tier", phase_serve_host_tier),
                         ("serve_faults", phase_serve_faults),
+                        ("serve_ingress", phase_serve_ingress),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
         # The host tier's phase reads the tight pool's pair that
-        # serve_overcommit ran.
-        extra = ((out["serve_overcommit"]["tight"],)
-                 if name == "serve_host_tier" else ())
+        # serve_overcommit ran; serve_ingress, serve's streams and oracle.
+        extra = ()
+        if name == "serve_host_tier":
+            extra = (out["serve_overcommit"]["tight"],)
+        elif name == "serve_ingress":
+            extra = (out["serve"],)
         out[name] = run(name, phase, torch, kernels, device, *extra)
     out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
     out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
@@ -3270,9 +3914,9 @@ def main() -> int:
 def path_launches(out: dict, name: str) -> dict:
     """``name``'s launches in each later path's measured run (the counts
     set to 0 just before it): the overcommit burst, the tight pool with
-    the tier off and on (the swapping run), the host tier's phase B, and
+    the tier off and on (the swapping run), the host tier's phase B,
     serve_faults' last run with the log and ledger on, its faulted run
-    and its deadline run."""
+    and its deadline run, and serve_ingress's last timed burst."""
     oc, ht, sf = (out["serve_overcommit"], out["serve_host_tier"],
                   out["serve_faults"])
     tight = oc["tight"]
@@ -3282,7 +3926,8 @@ def path_launches(out: dict, name: str) -> dict:
             "serve_host_tier": ht["working_set"]["launches"][name],
             "serve_faults": sf["observe"]["launches"][name],
             "serve_faults_recovery": sf["recovery"]["launches"][name],
-            "serve_faults_deadlines": sf["deadlines"]["launches"][name]}
+            "serve_faults_deadlines": sf["deadlines"]["launches"][name],
+            "serve_ingress": out["serve_ingress"]["burst"]["launches"][name]}
 
 
 def kernel_lines(out: dict) -> list:

@@ -190,9 +190,40 @@ def test_fault_schedules_match_reference():
 
 
 def test_worker_main_refuses_what_is_not_ported(monkeypatch):
+    from tpu_bootstrap_torch.workload import serving as tserving
+
     monkeypatch.setenv("WORKLOAD_MODE", "serve")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # WORKLOAD_MODE=serve reaches the serve entry.
+    calls = []
+    real_entry = tserving.serve_demo_from_env
+    monkeypatch.setattr(tserving, "serve_demo_from_env",
+                        lambda device=None: calls.append(device))
+    ttrain.worker_main()
+    assert calls == [None]
+    monkeypatch.setattr(tserving, "serve_demo_from_env", real_entry)
+    # Without a card the entry raises resolve_device's error and runs
+    # nothing on the host.
+    built = []
+    monkeypatch.setattr(tmodel, "init_params",
+                        lambda *a, **k: built.append(a))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.worker_main()
+    assert built == []
+    monkeypatch.undo()
+    # The paged engine asks for the int8 KV pool: WORKLOAD_PAGED=1 alone
+    # is the float pool, item 8 (the card mapped to the CPU here).
+    monkeypatch.setenv("WORKLOAD_MODE", "serve")
+    monkeypatch.setenv("WORKLOAD_MODEL", "vocab_size=32,num_layers=1,"
+                       "num_heads=2,head_dim=16,embed_dim=16,mlp_dim=32,"
+                       "max_seq_len=64")
+    monkeypatch.setenv("WORKLOAD_QUANT", "int8")
+    monkeypatch.setenv("WORKLOAD_PAGED", "1")
+    monkeypatch.setattr(tserving, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ttrain.worker_main()
+    monkeypatch.undo()
     monkeypatch.setenv("WORKLOAD_MODE", "train")
     monkeypatch.setenv("TPUBC_COORDINATOR_ADDRESS", "worker-0:1234")
     for hosts, slices in (("2", "1"), ("1", "2")):

@@ -21,8 +21,9 @@ scatter, and defrag) and one fails a graph capture.
 
 Not mirrored: :118-187 (the injector's grammar, ported with ckpt.save,
 tests/test_torch_data_checkpoint.py), the sampled and kv_quant=False cases
-of :257 (queue 1 items 5.7 and 8) and :439-583, :679 (the ingress's drain,
-watchdog, socket and scrape faults and SIGTERM, item 6)."""
+of :257 (queue 1 items 5.7 and 8). The ingress halves, :439-583 and :679
+(the drain, the watchdog, socket and scrape faults and SIGTERM), are in
+tests/test_torch_ingress_faults.py."""
 
 import jax
 import numpy as np

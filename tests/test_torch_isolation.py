@@ -36,7 +36,7 @@ def test_port_modules_cover_the_slice():
                 "workload.speculative", "workload.serving",
                 "workload.flash_attention", "workload.xent",
                 "workload.faults", "workload.checkpoint", "workload.data",
-                "workload.train", "workload.graphs"):
+                "workload.train", "workload.graphs", "workload.ingress"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 

@@ -9,9 +9,8 @@ pool (device="cpu", K2's plain version): the ledger conserves (busy + idle
 == wall, attributed + unattributed == busy, the per-request device ms summing
 to the attributed time), under churn too, and only observes.
 
-Not mirrored: the Prometheus-text halves of :181 (the text exposition is the
-ingress's, queue 1 item 6) and :286-end (/profilez and the fleetz window,
-item 6). The port's ``peak_tflops`` is None on a CPU, where no
+The Prometheus-text halves of :181 and :286-end (/profilez and the fleetz
+window) are in tests/test_torch_ingress_paged.py. The port's ``peak_tflops`` is None on a CPU, where no
 ``serve_mfu`` is set; the gauge tests name the H100's peak through
 ``TPUBC_PEAK_TFLOPS``."""
 

@@ -8,8 +8,8 @@ the same bridged int8 weights and shared-prefix traffic; and the mirrors of
 the reference's own tests/test_prefix_cache.py on the port's pool
 (device="cpu", K2's plain version).
 
-Not mirrored here: the ingress half (test_prefix_cache.py:370, queue 1 item
-6), sampled streams (:427, item 5.7), the speculative pools (:443, item 5.8)
+Not mirrored here: the ingress half (test_prefix_cache.py:370, in
+tests/test_torch_ingress_paged.py), sampled streams (:427, item 5.7), the speculative pools (:443, item 5.8)
 and sharded params (:466, item 11); the resident halves of :352 and :411
 wait for the resident engine (item 8). Streams across the two frameworks
 may part only at a near-tie (tests/test_torch_decode.py:NEAR_TIE, judged by

@@ -17,10 +17,9 @@ differential runner (``differential``); tests/test_torch_ledger.py and
 tests/test_torch_faults.py use it.
 
 Then the mirrors of the reference's tests/test_requestz.py:84-233 on the
-port's pool (device="cpu", K2's plain version). Not mirrored: the
-Prometheus-text half of :233 (the text exposition is the ingress's, queue 1
-item 6) and :255-end (the ingress's /requestz, /poolz, /traces.json and
-timing block, item 6)."""
+port's pool (device="cpu", K2's plain version). The Prometheus-text half
+of :233 and :255-end (the ingress's /requestz, /poolz, /traces.json and
+timing block) are in tests/test_torch_ingress_paged.py."""
 
 import time
 
@@ -384,8 +383,8 @@ def test_preempt_cost_metrics_live():
 
 
 def test_per_class_histogram_labels():
-    """test_requestz.py:233, its registry half (the Prometheus text is
-    the ingress's, queue 1 item 6)."""
+    """test_requestz.py:233, its registry half (the Prometheus text's is
+    in tests/test_torch_ingress_paged.py)."""
     reqs = [tserving.Request(rid=i, tokens=[1 + i, 2, 3], max_new=4,
                              priority=i % 3) for i in range(6)]
     pool = tserving.PagedPool(TPARAMS, TCFG, 4, block_size=8, **POOL)

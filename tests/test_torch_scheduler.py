@@ -19,8 +19,9 @@ token, the seed rate for every transfer) so both make the same choices,
 and pick a rate at which short victims recompute and long ones swap.
 
 Not mirrored: test_scheduler.py:195 and :383-417 (prompt lookup, queue 1
-item 5.8), :450-480 (the ingress, item 6), the sampled cases of :171
-(item 5.7) and its kv_quant=False cases (the float pool, item 8)."""
+item 5.8), the sampled cases of :171 (item 5.7) and its kv_quant=False
+cases (the float pool, item 8). :450-480 (the ingress) are in
+tests/test_torch_ingress.py (429) and tests/test_torch_ingress_paged.py."""
 
 import jax
 import numpy as np

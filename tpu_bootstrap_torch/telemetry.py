@@ -2,12 +2,15 @@
 
 A copy of the subset of ``tpu_bootstrap.telemetry`` the port records
 (that module is framework-free, but the port imports nothing of the JAX
-package): named counters and gauges, fixed-bucket histograms, the
-injectable monotonic clock (``set_clock``), the span ``Tracer`` that
+package): named counters and gauges, fixed-bucket histograms with their
+clamped quantiles, each series' time-series ring (``TPUBC_TS_RING``) and
+the three expositions (``to_json``, ``to_prometheus``, ``window_json``),
+the injectable monotonic clock (``set_clock``), the span ``Tracer`` that
 ``span`` and the serving request log record into, ``RateWindow``, the
-train loop's heartbeat, the MFU denominator and the host-link rate the
-paged engine prices swaps with. Names are the reference's, so a scrape of
-either package reads the same keys:
+train loop's heartbeat and the worker's ``start_metrics_server``, the MFU
+denominator and the host-link rate the paged engine prices swaps with.
+Names are the reference's, so a scrape of either package reads the same
+keys:
 ``quant_<kernel>_{calls,weight_bytes,activation_bytes,bytes}_total`` from
 the quantized matmul seam, the ``kv_blocks_*`` pool gauges, the ``serve_*``
 scheduler gauges (labelled series rendered ``name{k="v"}``) and the train
@@ -46,6 +49,40 @@ class _Histogram:
         self.sum += value
         self.count += 1
 
+    def quantile(self, q: float) -> float:
+        """Linear interpolation within the containing bucket; a quantile in
+        the overflow bucket clamps to the last finite bound (-1 when
+        empty)."""
+        if self.count == 0:
+            return -1.0
+        rank = min(int(q * self.count), self.count - 1)
+        seen = 0
+        for i, in_bucket in enumerate(self.counts):
+            if seen + in_bucket > rank:
+                if i == len(self.bounds):
+                    return float(self.bounds[-1])
+                lo = 0.0 if i == 0 else float(self.bounds[i - 1])
+                hi = float(self.bounds[i])
+                if in_bucket == 0:
+                    return hi
+                return lo + (hi - lo) * (rank - seen + 1) / in_bucket
+            seen += in_bucket
+        return float(self.bounds[-1])
+
+    @property
+    def overflow(self) -> int:
+        return self.counts[-1]
+
+
+def ring_capacity() -> int:
+    """Per-series time-series ring capacity (TPUBC_TS_RING, default 256; 0
+    keeps no history)."""
+    try:
+        return max(0, int(os.environ.get("TPUBC_TS_RING", "256")))
+    except ValueError:
+        return 256
+
+
 def _label_key(name: str, labels) -> str:
     """A labelled series' key, rendered as the reference renders it:
     ``name{k="v",...}`` with the keys sorted; no labels keep the bare
@@ -56,23 +93,47 @@ def _label_key(name: str, labels) -> str:
     return f"{name}{{{inner}}}"
 
 
-class MetricsRegistry:
-    """Counters, gauges and histograms (thread-safe)."""
+def _split_labels(key: str) -> tuple:
+    """Inverse of _label_key: (family, label string)."""
+    if key.endswith("}") and "{" in key:
+        family, rest = key.split("{", 1)
+        return family, rest[:-1]
+    return key, ""
 
-    def __init__(self):
+
+class MetricsRegistry:
+    """Counters, gauges and histograms (thread-safe), each series with a
+    bounded history ring sampled when it is recorded (``ring`` entries,
+    default ``ring_capacity()``; 0 keeps none): a value series keeps (t,
+    value), a histogram (t, count, sum, bucket counts). ``window_json``
+    turns the rings into deltas, rates and windowed quantiles."""
+
+    def __init__(self, ring: int | None = None):
         self._lock = threading.Lock()
         self._values: dict = {}      # guarded-by: _lock
         self._histograms: dict = {}  # guarded-by: _lock
+        self.ring = ring_capacity() if ring is None else max(0, ring)
+        self._rings: dict = {}       # series key -> deque  # guarded-by: _lock
+
+    def _ring_append_locked(self, name: str, entry) -> None:
+        ring = self._rings.get(name)
+        if ring is None:
+            ring = self._rings[name] = deque(maxlen=self.ring)
+        ring.append(entry)
 
     def inc(self, name: str, delta=1, labels=None) -> None:
         name = _label_key(name, labels)
         with self._lock:
-            self._values[name] = self._values.get(name, 0) + delta
+            v = self._values[name] = self._values.get(name, 0) + delta
+            if self.ring:
+                self._ring_append_locked(name, (time.monotonic(), v))
 
     def set_gauge(self, name: str, value, labels=None) -> None:
         name = _label_key(name, labels)
         with self._lock:
             self._values[name] = value
+            if self.ring:
+                self._ring_append_locked(name, (time.monotonic(), value))
 
     def observe(self, name: str, value: float, buckets=None,
                 labels=None) -> None:
@@ -85,21 +146,140 @@ class MetricsRegistry:
                 h = self._histograms[name] = _Histogram(
                     buckets or DEFAULT_BUCKETS)
             h.observe(value)
+            if self.ring:
+                self._ring_append_locked(
+                    name, (time.monotonic(), h.count, h.sum, tuple(h.counts)))
+
+    def quantile(self, name: str, q: float) -> float:
+        with self._lock:
+            h = self._histograms.get(name)
+            return -1.0 if h is None else h.quantile(q)
 
     def to_json(self) -> dict:
-        """Values by name; histograms as ``_count``/``_sum``."""
+        """Values by name; histograms as ``_count``/``_sum``/``_p50``/
+        ``_p99``, plus ``_overflow`` when some observation passed the last
+        bound."""
         with self._lock:
             out = dict(sorted(self._values.items()))
             for name in sorted(self._histograms):
                 h = self._histograms[name]
                 out[name + "_count"] = h.count
                 out[name + "_sum"] = h.sum
+                out[name + "_p50"] = h.quantile(0.50)
+                out[name + "_p99"] = h.quantile(0.99)
+                if h.overflow > 0:
+                    out[name + "_overflow"] = h.overflow
             return out
+
+    def to_prometheus(self) -> str:
+        """The text exposition format: ``*_total`` series as counters, the
+        rest as gauges, histograms as cumulative ``_bucket{le=...}`` series;
+        every label set of a family contiguous under one TYPE line."""
+        with self._lock:
+            lines = []
+            typed = set()
+
+            def emit_type(family: str, kind: str) -> None:
+                if family not in typed:
+                    typed.add(family)
+                    lines.append(f"# TYPE {family} {kind}")
+
+            for key in sorted(self._values, key=_split_labels):
+                family, labels = _split_labels(key)
+                counter = family.endswith("_total")
+                emit_type(family[:-6] if counter else family,
+                          "counter" if counter else "gauge")
+                v = self._values[key]
+                lines.append(f"{key} {v:g}" if isinstance(v, float)
+                             else f"{key} {v}")
+            for key in sorted(self._histograms, key=_split_labels):
+                family, labels = _split_labels(key)
+                emit_type(family, "histogram")
+                h = self._histograms[key]
+                pre = labels + "," if labels else ""
+                suffix = f"{{{labels}}}" if labels else ""
+                cum = 0
+                for b, c in zip(h.bounds, h.counts):
+                    cum += c
+                    lines.append(f'{family}_bucket{{{pre}le="{b:g}"}} {cum}')
+                lines.append(f'{family}_bucket{{{pre}le="+Inf"}} {h.count}')
+                lines.append(f"{family}_sum{suffix} {h.sum:g}")
+                lines.append(f"{family}_count{suffix} {h.count}")
+            return "\n".join(lines) + ("\n" if lines else "")
+
+    def window_json(self, window_secs: float, now: float | None = None) -> dict:
+        """``/metrics.json?window=N``: for each value series its instant,
+        its delta over the trailing window and the delta a second; for each
+        histogram the count, sum and bucket deltas and p50/p99 over the
+        window's observations alone. The baseline is the last sample at or
+        before the window's start; without one, zero while the ring holds
+        the series' whole history, else its oldest sample. A series with
+        no ring reports its instant only."""
+        now = time.monotonic() if now is None else now
+        cutoff = now - max(float(window_secs), 0.0)
+        with self._lock:
+            series: dict = {}
+            for name in sorted(self._values):
+                cur = self._values[name]
+                entry: dict = {"now": cur}
+                ring = self._rings.get(name)
+                if ring:
+                    base = None
+                    n_in = 0
+                    for t, v in ring:
+                        if t <= cutoff:
+                            base = v
+                        else:
+                            n_in += 1
+                    if base is None:
+                        base = ring[0][1] if len(ring) == ring.maxlen else 0
+                    entry["samples"] = n_in
+                    if (isinstance(cur, (int, float))
+                            and isinstance(base, (int, float))):
+                        entry["delta"] = cur - base
+                        if window_secs > 0:
+                            entry["rate_per_sec"] = round(
+                                (cur - base) / window_secs, 6)
+                series[name] = entry
+            for name in sorted(self._histograms):
+                h = self._histograms[name]
+                ring = self._rings.get(name)
+                base = None
+                if ring:
+                    for t, cnt, s, counts in ring:
+                        if t <= cutoff:
+                            base = (cnt, s, counts)
+                        else:
+                            break
+                    if base is None and len(ring) == ring.maxlen:
+                        base = tuple(ring[0][1:])
+                b_cnt, b_sum, b_counts = base or (0, 0.0, (0,) * len(h.counts))
+                wh = _Histogram(h.bounds)
+                wh.counts = [a - b for a, b in zip(h.counts, b_counts)]
+                wh.count = h.count - b_cnt
+                wh.sum = h.sum - b_sum
+                series[name] = {
+                    "count": h.count,
+                    "count_delta": wh.count,
+                    "sum_delta": round(wh.sum, 6),
+                    "p50": wh.quantile(0.50),
+                    "p99": wh.quantile(0.99),
+                    "bucket_deltas": list(wh.counts),
+                    "bounds": list(h.bounds),
+                }
+                if window_secs > 0:
+                    series[name]["rate_per_sec"] = round(
+                        wh.count / window_secs, 6)
+            return {"window_secs": float(window_secs),
+                    "as_of_us": now_us(),
+                    "ring": self.ring,
+                    "series": series}
 
     def reset(self) -> None:
         with self._lock:
             self._values.clear()
             self._histograms.clear()
+            self._rings.clear()
 
 
 _metrics = MetricsRegistry()
@@ -399,6 +579,108 @@ def heartbeat(step: int | None = None) -> None:
         _beat["t"] = time.monotonic()
         if step is not None:
             _beat["step"] = step
+
+
+def heartbeat_snapshot() -> tuple:
+    """(last step or None, age in ms or None when never stamped)."""
+    with _beat_lock:
+        t, step = _beat["t"], _beat["step"]
+    if t is None:
+        return step, None
+    return step, (time.monotonic() - t) * 1e3
+
+
+def start_metrics_server(port: int, host: str = "0.0.0.0",
+                         process: str = "tpu-bootstrap-workload"):
+    """Serve the registry on a daemon thread, the reference's worker
+    routes: /metrics (text), /metrics.json (instants, or ``?window=N``),
+    /healthz and /health (the train loop's heartbeat: a stamp older than
+    TPUBC_WATCHDOG_STALL_MS answers 503; never stamped is healthy),
+    /statusz and /traces.json. Returns the HTTPServer (port 0: an
+    ephemeral port, read from ``server_address[1]``)."""
+    import json as _json
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            parsed = urlparse(self.path)
+            route = parsed.path
+            code = 200
+            if route == "/metrics":
+                body = _metrics.to_prometheus().encode()
+                ctype = "text/plain; version=0.0.4"
+            elif route == "/metrics.json":
+                q = parse_qs(parsed.query)
+                if "window" in q:
+                    try:
+                        w = float(q["window"][0])
+                    except ValueError:
+                        return self._json(
+                            400, {"error": "window must be a number"})
+                    doc = _metrics.window_json(w)
+                else:
+                    doc = _metrics.to_json()
+                body = _json.dumps(doc).encode()
+                ctype = "application/json"
+            elif route in ("/healthz", "/health"):
+                step, age_ms = heartbeat_snapshot()
+                health: dict = {"ok": True}
+                if step is not None:
+                    health["last_step"] = step
+                if age_ms is not None:
+                    health["heartbeat_age_ms"] = round(age_ms, 1)
+                    try:
+                        stall_ms = float(os.environ.get(
+                            "TPUBC_WATCHDOG_STALL_MS", "30000"))
+                    except ValueError:
+                        stall_ms = 30000.0
+                    if stall_ms > 0 and age_ms > stall_ms:
+                        health["ok"] = False
+                        health["stalled_ms"] = round(age_ms, 1)
+                code = 200 if health["ok"] else 503
+                body = _json.dumps(health).encode()
+                ctype = "application/json"
+            elif route == "/statusz":
+                step, age_ms = heartbeat_snapshot()
+                tj = _tracer.to_json()
+                body = _json.dumps({
+                    "process": process,
+                    "last_step": step,
+                    "heartbeat_age_ms": (round(age_ms, 1)
+                                         if age_ms is not None else None),
+                    "metrics_series": len(_metrics.to_json()),
+                    "tracer": {"spans": len(tj["spans"]),
+                               "dropped": tj["dropped"]},
+                }).encode()
+                ctype = "application/json"
+            elif route == "/traces.json":
+                body = _json.dumps(_tracer.to_json()).encode()
+                ctype = "application/json"
+            else:
+                return self._json(404, {"error": "not found"})
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, code, obj):
+            body = _json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
 
 
 def record_kv_block_pool(total: int, used: int, free: int,

@@ -1191,17 +1191,27 @@ class PagedPool(_PoolBase):
     tokens per round, full prompt blocks shared through the prefix cache
     unless ``prefix_cache`` is off, and a host tier of ``host_blocks``
     blocks under it (None: ``TPUBC_KV_HOST_BLOCKS``, unset meaning as
-    many as ``kv_blocks``; 0: none). Drive it with ``admit`` and
-    ``step_round``; preempted rows' resume records collect in
-    ``preempted``."""
+    many as ``kv_blocks``; 0: none). ``block_size``, ``prefill_budget``,
+    ``prefix_cache`` and ``spec_lookup`` left None read the reference's
+    knobs: ``TPUBC_KV_BLOCK`` (64), ``TPUBC_PREFILL_BUDGET`` (64),
+    ``TPUBC_PREFIX_CACHE`` (on) and ``TPUBC_SPEC_LOOKUP`` (off). Drive it
+    with ``admit`` and ``step_round``; preempted rows' resume records
+    collect in ``preempted``."""
 
     def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
-                 kv_blocks: int | None = None, block_size: int = 64,
-                 prefill_budget: int = 64, kv_quant: bool = False,
+                 kv_blocks: int | None = None, block_size: int | None = None,
+                 prefill_budget: int | None = None, kv_quant: bool = False,
                  eos_id: int | None = None, temperature: float = 0.0,
                  draft_params: Params | None = None,
-                 spec_lookup: bool = False, prefix_cache: bool = True,
+                 spec_lookup: bool | None = None,
+                 prefix_cache: bool | None = None,
                  host_blocks: int | None = None, device=None):
+        # None reads the reference's knobs, with its defaults:
+        # TPUBC_SPEC_LOOKUP (off), TPUBC_KV_BLOCK (64), TPUBC_PREFILL_BUDGET
+        # (64) and TPUBC_PREFIX_CACHE (on).
+        if spec_lookup is None:
+            spec_lookup = os.environ.get(
+                "TPUBC_SPEC_LOOKUP", "").lower() in ("1", "true")
         if temperature != 0.0:
             raise _not_ported("sampling (temperature > 0)",
                               "5: sampling with threefry bit-parity")
@@ -1213,8 +1223,12 @@ class PagedPool(_PoolBase):
                               "8: the other engines")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if block_size is None:
+            block_size = int(os.environ.get("TPUBC_KV_BLOCK", "64"))
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if prefill_budget is None:
+            prefill_budget = int(os.environ.get("TPUBC_PREFILL_BUDGET", "64"))
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
@@ -1239,6 +1253,9 @@ class PagedPool(_PoolBase):
         self.batch_size = batch_size
         self.kv_quant = kv_quant
         self.eos_id = eos_id
+        if prefix_cache is None:
+            prefix_cache = os.environ.get(
+                "TPUBC_PREFIX_CACHE", "1").lower() not in ("0", "false")
         self.prefix_cache = prefix_cache
         # Overcommit's decode-chunk cap, set by the Scheduler to its
         # expected-length EMA before every round; None leaves the chunk
@@ -1336,7 +1353,7 @@ class PagedPool(_PoolBase):
         if self.blocks_needed(r) > self.allocator.num_blocks:
             raise ValueError(
                 f"request {r.rid}: needs {self.blocks_needed(r)} KV blocks "
-                f"but the pool only has {self.allocator.num_blocks} - it "
+                f"but the pool only has {self.allocator.num_blocks} \u2014 it "
                 "can never be admitted (raise kv_blocks or shrink the "
                 "request)")
 
@@ -2630,16 +2647,17 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
           stats: dict | None = None, draft_params: Params | None = None,
           draft_cfg: ModelConfig | None = None, gamma: int = 4,
           resident: bool = False, paged: bool = False,
-          kv_blocks: int | None = None, block_size: int = 64,
-          prefill_budget: int = 64, prefix_cache: bool = True,
-          overcommit: bool | None = None, spec_lookup: bool = False,
+          kv_blocks: int | None = None, block_size: int | None = None,
+          prefill_budget: int | None = None, prefix_cache: bool | None = None,
+          overcommit: bool | None = None, spec_lookup: bool | None = None,
           device=None) -> dict:
     """Run every request through a ``batch_size``-row pool; returns {rid:
     generated token list}. Greedy; ``eos_id`` finishes a row at the first
     emission of that token (inclusive). ``paged=True`` is the block-paged
     engine (``kv_quant=True`` only; ``kv_blocks``, ``block_size``,
-    ``prefill_budget``, ``prefix_cache`` go to it, and its host tier is
-    sized by ``TPUBC_KV_HOST_BLOCKS``); admission overcommits and preempts
+    ``prefill_budget``, ``prefix_cache`` and ``spec_lookup`` go to it, None
+    reading their knobs as ``PagedPool`` does, and its host tier is sized
+    by ``TPUBC_KV_HOST_BLOCKS``); admission overcommits and preempts
     unless ``overcommit=False`` (None reads ``TPUBC_OVERCOMMIT``, on by
     default, as in the reference); ``paged=False`` the
     replay-slot engine, whose rounds run the speculative verify-commit
@@ -2705,3 +2723,115 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
             if pool._graphs is not None:
                 stats["graphs"] = dict(pool._graphs.stats)
     return done
+
+
+def serve_demo_from_env(device=None) -> None:
+    """``WORKLOAD_MODE=serve`` JobSet entry (dispatched by
+    ``train.worker_main``), the counterpart of the reference's: build the
+    model WORKLOAD_MODEL names from WORKLOAD_SEED, restore the params of
+    the latest checkpoint in WORKLOAD_CHECKPOINT_DIR when one exists,
+    quantize them (WORKLOAD_QUANT=int8|int4; WORKLOAD_KV_QUANT=1 for the
+    int8 KV pool), then serve: live HTTP on WORKLOAD_SERVE_PORT when it is
+    set (``ingress.IngressServer(...).serve_forever()``), else
+    WORKLOAD_REQUESTS synthetic requests through WORKLOAD_SERVE_BATCH slots,
+    ending in a ``serve done:`` line. WORKLOAD_SPECULATIVE=1 drafts an
+    unquantized target with its own int8 copy; WORKLOAD_TEMPERATURE,
+    WORKLOAD_TOP_K and WORKLOAD_TOP_P keep the reference's validation;
+    WORKLOAD_EOS_ID, WORKLOAD_RESIDENT and WORKLOAD_PAGED pick the eos and
+    the engine.
+
+    As in the reference, the engine is the replay-slot one unless
+    WORKLOAD_PAGED=1, and the KV pool is float unless WORKLOAD_KV_QUANT=1:
+    the port's main path (the paged engine on the int8 pool, kernels K1
+    and K2) runs only with both set. WORKLOAD_PAGED=1 alone asks for the
+    float pool and raises ``NotImplementedError`` naming ROADMAP queue 1
+    item 8, loudly, rather than serving another engine than the one asked
+    for; so do WORKLOAD_RESIDENT=1 (item 8) and a nonzero temperature
+    (item 5). ``device`` None means the card, and without CUDA raises
+    before anything runs."""
+    from tpu_bootstrap_torch.workload import checkpoint as ck
+    from tpu_bootstrap_torch.workload.model import init_params
+    from tpu_bootstrap_torch.workload.train import parse_model_env
+
+    device = resolve_device(device)
+    cfg = parse_model_env(os.environ.get("WORKLOAD_MODEL", ""))
+    seed = int(os.environ.get("WORKLOAD_SEED", "0"))
+    params = init_params(cfg, seed=seed, device=device)
+    ckpt = os.environ.get("WORKLOAD_CHECKPOINT_DIR")
+    if ckpt:
+        mgr = ck.make_manager(ckpt)
+        step = ck.latest_step(mgr)
+        if step is not None:
+            # Params only: the optimizer state is dead weight for serving.
+            params, _ = ck.restore(mgr, step, device=device)
+            print(f"serve: restored checkpoint step {step} from {ckpt}")
+
+    draft_params = draft_cfg = None
+    q = os.environ.get("WORKLOAD_QUANT", "")
+    if q == "int8":
+        params = quant.quantize_params(params)
+    elif q == "int4":
+        params = quant.quantize_params4(params)
+    elif q:
+        raise ValueError(f"WORKLOAD_QUANT must be int8|int4, got {q!r}")
+    kv_quant = os.environ.get("WORKLOAD_KV_QUANT", "").lower() in ("1", "true")
+    if os.environ.get("WORKLOAD_SPECULATIVE", "").lower() in ("1", "true"):
+        if q:
+            raise ValueError(
+                "WORKLOAD_SPECULATIVE drafts with the target's int8 copy; "
+                "combine it with an UNQUANTIZED target (unset WORKLOAD_QUANT)")
+        draft_params, draft_cfg = quant.quantize_params(params), cfg
+
+    temperature = float(os.environ.get("WORKLOAD_TEMPERATURE", "0"))
+    top_k = int(os.environ.get("WORKLOAD_TOP_K", "0"))
+    top_p = float(os.environ.get("WORKLOAD_TOP_P", "1.0"))
+    if temperature == 0 and (top_k > 0 or top_p < 1.0):
+        raise ValueError(
+            "WORKLOAD_TOP_K/WORKLOAD_TOP_P require WORKLOAD_TEMPERATURE > 0 "
+            "(greedy decoding ignores the sampling filters)")
+    eos_env = os.environ.get("WORKLOAD_EOS_ID", "")
+    eos_id = int(eos_env) if eos_env else None
+    resident = os.environ.get("WORKLOAD_RESIDENT", "").lower() in ("1", "true")
+    paged = os.environ.get("WORKLOAD_PAGED", "").lower() in ("1", "true")
+
+    port = int(os.environ.get("WORKLOAD_SERVE_PORT", "0"))
+    if port > 0:
+        from tpu_bootstrap_torch.workload.ingress import IngressServer
+
+        IngressServer(params, cfg, port=port,
+                      batch_size=int(os.environ.get("WORKLOAD_SERVE_BATCH",
+                                                    "8")),
+                      kv_quant=kv_quant, draft_params=draft_params,
+                      draft_cfg=draft_cfg, resident=resident, paged=paged,
+                      eos_id=eos_id, temperature=temperature, top_k=top_k,
+                      top_p=top_p, device=device).serve_forever()
+        return
+
+    n = int(os.environ.get("WORKLOAD_REQUESTS", "32"))
+    batch = int(os.environ.get("WORKLOAD_SERVE_BATCH", "8"))
+    rng = np.random.default_rng(seed)
+    requests = [
+        Request(rid=i,
+                tokens=rng.integers(1, cfg.vocab_size,
+                                    int(rng.integers(4, 17))).tolist(),
+                max_new=int(rng.integers(1, 33)))
+        for i in range(n)
+    ]
+    stats: dict = {}
+    t0 = time.time()
+    done = serve(params, cfg, requests, batch, kv_quant=kv_quant, stats=stats,
+                 draft_params=draft_params, draft_cfg=draft_cfg,
+                 resident=resident, paged=paged, eos_id=eos_id,
+                 temperature=temperature, device=device)
+    dt = time.time() - t0
+    total = sum(len(v) for v in done.values())
+    util = stats["active_slot_steps"] / max(stats["slot_steps"], 1)
+    print(f"serve done: {len(done)} requests, {total} tokens, "
+          f"{total / dt:.1f} tok/s, rounds={stats['rounds']}, "
+          f"slot utilization {util:.2f}")
+
+
+__all__ = ["BlockAllocator", "HostBlockPool", "PagedPool", "Request",
+           "RequestLog", "RequestRecord", "Scheduler", "SlotPool",
+           "block_hash", "device_ledger_enabled", "request_events_enabled",
+           "serve", "serve_demo_from_env"]

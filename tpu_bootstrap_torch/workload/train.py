@@ -12,8 +12,10 @@ working.
 
 The port trains on one device. A mesh of more than one device (data,
 fsdp, tensor, expert, dcn, pipe, seq and so the ring) raises
-``NotImplementedError`` naming ROADMAP queue 1 item 11; the serve mode of
-``worker_main`` names item 6.
+``NotImplementedError`` naming ROADMAP queue 1 item 11. ``worker_main``
+also dispatches ``WORKLOAD_MODE=serve`` to
+``serving.serve_demo_from_env`` and starts the metrics server on
+``WORKLOAD_METRICS_PORT``.
 """
 
 from __future__ import annotations
@@ -467,10 +469,13 @@ def worker_main() -> None:
     WORKLOAD_ATTENTION (dense|flash), WORKLOAD_ATTENTION_BLOCK,
     WORKLOAD_REMAT, WORKLOAD_WARMUP_STEPS, WORKLOAD_TOTAL_STEPS,
     WORKLOAD_GRAD_CLIP, WORKLOAD_DATA_PATH / WORKLOAD_DATA_DTYPE,
-    WORKLOAD_PROFILE_DIR and WORKLOAD_LOG_EVERY. Not ported yet, each
-    raising NotImplementedError: WORKLOAD_MODE=serve and the metrics port
-    (item 6), multi-host rendezvous and meshes over several devices
-    (item 11)."""
+    WORKLOAD_PROFILE_DIR and WORKLOAD_LOG_EVERY. WORKLOAD_METRICS_PORT
+    (> 0, worker 0) serves the metrics registry
+    (``telemetry.start_metrics_server``); WORKLOAD_MODE=serve runs
+    ``serving.serve_demo_from_env`` instead of training (the synthetic
+    demo, or the HTTP ingress on WORKLOAD_SERVE_PORT). Not ported yet,
+    raising NotImplementedError: multi-host rendezvous and meshes over
+    several devices (item 11)."""
     env = os.environ
     processes = (int(env.get("TPUBC_NUM_HOSTS", "1"))
                  * int(env.get("TPUBC_NUM_SLICES", "1")))
@@ -479,17 +484,20 @@ def worker_main() -> None:
         raise NotImplementedError(
             "multi-host training is not ported yet (ROADMAP queue 1 item "
             "11: multi-device)")
+    # Worker 0's metrics endpoint: /metrics, /metrics.json, /healthz,
+    # /statusz and /traces.json for the controller's workload scrape.
+    metrics_port = int(env.get("WORKLOAD_METRICS_PORT", "0"))
+    if metrics_port > 0 and int(env.get("JOB_COMPLETION_INDEX", "0")) == 0:
+        httpd = telemetry.start_metrics_server(metrics_port)
+        print(f"workload: metrics on :{httpd.server_address[1]}", flush=True)
     mode = env.get("WORKLOAD_MODE", "train")
     if mode == "serve":
-        raise NotImplementedError(
-            "WORKLOAD_MODE=serve is not ported yet (ROADMAP queue 1 item 6: "
-            "ingress and the serve-mode entry)")
+        from tpu_bootstrap_torch.workload.serving import serve_demo_from_env
+
+        serve_demo_from_env()
+        return
     if mode != "train":
         raise ValueError(f"WORKLOAD_MODE must be train|serve, got {mode!r}")
-    if int(env.get("WORKLOAD_METRICS_PORT", "0")) > 0:
-        raise NotImplementedError(
-            "the workload metrics server is not ported yet (ROADMAP queue 1 "
-            "item 6)")
     steps = int(env.get("WORKLOAD_STEPS", "100"))
     seed = int(env.get("WORKLOAD_SEED", "0"))
     data = None
