@@ -175,7 +175,34 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               within 120 s, 4 streams equal to the in-process ingress's up
               to near-ties, SIGTERM drains and exits 0; then
               serve_demo_from_env in process prints its serve done line.
-16. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+16. sampling -- sampling with threefry parity (prng) on the main path:
+              prng on the card bit for bit prng on the CPU (keys, a
+              fold_in chain, split, per-row fold_in, bits and uniforms of
+              (8, 32768); gumbel's largest ulp difference printed); serve's
+              first 16 requests through the paged engine sampled at
+              temperature 0.8, top_k 50, top_p 0.95 with the pool key
+              prng.key(5): twice (equal streams and launches), K1, K2 and
+              the graphs' replays as the schedule implies (the sampler
+              runs in the captured step), at batch 1, in a tight pool with
+              overcommit, the prefix cache and the host tier (preemptions
+              > 0), and each request alone through generate(kv_kernel=
+              False) with its stream key: every stream equal to the first
+              run's up to near-ties of logits + gumbel (sampled_margins
+              under NEAR_TIE), the engine and the oracle again in f32
+              (NEAR_TIE's f32 limit, each divergence also explained by
+              the two paths' logits at its pick, replayed eagerly); then
+              sampled speculative_generate
+              (the bf16 target, its int8 draft, (8, 64) prompts, 64 steps)
+              completes.
+17. serve_spec -- the paged engine's greedy speculative rounds, gamma 4:
+              prompt lookup on serve's int8 target and 32 requests (streams
+              held to serve's), then the bf16 target plainly and drafted by
+              its own int8 copy on 16 of them (streams held to the plain
+              run's); near-ties allowed; more than one token committed a
+              drafted round; K1 launched as the lookup's verify chunks and
+              the draft's steps imply, K2 on the plain run's decode steps;
+              tokens/s of each and the serve_spec_* phase times.
+18. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
@@ -184,12 +211,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-17. speculative -- bench.py's self-speculation: the bf16 target drafted by
+19. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-18. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+20. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -198,13 +225,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-19. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+21. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-20. train  -- the training slice end to end: make_train_step on the
+22. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -214,7 +241,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-21. train_long -- the reference's long-context configuration (seq 8192,
+23. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -1872,11 +1899,20 @@ def phase_serve_overcommit(torch, kernels, device, model_kw=DECODE_MODEL) -> dic
 def _observed(registry, name: str):
     """The values observed into the histogram ``name`` (unlabelled) inside
     the block, exactly (the histogram keeps buckets)."""
-    values, real = [], registry.observe
+    with _observed_many(registry, (name,)) as seen:
+        yield seen[name]
+
+
+@contextlib.contextmanager
+def _observed_many(registry, names: tuple):
+    """The values observed into each unlabelled histogram of ``names``
+    inside the block, by name."""
+    values = {n: [] for n in names}
+    real = registry.observe
 
     def observe(metric, value, *args, **kw):
-        if metric == name and not kw.get("labels"):
-            values.append(value)
+        if metric in values and not kw.get("labels"):
+            values[metric].append(value)
         return real(metric, value, *args, **kw)
 
     registry.observe = observe
@@ -3134,6 +3170,413 @@ def phase_serve_ingress(torch, kernels, device, serve_out=None,
     return out
 
 
+# Sampling (phase sampling): the reference's serve-entry knobs at values a
+# chat deployment runs (WORKLOAD_TEMPERATURE 0.8, WORKLOAD_TOP_K 50,
+# WORKLOAD_TOP_P 0.95) and a fixed pool key.
+SAMPLE_KW = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLE_SEED = 5  # the pool key, prng.key(SAMPLE_SEED)
+SAMPLE_REQUESTS = 16  # serve's first 16 requests
+# The tight pool: 12 blocks of 64 for 8 rows whose footprints reach 4
+# blocks each, overcommit, the prefix cache and the host tier on; the last
+# SAMPLE_URGENT requests arrive SAMPLE_URGENT_AT rounds in with priority 1
+# and evict running rows (preemptions counted, must be > 0: 3 in a CPU
+# rehearsal of the same lengths, the schedule depending on them alone).
+SAMPLE_TIGHT_BLOCKS = 12
+SAMPLE_URGENT, SAMPLE_URGENT_AT = 4, 2
+# The prng parity shapes: a batch of 8 rows over the decode vocabulary.
+PRNG_ROWS = 8
+# Spec serving (phase serve_spec): requests of serve's traffic drafted by
+# the bf16 target's int8 copy; prompt lookup runs all of serve's 32.
+SPEC_REQUESTS = 16
+
+
+def _prng_parity(torch, prng, device) -> dict:
+    """prng on the card against prng on the CPU: keys, a fold_in chain,
+    split, per-row fold_in, bits and uniforms of (PRNG_ROWS, vocab) bit for
+    bit; gumbel's largest difference in f32 ulps of the larger of |x| and
+    1 (its logs may round apart between the two devices)."""
+    vocab = DECODE_MODEL["vocab_size"]
+    cpu = torch.device("cpu")
+
+    def draw(dev):
+        k = prng.key(SAMPLE_SEED, dev)
+        chain = [k]
+        for i in range(64):
+            chain.append(prng.fold_in(chain[-1], i))
+        rows = prng.split(k, PRNG_ROWS)
+        offs = torch.arange(PRNG_ROWS, device=dev) * 7 + 3
+        return {"key": k, "fold_in_chain": torch.stack(chain),
+                "split": rows, "row_fold_in": prng.fold_in(rows, offs),
+                "bits": prng.bits32(k, (PRNG_ROWS, vocab)),
+                "uniform": prng.uniform(k, (PRNG_ROWS, vocab)),
+                "gumbel": prng.gumbel(k, (PRNG_ROWS, vocab))}
+
+    got, want = draw(device), draw(cpu)
+    exact = {n: bool(torch.equal(got[n].cpu(), want[n]))
+             for n in got if n != "gumbel"}
+    g, w = got["gumbel"].cpu(), want["gumbel"]
+    # In ulps of the larger of |x| and 1 (near 0 the logs' absolute error
+    # is what an ulp of 1 measures).
+    mag = torch.maximum(w.abs(), torch.ones_like(w))
+    ulp = torch.nextafter(mag, torch.full_like(w, math.inf)) - mag
+    ulps = ((g - w).abs() / ulp).max()
+    return {"exact": exact, "gumbel_max_ulps": float(ulps),
+            "gumbel_equal_share": float((g == w).float().mean()),
+            "ok": all(exact.values())}
+
+
+def _sampled_divergence(decode, params, cfg, prompt: list, got: list,
+                        want: list, row_key):
+    """(step, the oracle's sampled margin there) of the first token where
+    ``got`` leaves ``want`` (drawn with ``row_key``), or None."""
+    if got == want:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        return min(len(got), len(want)), float("inf")
+    margin = decode.sampled_margins(params, prompt, want[:j + 1], cfg,
+                                    row_key, kv_quant=True,
+                                    **SAMPLE_KW)[j]
+    return j, margin
+
+
+def _sampled_diverged(decode, serving, params, cfg, reqs, got: dict,
+                      want: dict, key) -> list:
+    out = []
+    for r in reqs:
+        first = _sampled_divergence(decode, params, cfg, r.tokens,
+                                    got[r.rid], want[r.rid],
+                                    serving._stream_key(key, r.rid))
+        if first is not None:
+            out.append({"rid": r.rid, "step": first[0], "margin": first[1]})
+    return out
+
+
+def _counted_serve(torch, kernels, serving, params, cfg, reqs, batch: int,
+                   **kw) -> dict:
+    """serve() once through _timed: streams, wall seconds, launches, the
+    pool's stats."""
+    stats: dict = {}
+    done, wall, launches = _timed(torch, kernels, lambda: serving.serve(
+        params, cfg, reqs, batch, stats=stats, **kw))
+    tokens = sum(len(v) for v in done.values())
+    return {"done": done, "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall, "launches": launches,
+            "stats": stats}
+
+
+def _urgent_run(torch, kernels, serving, params, cfg, reqs, **kw) -> dict:
+    """``reqs`` through an explicit Scheduler over a PagedPool of
+    SAMPLE_TIGHT_BLOCKS blocks with overcommit: all but the last
+    SAMPLE_URGENT at once, those SAMPLE_URGENT_AT rounds later with
+    priority 1, so they evict running rows (priority preemption); the
+    launch counts set to 0 just before and read just after."""
+    import dataclasses
+
+    pool = serving.PagedPool(params, cfg, 8, kv_quant=True,
+                             kv_blocks=SAMPLE_TIGHT_BLOCKS, **kw)
+    sched = serving.Scheduler(pool, overcommit=True)
+    urgent = [dataclasses.replace(r, priority=1)
+              for r in reqs[-SAMPLE_URGENT:]]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs[:-SAMPLE_URGENT]:
+        sched.submit(r)
+    done, rounds = {}, 0
+    while sched.pending() or pool.has_active() or urgent:
+        if rounds == SAMPLE_URGENT_AT:
+            for r in urgent:
+                sched.submit(r)
+            urgent = []
+        for rid, ev in sched.step().items():
+            if ev["done"]:
+                done[rid] = ev["generated"]
+        rounds += 1
+    torch.cuda.synchronize()
+    return {"done": done, "wall_s": time.perf_counter() - t0,
+            "launches": dict(kernels.LAUNCHES), "stats": dict(pool.stats)}
+
+
+def _explained(torch, kernels, decode, serving, params, cfg, reqs, key,
+               diverged: list, oracle: dict) -> dict:
+    """Each divergence of ``diverged`` gains ``max_logit_diff``: the
+    largest difference between the logits the engine drew that pick from
+    and the oracle's. The engine's come from serve()'s run of ``reqs``
+    again, with the decode chunks eager (graphs off: the same bits, as
+    phase serve's graph check holds) and the sampler wrapped to keep the
+    rows' logits at the wanted picks. A divergence is explained when its
+    margin (twice the smallest shift of every logit that changes the
+    draw) is at most twice that difference. Returns the eager run's
+    streams."""
+    wanted = {d["rid"]: d["step"] for d in diverged}
+    pool = serving.PagedPool(params, cfg, 8, kv_quant=True,
+                             prefix_cache=False, key=key, **SAMPLE_KW)
+    pool._graphs = None
+    inner, seen = pool._sampler, {}
+
+    def sampler(logits, i):
+        for b, s in enumerate(pool.slots):
+            if (s is not None and s.rid in wanted
+                    and torch.equal(pool._rkeys[b].cpu(), s.row_key)
+                    and int(pool._roff[b]) + i == wanted[s.rid]):
+                seen[s.rid] = logits[b].float().clone()
+        return inner(logits, i)
+
+    pool._sampler = sampler
+    done = _sched_run(torch, kernels, serving, pool,
+                      serving.Scheduler(pool, overcommit=False), reqs)["done"]
+    prompts = {r.rid: r.tokens for r in reqs}
+    for d in diverged:
+        rid, j = d["rid"], d["step"]
+        want = list(decode._fed_logits(params, prompts[rid],
+                                       oracle[rid][:j + 1], cfg, True,
+                                       None))[j]
+        d["max_logit_diff"] = float((seen[rid].to(want.device) - want)
+                                    .abs().max())
+    return done
+
+
+def _sampled_oracle(decode, serving, params, cfg, reqs, key) -> dict:
+    """Each request alone through generate(kv_kernel=False) with its
+    stream key: the sampled streams' solo oracle."""
+    return {r.rid: decode.generate(
+        params, [r.tokens], cfg, r.max_new, kv_quant=True, kv_kernel=False,
+        row_keys=serving._stream_key(key, r.rid)[None], row_key_offsets=[0],
+        **SAMPLE_KW)[0].tolist() for r in reqs}
+
+
+def phase_sampling(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
+    """Sampling with threefry parity (queue 1 item 5.7) on the main path:
+    (a) _prng_parity; (b) serve's first SAMPLE_REQUESTS requests through
+    the paged engine (int8 weights and KV, batch 8, block 64, prefix cache
+    and overcommit off) sampled at SAMPLE_KW with the pool key
+    prng.key(SAMPLE_SEED), twice: the streams equal (reproducible), the
+    launches of K1 and K2 and the graphs' replays equal to the schedule's
+    (the sampler runs inside the captured step); (c) the same at batch 1
+    (batch invariance); (d) the same in a pool of SAMPLE_TIGHT_BLOCKS
+    blocks with overcommit, the prefix cache and the host tier on, urgent
+    arrivals evicting running rows (_urgent_run): rows preempted, swapped
+    or recomputed and resumed keep their streams; (e) each request
+    alone through generate(kv_kernel=False) with its stream key (the solo
+    oracle). (c)-(e) are held to (b) up to near-ties of logits + gumbel
+    (sampled_margins, in logit units, under NEAR_TIE); (b) and (e) again
+    in f32, where each divergence must be a near-tie under NEAR_TIE's f32
+    limit and explained by the two paths' logits at its pick
+    (_explained); (f) sampled speculative_generate (the bf16 target, its
+    int8 draft) completes."""
+    import dataclasses
+
+    from tpu_bootstrap_torch.workload import (decode, model, prng, quant,
+                                              serving, speculative)
+
+    parity = _prng_parity(torch, prng, device)
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _serve_requests(serving, cfg.vocab_size, SAMPLE_REQUESTS, seed=0)
+    key = prng.key(SAMPLE_SEED)
+    kw = {**SERVE_KW, **SAMPLE_KW, "key": key}
+    serving.serve(params, cfg, _serve_requests(serving, cfg.vocab_size, 2,
+                                               seed=1), 8, **kw)
+    first = _counted_serve(torch, kernels, serving, params, cfg, reqs, 8,
+                           **kw)
+    second = _counted_serve(torch, kernels, serving, params, cfg, reqs, 8,
+                            **kw)
+    stats = first["stats"]
+    exact = _launches_exact(cfg, stats, first["launches"], PATHS["int8"])
+    steps = stats["slot_steps"] // 8
+    graphs = stats.get("graphs") or {}
+    replays_ok = graphs.get("replays") == steps - graphs.get("captured", -1)
+    done = first["done"]
+    solo_batch = _counted_serve(torch, kernels, serving, params, cfg, reqs,
+                                1, **kw)
+    tight = _urgent_run(torch, kernels, serving, params, cfg, reqs,
+                        key=key, **SAMPLE_KW)
+    t1 = time.perf_counter()
+    oracle = _sampled_oracle(decode, serving, params, cfg, reqs, key)
+    oracle_s = time.perf_counter() - t1
+    diverged = {name: _sampled_diverged(decode, serving, params, cfg, reqs,
+                                        run["done"], done if name != "solo"
+                                        else oracle, key)
+                for name, run in (("batch_1", solo_batch), ("tight", tight),
+                                  ("solo", {"done": done}))}
+    # The same engine and oracle in f32: each divergence there must be a
+    # near-tie that the two paths' logits at its pick explain.
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    done32 = serving.serve(params, cfg32, reqs, 8, **kw)
+    oracle32 = _sampled_oracle(decode, serving, params, cfg32, reqs, key)
+    diverged32 = _sampled_diverged(decode, serving, params, cfg32, reqs,
+                                   done32, oracle32, key)
+    eager32 = _explained(torch, kernels, decode, serving, params, cfg32,
+                         reqs, key, diverged32, oracle32)
+    master = model.init_params(cfg, seed=0, device=device)
+    draft = quant.quantize_params(master)
+    target = {"embed": master["embed"].bfloat16(),
+              "final_norm": master["final_norm"].bfloat16(),
+              "blocks": [{n: w.bfloat16() for n, w in b.items()}
+                         for b in master["blocks"]]}
+    del master
+    prompt = _gen_prompt(torch, cfg, device)
+    (spec, spec_stats), spec_s, spec_launches = _timed(
+        torch, kernels, lambda: speculative.speculative_generate(
+            target, draft, prompt, cfg, cfg, GEN_STEPS[0], gamma=GAMMA,
+            kv_quant=True, with_stats=True, key=prng.key(SAMPLE_SEED),
+            temperature=SAMPLE_KW["temperature"]))
+    spec_ok = (tuple(spec.shape) == (GEN_BATCH, GEN_STEPS[0])
+               and bool(((spec >= 0) & (spec < cfg.vocab_size)).all()))
+    bad = [d for ds in diverged.values() for d in ds
+           if d["margin"] >= NEAR_TIE["bfloat16"]]
+    bad += [d for d in diverged32 if not (
+        d["margin"] < NEAR_TIE["float32"]
+        and d["margin"] <= 2 * d["max_logit_diff"])]
+    complete = all(len(done[r.rid]) == r.max_new for r in reqs)
+    result = {
+        "phase": "sampling", **SAMPLE_KW, "key_seed": SAMPLE_SEED,
+        "requests": len(reqs), "prng": parity,
+        "serve": {k: first[k] for k in ("wall_s", "tokens", "tokens_per_s",
+                                        "launches")},
+        "reproducible": second["done"] == done,
+        "launches_repeat": second["launches"] == first["launches"],
+        "launches_exact": exact, "graphs": graphs, "decode_steps": steps,
+        "replays_ok": replays_ok,
+        "batch_1": {"tokens_per_s": solo_batch["tokens_per_s"],
+                    "equal": solo_batch["done"] == done},
+        "tight": {"blocks": SAMPLE_TIGHT_BLOCKS,
+                  "preemptions": tight["stats"]["preemptions"],
+                  "swap_preempts": tight["stats"].get("swap_preempts", 0),
+                  "launches": tight["launches"],
+                  "equal": tight["done"] == done},
+        "oracle_s": oracle_s, "solo_equal": sum(
+            oracle[r.rid] == done[r.rid] for r in reqs),
+        "near_tie": NEAR_TIE, "diverged": diverged,
+        "diverged_f32": diverged32, "f32_eager_equal": eager32 == done32,
+        "speculative": {"seconds": spec_s, "shape_ok": spec_ok,
+                        "verify_rounds": spec_stats["verify_rounds"],
+                        "mean_committed": spec_stats["mean_committed"],
+                        "launches": spec_launches}}
+    emit(result)
+    if (not parity["ok"] or bad or not complete or not result["reproducible"]
+            or not result["launches_repeat"] or not exact["ok"]
+            or not replays_ok or tight["stats"]["preemptions"] < 1
+            or not spec_ok or first["launches"]["int8_matmul"] < 1
+            or first["launches"]["paged_attention"] < 1):
+        raise SystemExit(f"sampling failed: parity={parity} bad={bad} "
+                         f"complete={complete} exact={exact} "
+                         f"graphs={graphs} steps={steps} "
+                         f"tight={result['tight']}")
+    return result
+
+
+SPEC_METRICS = ("serve_spec_draft_ms", "serve_spec_verify_ms",
+                "serve_spec_commit_ms", "serve_spec_committed_per_round")
+
+
+def _spec_run(torch, kernels, serving, telemetry, params, cfg, reqs,
+              **kw) -> dict:
+    with _observed_many(telemetry.metrics(), SPEC_METRICS) as seen:
+        run = _counted_serve(torch, kernels, serving, params, cfg, reqs, 8,
+                             **SERVE_KW, gamma=GAMMA, **kw)
+    stats = run["stats"]
+    run["spec"] = {k: stats[k] for k in (
+        "verify_rounds", "committed_tokens", "draft_steps",
+        "draft_proposed", "draft_accepted")}
+    run["committed_per_round"] = (
+        statistics.fmean(seen["serve_spec_committed_per_round"])
+        if seen["serve_spec_committed_per_round"] else None)
+    run["phase_ms"] = {n: {"p50": statistics.median(v), "sum": sum(v),
+                           "n": len(v)}
+                       for n, v in seen.items() if v and n.endswith("_ms")}
+    return run
+
+
+def _spec_k1_want(cfg, stats: dict, draft_steps: int) -> int:
+    """K1 launches of a speculative serve from its schedule: four block
+    projections a layer in every prefill chunk and every int8 model step,
+    and the int8 head once a step: ``draft_steps`` single-token steps
+    (the draft's) or verify chunks (an int8 target's)."""
+    layers = cfg.num_layers
+    return (4 * layers * (stats["prefill_chunks"] + draft_steps)
+            + draft_steps)
+
+
+def phase_serve_spec(torch, kernels, device, serve_out=None,
+                     model_kw=DECODE_MODEL) -> dict:
+    """The paged engine's speculative rounds (queue 1 item 5.8), greedy,
+    at the decode model's full width (batch 8, block 64, prefix cache and
+    overcommit off, gamma GAMMA): (a) prompt lookup (spec_lookup) on serve's
+    int8 target and serve's 32 requests, streams held to phase serve's
+    (``serve_out``) up to near-ties, K1 launched as its schedule implies
+    (the verify chunks and the prefill); (b) the bf16 target plainly and
+    (c) drafted by its own int8 copy on SPEC_REQUESTS of them: (c)'s
+    streams held to (b)'s up to near-ties, more than one token committed a
+    round, K1 launched as the draft's steps and prefill imply, K2 on (b)'s
+    decode steps. Tokens/s of each run, beside serve's, and the rounds'
+    serve_spec_* phase times."""
+    from tpu_bootstrap_torch import telemetry
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    master = model.init_params(cfg, seed=0, device=device)
+    int8 = quant.quantize_params(master)
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    if serve_out is None:
+        serve_out = {"streams": serving.serve(int8, cfg, reqs, 8,
+                                              **SERVE_KW),
+                     "tokens_per_s": None}
+    lookup = _spec_run(torch, kernels, serving, telemetry, int8, cfg, reqs,
+                       spec_lookup=True)
+    lookup_div = _diverged(decode, int8, cfg, reqs, lookup["done"],
+                           serve_out["streams"])
+    lookup_k1 = _spec_k1_want(cfg, lookup["stats"],
+                              lookup["stats"]["verify_rounds"])
+    target = {"embed": master["embed"].bfloat16(),
+              "final_norm": master["final_norm"].bfloat16(),
+              "blocks": [{n: w.bfloat16() for n, w in b.items()}
+                         for b in master["blocks"]]}
+    del master
+    few = reqs[:SPEC_REQUESTS]
+    plain = _counted_serve(torch, kernels, serving, target, cfg, few, 8,
+                           **SERVE_KW)
+    drafted = _spec_run(torch, kernels, serving, telemetry, target, cfg, few,
+                        draft_params=int8, draft_cfg=cfg)
+    drafted_div = _diverged(decode, target, cfg, few, drafted["done"],
+                            plain["done"])
+    drafted_k1 = _spec_k1_want(cfg, drafted["stats"],
+                               drafted["stats"]["draft_steps"])
+    k2_plain = cfg.num_layers * plain["stats"]["slot_steps"] // 8
+    checks = {
+        "lookup_k1": lookup["launches"]["int8_matmul"] == lookup_k1,
+        "drafted_k1": drafted["launches"]["int8_matmul"] == drafted_k1,
+        "plain_k2": plain["launches"]["paged_attention"] == k2_plain > 0,
+        "committed_above_1": (drafted["committed_per_round"] or 0) > 1,
+        "complete": all(len(run["done"][r.rid]) == r.max_new
+                        for run, rs in ((lookup, reqs), (plain, few),
+                                        (drafted, few)) for r in rs)}
+    bad = [d for d in lookup_div + drafted_div
+           if d["margin"] >= NEAR_TIE["bfloat16"]]
+
+    def fields(run):
+        return {k: run[k] for k in ("wall_s", "tokens", "tokens_per_s",
+                                    "launches", "spec", "committed_per_round",
+                                    "phase_ms") if k in run}
+
+    result = {"phase": "serve_spec", "gamma": GAMMA,
+              "serve_tokens_per_s": serve_out.get("tokens_per_s"),
+              "lookup": {**fields(lookup), "requests": len(reqs),
+                         "k1_want": lookup_k1, "diverged": lookup_div},
+              "bf16_plain": {**fields(plain), "requests": len(few),
+                             "k2_want": k2_plain},
+              "bf16_drafted": {**fields(drafted), "requests": len(few),
+                               "k1_want": drafted_k1,
+                               "diverged": drafted_div},
+              "near_tie": NEAR_TIE["bfloat16"], "checks": checks}
+    emit(result)
+    if bad or not all(checks.values()):
+        raise SystemExit(f"serve_spec failed: bad={bad} checks={checks}")
+    return result
+
+
 def _gen_prompt(torch, cfg, device):
     """bench.py:483's decode prompt shape, (8, 64) tokens from a seed."""
     rng = np.random.default_rng(1)
@@ -3890,14 +4333,17 @@ def main() -> int:
                         ("serve_host_tier", phase_serve_host_tier),
                         ("serve_faults", phase_serve_faults),
                         ("serve_ingress", phase_serve_ingress),
+                        ("sampling", phase_sampling),
+                        ("serve_spec", phase_serve_spec),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
         # The host tier's phase reads the tight pool's pair that
-        # serve_overcommit ran; serve_ingress, serve's streams and oracle.
+        # serve_overcommit ran; serve_ingress and serve_spec, serve's
+        # streams (and serve_ingress its oracle).
         extra = ()
         if name == "serve_host_tier":
             extra = (out["serve_overcommit"]["tight"],)
-        elif name == "serve_ingress":
+        elif name in ("serve_ingress", "serve_spec"):
             extra = (out["serve"],)
         out[name] = run(name, phase, torch, kernels, device, *extra)
     out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
@@ -3916,9 +4362,12 @@ def path_launches(out: dict, name: str) -> dict:
     set to 0 just before it): the overcommit burst, the tight pool with
     the tier off and on (the swapping run), the host tier's phase B,
     serve_faults' last run with the log and ledger on, its faulted run
-    and its deadline run, and serve_ingress's last timed burst."""
-    oc, ht, sf = (out["serve_overcommit"], out["serve_host_tier"],
-                  out["serve_faults"])
+    and its deadline run, serve_ingress's last timed burst, sampling's
+    first sampled serve, and serve_spec's three serves (prompt lookup on
+    the int8 target, the bf16 target plain and drafted by its int8 copy;
+    their speculative rounds attend on einsums, as the reference's do)."""
+    oc, ht, sf, sp = (out["serve_overcommit"], out["serve_host_tier"],
+                      out["serve_faults"], out["serve_spec"])
     tight = oc["tight"]
     return {"serve_overcommit": oc["overcommit"]["launches"][name],
             "serve_overcommit_tight": tight["tier_off"]["launches"][name],
@@ -3927,7 +4376,11 @@ def path_launches(out: dict, name: str) -> dict:
             "serve_faults": sf["observe"]["launches"][name],
             "serve_faults_recovery": sf["recovery"]["launches"][name],
             "serve_faults_deadlines": sf["deadlines"]["launches"][name],
-            "serve_ingress": out["serve_ingress"]["burst"]["launches"][name]}
+            "serve_ingress": out["serve_ingress"]["burst"]["launches"][name],
+            "sampling": out["sampling"]["serve"]["launches"][name],
+            "serve_spec_lookup": sp["lookup"]["launches"][name],
+            "serve_spec_bf16_plain": sp["bf16_plain"]["launches"][name],
+            "serve_spec_bf16_drafted": sp["bf16_drafted"]["launches"][name]}
 
 
 def kernel_lines(out: dict) -> list:

@@ -11,9 +11,11 @@ pool (device="cpu", K2's plain version): swapped-and-restored streams
 equal the never-swapped ones exactly, and a restore writes the pool
 tensors in place, bitwise the demoted bytes.
 
-Not mirrored: test_host_tier.py:141 (sampled streams and prompt lookup,
-queue 1 items 5.7 and 5.8), :166 (marked slow in the reference) and
-the kv_quant=False case of :120 (the float pool, item 8)."""
+test_host_tier.py:141 (sampled streams and prompt lookup) is mirrored in
+tests/test_torch_sampled_serving.py and tests/test_torch_spec_serving.py
+(with a model draft too, whose pools' half of a host entry is held
+there). Not mirrored: :166 (marked slow in the reference) and the
+kv_quant=False case of :120 (the float pool, queue 1 item 8)."""
 
 import jax
 import numpy as np

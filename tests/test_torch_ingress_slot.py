@@ -7,8 +7,8 @@ held to the other's and to solo greedy ``generate``; speculative, to the
 port's server alone (the reference's verify rounds compile a program a
 shape, which the 60 s budget of this file does not hold), held to solo
 ``generate`` (greedy verify-commit rounds commit the target's own
-argmaxes). The sampled case (:234) becomes the sampling raise
-(tests/test_torch_ingress.py, queue 1 item 5). :130-257 drive the native
+argmaxes). The sampled case (:234) is mirrored in
+tests/test_torch_sampled_serving.py. :130-257 drive the native
 controller daemon's serve-mode reconcile into a JobSet and a Service,
 which is not ported: left out."""
 

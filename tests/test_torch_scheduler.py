@@ -18,9 +18,11 @@ swap arm; the differential runs pin the cost model (a fixed prefill cost a
 token, the seed rate for every transfer) so both make the same choices,
 and pick a rate at which short victims recompute and long ones swap.
 
-Not mirrored: test_scheduler.py:195 and :383-417 (prompt lookup, queue 1
-item 5.8), the sampled cases of :171 (item 5.7) and its kv_quant=False
-cases (the float pool, item 8). :450-480 (the ingress) are in
+Mirrored elsewhere: test_scheduler.py:195 and :383-430 (prompt lookup) in
+tests/test_torch_spec_serving.py, the sampled cases of :171 in
+tests/test_torch_sampled_serving.py, both on this file's differential.
+Not mirrored: :171's kv_quant=False cases (the float pool, queue 1 item
+8). :450-480 (the ingress) are in
 tests/test_torch_ingress.py (429) and tests/test_torch_ingress_paged.py."""
 
 import jax

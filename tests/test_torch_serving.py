@@ -8,7 +8,9 @@ serve(paged=False), to solo generate, and with a draft model to its own
 plain rounds; the allocator and scheduling helpers held to the
 reference's by differential tests; and the options the port does not
 have yet refusing loudly (overcommit and the host tier are held in
-tests/test_torch_scheduler.py and tests/test_torch_host_tier.py)."""
+tests/test_torch_scheduler.py and tests/test_torch_host_tier.py,
+sampling in tests/test_torch_sampled_serving.py, the paged engine's
+speculative rounds in tests/test_torch_spec_serving.py)."""
 
 import jax
 import numpy as np
@@ -280,10 +282,24 @@ def test_scheduling_helpers_equal_reference():
                 == jserving._majority_chunk(active, cap))
 
 
+# Sampling and the paged speculative rounds are ported
+# (tests/test_torch_sampled_serving.py, tests/test_torch_spec_serving.py):
+# their cases here hold the reference's refusals, the same ValueError in
+# both packages; the engines still to port raise NotImplementedError.
+REFUSED = {
+    "sampling": ({"temperature": 0.8}, "explicit PRNG key"),
+    "spec rounds": ({"draft_params": True}, "draft_params requires "
+                                            "draft_cfg"),
+    "lookup": ({"spec_lookup": True, "draft_params": True,
+                "draft_cfg": True}, "REPLACES the model draft"),
+}
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"temperature": 0.8}, "sampling"),
     ({"draft_params": TPARAMS}, "spec rounds"),
-    ({"spec_lookup": True}, "spec rounds"),
+    pytest.param({"spec_lookup": True}, "spec rounds",
+                 id="spec_lookup-spec rounds"),
     ({"resident": True}, "item 8"),
     # serve(paged=False) is the slot engine now; with resident=True it is
     # still the unported resident engine.
@@ -294,8 +310,23 @@ def test_scheduling_helpers_equal_reference():
 def test_options_not_ported_raise(kw, item):
     args = {"paged": True, "kv_quant": True, "device": "cpu", **kw}
     reqs = [tserving.Request(rid=0, tokens=[1, 2], max_new=2)]
-    with pytest.raises(NotImplementedError, match=item):
-        tserving.serve(TPARAMS, TCFG, reqs, 2, **args)
+    if "spec_lookup" in kw:
+        item = "lookup"
+    if item not in REFUSED:
+        with pytest.raises(NotImplementedError, match=item):
+            tserving.serve(TPARAMS, TCFG, reqs, 2, **args)
+        return
+    refused, match = REFUSED[item]
+    jkw = {k: (JPARAMS if v is True and k == "draft_params" else
+               JCFG if v is True else v) for k, v in refused.items()}
+    tkw = {k: (TPARAMS if v is True and k == "draft_params" else
+               TCFG if v is True else v) for k, v in refused.items()}
+    with pytest.raises(ValueError, match=match):
+        jserving.serve(JPARAMS, JCFG, [jserving.Request(rid=0, tokens=[1, 2],
+                                                        max_new=2)], 2,
+                       paged=True, kv_quant=True, **jkw)
+    with pytest.raises(ValueError, match=match):
+        tserving.serve(TPARAMS, TCFG, reqs, 2, **{**args, **tkw})
 
 
 def test_deadlines_and_host_tier_not_ported_raise():
@@ -435,13 +466,18 @@ def test_slot_speculative_serve_commits_more_than_one_token_per_stream(
 
 
 def test_slot_pool_refusals_and_fault_seam():
-    """What the slot engine refuses (sampling, a draft without its config,
+    """What the slot engine refuses, as the reference's does (sampling
+    without a key, sampling with a draft, a draft without its config,
     gamma < 1, prompt lookup), and the pool.device seam failing a round
     before it dispatches."""
     reqs = [tserving.Request(rid=0, tokens=[1, 2], max_new=2)]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="explicit PRNG key"):
         tserving.serve(TPARAMS, TCFG, reqs, 2, temperature=0.5,
                        device="cpu")
+    with pytest.raises(ValueError, match="greedy-only"):
+        tserving.SlotPool(TPARAMS, TCFG, 2, temperature=0.5,
+                          key=np.zeros(2, np.uint32), draft_params=TPARAMS,
+                          draft_cfg=TCFG, device="cpu")
     with pytest.raises(ValueError, match="draft_cfg"):
         tserving.SlotPool(TPARAMS, TCFG, 2, draft_params=TPARAMS,
                           device="cpu")

@@ -6,7 +6,11 @@ generate(kv_kernel=False) and the reference's speculative_generate on the
 same bridged weights, whatever the draft; full acceptance when the draft
 is the target; the int8 KV path, where the draft's single-query steps run
 K5's plain version; ragged prompts; the acceptance statistics against the
-reference's; and the rejection of bad arguments."""
+reference's; and the rejection of bad arguments. Then sampled
+speculative decoding (test_speculative.py:106-170): the rejection scheme's
+tokens and rounds equal the reference's on its keys, the second token's
+marginal matches the target's, a draft that is the target accepts every
+proposal."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,7 @@ from tpu_bootstrap_torch.workload import bridge
 from tpu_bootstrap_torch.workload import decode as tdecode
 from tpu_bootstrap_torch.workload import decode_attention as tda
 from tpu_bootstrap_torch.workload import model as tmodel
+from tpu_bootstrap_torch.workload import prng
 from tpu_bootstrap_torch.workload import quant as tquant
 from tpu_bootstrap_torch.workload import speculative as tspec
 
@@ -194,9 +199,86 @@ def test_rejects_bad_arguments(models):
     with pytest.raises(ValueError, match="PRNG key"):
         tspec.speculative_generate(pt, pd, prompt, tt, td, 4,
                                    temperature=0.7, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5.7"):
+    with pytest.raises(ValueError, match="temperature must be >= 0"):
         tspec.speculative_generate(pt, pd, prompt, tt, td, 4,
-                                   temperature=0.7, key=0, device="cpu")
+                                   temperature=-0.5, device="cpu")
     with pytest.raises(ValueError, match="prompt_lengths"):
         tspec.speculative_generate(pt, pd, prompt, tt, td, 4,
                                    prompt_lengths=[7, 0, 3], device="cpu")
+
+
+# ---- sampled speculative decoding (queue 1 item 5.7) ------------------------
+
+
+def test_sampled_speculative_equals_reference(models):
+    """The rejection scheme on the reference's keys: split(key, 4) a round,
+    fold_in(draft_key, i), the uniform accept test, the resample: the same
+    tokens and rounds as the reference's."""
+    m = models
+    (jt, jd), (tt, td) = m["jcfg"], m["tcfg"]
+    (jpt, jpd), (tpt, tpd) = m["jparams"], m["tparams"]
+    for seed in (100, 101):
+        key = jax.random.PRNGKey(seed)
+        want, wstats = jspec.speculative_generate(
+            jpt, jpd, jnp.asarray(m["prompt"]), jt, jd, 10, gamma=3,
+            temperature=0.8, key=key, with_stats=True)
+        got, stats = tspec.speculative_generate(
+            tpt, tpd, m["prompt"], tt, td, 10, gamma=3, temperature=0.8,
+            key=np.asarray(key), with_stats=True, device="cpu")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert stats["verify_rounds"] == int(wstats["verify_rounds"])
+        assert stats["mean_committed"] == pytest.approx(
+            float(wstats["mean_committed"]))
+
+
+def test_sampled_speculative_matches_target_distribution():
+    """test_speculative.py:106: the second token's empirical marginal over
+    512 seeded draws (a vocabulary of 16) is within an L1 of 0.25 of its
+    exact marginal under the target alone; the same key repeats."""
+    vocab, t = 16, 0.8
+    tcfg = tmodel.ModelConfig(vocab_size=vocab, num_layers=1, num_heads=2,
+                              head_dim=16, embed_dim=16, mlp_dim=16,
+                              max_seq_len=32)
+    dcfg = tmodel.ModelConfig(vocab_size=vocab, num_layers=1, num_heads=1,
+                              head_dim=16, embed_dim=8, mlp_dim=8,
+                              max_seq_len=32)
+    target = tmodel.init_params(tcfg, seed=0, device="cpu")
+    draft = tmodel.init_params(dcfg, seed=1, device="cpu")
+    prompt = torch.tensor([[3, 1, 4]])
+    with torch.no_grad():
+        p1 = torch.softmax(tmodel.forward(target, prompt, tcfg)[0, -1] / t,
+                           -1)
+        ext = torch.cat([prompt.repeat(vocab, 1),
+                         torch.arange(vocab)[:, None]], dim=1)
+        p2 = torch.softmax(tmodel.forward(target, ext, tcfg)[:, -1] / t, -1)
+    want = (p1 @ p2).numpy()
+    counts = np.zeros(vocab)
+    for i in range(64):
+        toks = tspec.speculative_generate(
+            target, draft, prompt.repeat(8, 1), tcfg, dcfg, 2, gamma=2,
+            temperature=t, key=prng.key(100 + i), device="cpu")
+        for tok in toks[:, 1].tolist():
+            counts[tok] += 1
+    got = counts / counts.sum()
+    assert np.abs(got - want).sum() < 0.25, (got, want)
+    a, b = (tspec.speculative_generate(target, draft, prompt.repeat(8, 1),
+                                       tcfg, dcfg, 4, gamma=2, temperature=t,
+                                       key=prng.key(5), device="cpu")
+            for _ in range(2))
+    assert torch.equal(a, b)
+
+
+def test_sampled_draft_is_target_accepts_everything():
+    """test_speculative.py:153: with the draft the target, every draw is
+    accepted and every round commits gamma + 1."""
+    cfg = tmodel.ModelConfig(vocab_size=32, num_layers=1, num_heads=2,
+                             head_dim=16, embed_dim=16, mlp_dim=16,
+                             max_seq_len=64)
+    target = tmodel.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, 32, (2, 5), generator=torch.Generator()
+                           .manual_seed(2))
+    _, stats = tspec.speculative_generate(target, target, prompt, cfg, cfg,
+                                          21, gamma=4, temperature=1.0,
+                                          key=prng.key(3), with_stats=True,
+                                          device="cpu")
+    assert stats["mean_committed"] == pytest.approx(5.0)

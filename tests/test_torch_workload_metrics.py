@@ -447,7 +447,9 @@ def test_serve_demo_restores_the_latest_checkpoint(monkeypatch, capsys,
 @pytest.mark.parametrize("env, exc, match", [
     ({"WORKLOAD_PAGED": "1"}, NotImplementedError, "item 8"),
     ({"WORKLOAD_RESIDENT": "1"}, NotImplementedError, "item 8"),
-    ({"WORKLOAD_TEMPERATURE": "0.7"}, NotImplementedError, "item 5"),
+    # Sampling is ported: a negative temperature is the reference's error.
+    ({"WORKLOAD_TEMPERATURE": "-0.7"}, ValueError,
+     "temperature must be >= 0"),
     ({"WORKLOAD_TOP_K": "4"}, ValueError, "WORKLOAD_TEMPERATURE > 0"),
     ({"WORKLOAD_QUANT": "int3"}, ValueError, "int8|int4"),
     ({"WORKLOAD_QUANT": "int8", "WORKLOAD_SPECULATIVE": "1"}, ValueError,
@@ -460,6 +462,37 @@ def test_serve_demo_from_env_refusals(monkeypatch, env, exc, match):
         monkeypatch.setenv(k, v)
     with pytest.raises(exc, match=match):
         tserving.serve_demo_from_env(device="cpu")
+
+
+@pytest.mark.parametrize("env", [
+    {"WORKLOAD_TEMPERATURE": "0.7", "WORKLOAD_TOP_K": "4",
+     "WORKLOAD_TOP_P": "0.9"},
+    {"WORKLOAD_TEMPERATURE": "0.7", "WORKLOAD_PAGED": "1",
+     "WORKLOAD_KV_QUANT": "1", "WORKLOAD_QUANT": "int8"},
+    {"WORKLOAD_SPECULATIVE": "1", "WORKLOAD_PAGED": "1",
+     "WORKLOAD_KV_QUANT": "1"},
+    {"WORKLOAD_SPECULATIVE": "1"},
+], ids=["sampled_slot", "sampled_paged", "spec_paged", "spec_slot"])
+def test_serve_demo_from_env_samples_and_speculates(monkeypatch, capsys,
+                                                    env):
+    """The serve entry's sampling knobs (the pool key PRNGKey(seed + 1))
+    and WORKLOAD_SPECULATIVE (an unquantized target drafted by its int8
+    copy) on the slot and the paged engine: the demo serves every request;
+    a sampled demo run twice serves the same tokens (its summary line
+    equal but for the rate)."""
+    monkeypatch.setenv("WORKLOAD_MODEL", TINY_MODEL_ENV)
+    monkeypatch.setenv("WORKLOAD_REQUESTS", "3")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    lines = []
+    for _ in range(2 if "WORKLOAD_TEMPERATURE" in env else 1):
+        tserving.serve_demo_from_env(device="cpu")
+        out = capsys.readouterr().out
+        assert "serve done: 3 requests" in out
+        line = next(x for x in out.splitlines() if "serve done" in x)
+        lines.append(line.split(" tok/s")[0].rsplit(",", 1)[0]
+                     + line.split(" tok/s")[1])
+    assert len(set(lines)) == 1
 
 
 def test_worker_main_serves_and_exposes_metrics(monkeypatch, capsys):

@@ -29,6 +29,13 @@ On the card, ``generate``'s decode loop (without ``prompt_lengths``) is a
 CUDA graph of one step (``graphs``), replayed for every step after the
 first: the counterpart of the reference's jitted scan. ``decode_step``
 takes its position as a 0-d device tensor for that.
+
+Sampling (``temperature > 0``) draws as the reference does, bit for bit
+in its integer half (``prng``): temperature first, then the top-k and
+nucleus filters (``_filter_logits``), then a gumbel ``categorical`` with
+the next key of a split chain, or with ``fold_in(row_keys[r], offsets[r]
++ k)`` for token k of row r. The captured step samples too: its keys and
+offsets are static buffers the step reads (``Sampler``).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import numpy as np
 import torch
 
 from tpu_bootstrap_torch import telemetry
-from tpu_bootstrap_torch.workload import decode_attention, graphs, quant
+from tpu_bootstrap_torch.workload import decode_attention, graphs, prng, quant
 from tpu_bootstrap_torch.workload.flash_attention import flash_attention
 from tpu_bootstrap_torch.workload.moe import moe_mlp
 from tpu_bootstrap_torch.workload.model import (
@@ -364,13 +371,18 @@ def decode_step(params: Params, token: torch.Tensor, pos, caches: list,
     (``generate``'s captured step). ``pad`` (B,) are the left-pad widths
     of a ragged batch (per-row masks: the einsum path). Without ``pad``,
     an int8 cache attends through kernel K5 unless ``kv_kernel`` is off.
-    The reference's per-row frontier mode (``pos`` a vector) serves the
-    resident engine and comes with it."""
+    ``pos`` a (B,) tensor (``pad`` None) is the per-row frontier mode:
+    row b writes slot pos[b] of its own cache row, attends columns [0,
+    pos[b]] and takes rotary phase pos[b] (per-row masks: the einsum
+    path; the paged engine's draft window)."""
     max_len = caches[0]["k"].shape[1]
     dev = token.device
     cols = torch.arange(max_len, device=dev)
     slot = pos if isinstance(pos, torch.Tensor) else int(pos)
-    if pad is None:
+    if pad is None and isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos.long()[:, None]
+        valid = (cols[None, :] <= positions)[:, None, :]  # (B, 1, L)
+    elif pad is None:
         positions = (slot.reshape(1) if isinstance(slot, torch.Tensor)
                      else torch.tensor([slot], device=dev))
         valid = (cols <= slot)[None, :]
@@ -385,12 +397,82 @@ def decode_step(params: Params, token: torch.Tensor, pos, caches: list,
     return _logits(params, x)[:, 0], caches
 
 
+def _filter_logits(logits: torch.Tensor, top_k: int,
+                   top_p: float) -> torch.Tensor:
+    """The reference's sampling filters, static-shape: ``top_k > 0`` keeps
+    the logits at or above the k-th largest (every tie survives; k is
+    clamped to the vocabulary), ``top_p < 1`` keeps the smallest prefix of
+    the sorted vocabulary whose mass reaches p, each entry kept while the
+    mass BEFORE it is below p, so the top choice always survives. Dropped
+    entries become -inf."""
+    if top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        ordered = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(ordered, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # The cutoff is the smallest kept logit; everything below drops.
+        cutoff = ordered.masked_fill((cum - probs) >= top_p,
+                                     float("inf")).amin(dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+class Sampler:
+    """The reference's ``pick`` for sampled decoding, one per call or
+    pool: ``temperature`` applied first, then ``_filter_logits``, then a
+    gumbel ``categorical``. With ``row_keys`` (B, 2) token k of row r draws
+    with ``fold_in(row_keys[r], offsets[r] + k)``, a function of the row's
+    own stream position alone; without, every pick takes the next key of
+    the split chain held in ``chain`` (2,), advanced in place. The keys
+    and offsets are tensors on the logits' device that callers may load
+    in place between steps, so a captured step samples from them."""
+
+    def __init__(self, temperature: float, top_k: int = 0,
+                 top_p: float = 1.0, chain: torch.Tensor | None = None,
+                 row_keys: torch.Tensor | None = None,
+                 offsets: torch.Tensor | None = None):
+        self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+        self.chain, self.row_keys, self.offsets = chain, row_keys, offsets
+
+    def __call__(self, logits: torch.Tensor, idx) -> torch.Tensor:
+        """The tokens (B,) drawn from ``logits`` (B, V) as pick ``idx`` of
+        the stream (an int, or a (1,) device counter)."""
+        if self.chain is not None:
+            # The reference splits its chain before every pick, also when
+            # row keys draw: a consumed key is never reused.
+            keys = prng.split(self.chain)
+            self.chain.copy_(keys[0])
+        filt = _filter_logits(logits / self.temperature, self.top_k,
+                              self.top_p)
+        if self.row_keys is not None:
+            return prng.categorical(
+                prng.fold_in(self.row_keys, self.offsets + idx), filt)
+        return prng.categorical(keys[1], filt)
+
+
 def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
-             temperature: float = 0.0, kv_quant: bool = False,
+             temperature: float = 0.0, key=None, top_k: int = 0,
+             top_p: float = 1.0, kv_quant: bool = False,
              kv_kernel: bool | None = None, prefill_flash: bool = False,
-             prompt_lengths=None, device=None) -> torch.Tensor:
-    """Greedy generation: prompt (B, S) -> (B, steps) continuations. The
-    cache is sized S + steps. ``kv_kernel`` defaults to AUTO, which is on
+             prompt_lengths=None, row_keys=None, row_key_offsets=None,
+             device=None) -> torch.Tensor:
+    """Greedy (``temperature`` 0) or sampled generation: prompt (B, S) ->
+    (B, steps) continuations. The cache is sized S + steps.
+
+    Sampling is the reference's, bit for bit in its integer half
+    (``prng``): logits over ``temperature``, then the ``top_k`` and
+    ``top_p`` filters (``_filter_logits``), then a gumbel ``categorical``.
+    ``key`` (default ``PRNGKey(0)``, an array of two uint32 words) is
+    split before the first pick and before every later one. With
+    ``row_keys`` (B, 2), token k of row r draws with ``fold_in(row_keys[r],
+    row_key_offsets[r] + k)`` instead (offsets default to 0: the tokens a
+    row generated before this call), so a row's stream does not depend on
+    its batch or on how its decoding was cut into calls.
+
+    ``kv_kernel`` defaults to AUTO, which is on
     (the port's params live on one device): with ``kv_quant`` every decode
     step attends through kernel K5. ``kv_kernel=False`` keeps attention on
     the einsum path, which makes this the solo oracle the serving engines
@@ -400,18 +482,22 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
     device and reads them back once at the end. On the card, without
     ``prompt_lengths``, the decode step is a CUDA graph (``graphs``): its
     first run is the eager warm-up, then it is captured once per call (the
-    caches are this call's) and replayed for every later step; the prefill
-    stays eager."""
-    if temperature != 0.0:
-        raise NotImplementedError(
-            "sampling is not ported yet (ROADMAP queue 1 item 5: sampling "
-            "with threefry bit-parity)")
+    caches are this call's) and replayed for every later step, sampling
+    included; the prefill stays eager."""
     if prefill_flash and prompt_lengths is not None:
         raise ValueError(
             "prompt_lengths does not compose with prefill_flash (the "
             "flash causal mask cannot exclude per-row pads)")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if row_key_offsets is not None and row_keys is None:
+        raise ValueError("row_key_offsets requires row_keys")
+    if row_keys is not None and temperature == 0.0:
+        raise ValueError(
+            "row_keys given but temperature is 0 (greedy ignores them); "
+            "set temperature > 0 for per-row sampled streams")
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, s = prompt.shape
@@ -430,35 +516,52 @@ def generate(params: Params, prompt, cfg: ModelConfig, steps: int,
                             device=device)
         logits, caches = prefill(params, prompt, caches, cfg, lengths=lengths,
                                  flash=prefill_flash, kv_kernel=kv_kernel)
-        token = torch.argmax(logits, dim=-1)
+        sampler = None
+        if temperature != 0.0:
+            sampler = Sampler(
+                temperature, top_k, top_p,
+                chain=prng.as_key(prng.key(0) if key is None else key,
+                                  device).clone(),
+                row_keys=(None if row_keys is None
+                          else prng.as_key(row_keys, device)),
+                offsets=(None if row_keys is None else torch.as_tensor(
+                    0 if row_key_offsets is None else row_key_offsets,
+                    device=device).long().expand(b)))
+        token = (torch.argmax(logits, dim=-1) if sampler is None
+                 else sampler(logits, 0))
         runner = graphs.for_device(device) if pad is None else None
         if runner is not None:
             return _graphed_decode(runner, params, token, s, caches, cfg,
-                                   steps, kv_kernel)
+                                   steps, kv_kernel, sampler)
         toks = [token]
         for i in range(steps - 1):
             logits, caches = decode_step(params, token, s + i, caches, cfg,
                                          pad=pad, kv_kernel=kv_kernel)
-            token = torch.argmax(logits, dim=-1)
+            token = (torch.argmax(logits, dim=-1) if sampler is None
+                     else sampler(logits, i + 1))
             toks.append(token)
         return torch.stack(toks, dim=1).cpu()
 
 
 def _decode_graph_step(params: Params, tok: torch.Tensor, pos: torch.Tensor,
                        caches: list, out: torch.Tensor, step: torch.Tensor,
-                       cfg: ModelConfig, kv_kernel: bool) -> None:
+                       cfg: ModelConfig, kv_kernel: bool,
+                       sampler: Sampler | None = None) -> None:
     """``generate``'s decode step on static buffers, the body its graph
     captures: token ``tok`` (B,) at the 0-d position ``pos``, its argmax
-    written into ``out`` at column ``step``, all three advanced in
-    place."""
+    (or the ``sampler``'s draw, pick ``step`` of the stream) written into
+    ``out`` at column ``step``, all three advanced in place."""
     logits, _ = decode_step(params, tok, pos, caches, cfg,
                             kv_kernel=kv_kernel)
-    graphs.commit(torch.argmax(logits, dim=-1), tok, pos, out, step)
+    nxt = (torch.argmax(logits, dim=-1) if sampler is None
+           else sampler(logits, step))
+    graphs.commit(nxt, tok, pos, out, step)
 
 
 def _graphed_decode(runner, params: Params, token: torch.Tensor, s: int,
                     caches: list, cfg: ModelConfig, steps: int,
-                    kv_kernel: bool) -> torch.Tensor:
+                    kv_kernel: bool,
+                    sampler: Sampler | None = None) -> torch.Tensor:
     """The ``steps - 1`` decode steps after the prefill's token through
     ``runner``: the first the warm-up, then the capture, the rest replays;
     returns (B, steps) on the host."""
@@ -471,8 +574,27 @@ def _graphed_decode(runner, params: Params, token: torch.Tensor, s: int,
     step = torch.ones(1, dtype=torch.long, device=dev)
     runner.run("step", functools.partial(
         _decode_graph_step, params, tok, pos, caches, out, step, cfg,
-        kv_kernel), steps - 1)
+        kv_kernel, sampler), steps - 1)
     return out.cpu()
+
+
+def _fed_logits(params: Params, prompt: list, tokens: list,
+                cfg: ModelConfig, kv_quant: bool, device):
+    """The logits (vocab,) of every step of a run over one prompt that
+    emitted ``tokens``: the same prefill and decode steps as
+    ``generate(steps=len(tokens), kv_kernel=False)`` (the einsum oracle),
+    fed ``tokens`` instead of its own picks."""
+    device = resolve_device(device)
+    s, steps = len(prompt), len(tokens)
+    fed = torch.as_tensor(tokens, device=device).long()
+    caches = init_cache(cfg, 1, s + steps, quantized=kv_quant, device=device)
+    logits, caches = prefill(params, torch.as_tensor([prompt], device=device)
+                             .long(), caches, cfg, kv_kernel=False)
+    for i in range(steps):
+        if i:
+            logits, caches = decode_step(params, fed[i - 1:i], s + i - 1,
+                                         caches, cfg, kv_kernel=False)
+        yield logits[0].float()
 
 
 def greedy_margins(params: Params, prompt: list, tokens: list,
@@ -484,17 +606,73 @@ def greedy_margins(params: Params, prompt: list, tokens: list,
     fed ``tokens`` instead of its own argmaxes, so on that run's own
     output the logits are the ones it saw. A small margin marks a step
     where another run may fairly pick the other token (a near-tie)."""
-    device = resolve_device(device)
-    s, steps = len(prompt), len(tokens)
-    fed = torch.as_tensor(tokens, device=device).long()
-    caches = init_cache(cfg, 1, s + steps, quantized=kv_quant, device=device)
-    logits, caches = prefill(params, torch.as_tensor([prompt], device=device)
-                             .long(), caches, cfg, kv_kernel=False)
     margins = []
-    for i in range(steps):
-        if i:
-            logits, caches = decode_step(params, fed[i - 1:i], s + i - 1,
-                                         caches, cfg, kv_kernel=False)
-        top2 = torch.topk(logits[0].float(), 2).values
+    for logits in _fed_logits(params, prompt, tokens, cfg, kv_quant, device):
+        top2 = torch.topk(logits, 2).values
         margins.append(top2[0] - top2[1])
     return torch.stack(margins).tolist()
+
+
+def _pick_margin(logits: torch.Tensor, g: torch.Tensor, temperature: float,
+                 top_k: int, top_p: float) -> float:
+    """How far one sampled pick (logits (V,), gumbel noise ``g``) is from
+    another pick: twice the smallest shift of the logits, in logit units,
+    that changes the drawn token, so that it compares with a greedy top-2
+    margin. The candidates: the top-two gap of the filtered scaled logits
+    plus noise; a dropped token that would win if kept rising past the
+    smallest kept logit; the winner leaving the kept set, past the top-k
+    cutoff or by the mass before it reaching ``top_p`` (tokens below it
+    rising past it, or every mass scaled by at most exp(shift /
+    temperature))."""
+    t = temperature
+    x = logits.float() / t
+    z = _filter_logits(x, top_k, top_p) + g
+    kept = torch.isfinite(z)
+    win = int(torch.argmax(z))
+    top2 = torch.topk(z, 2).values
+    margins = [float(top2[0] - top2[1]) * t]
+    if bool(kept.all()):
+        return margins[0]
+    # Rivals: a dropped token enters once it passes the smallest kept one.
+    c_in = x[kept].min()
+    rivals = ~kept & (x + g > z[win])
+    if bool(rivals.any()):
+        margins.append(float(c_in - x[rivals].max()) * t)
+    # The winner leaves past the top-k cutoff ...
+    in_k = torch.isfinite(_filter_logits(x, top_k, 1.0))
+    if not bool(in_k.all()):
+        margins.append(float(x[win] - x[~in_k].max()) * t)
+    # ... or once the mass before it reaches top_p.
+    if top_p < 1.0:
+        xs, order = torch.sort(x.masked_fill(~in_k, float("-inf")),
+                               descending=True)
+        probs = torch.softmax(xs, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        r = int(torch.nonzero(order == win)[0])
+        before = float(cum[r] - probs[r])
+        if before > 0:
+            margins.append(t * math.log(top_p / before))
+        past = torch.nonzero((cum >= top_p + probs[r])
+                             & (torch.arange(len(xs), device=x.device) > r)
+                             & torch.isfinite(xs))
+        if len(past):
+            margins.append(float(xs[r] - xs[int(past[0])]) * t)
+    return min(margins)
+
+
+def sampled_margins(params: Params, prompt: list, tokens: list,
+                    cfg: ModelConfig, row_key, temperature: float,
+                    top_k: int = 0, top_p: float = 1.0, offset: int = 0,
+                    kv_quant: bool = False, device=None) -> list:
+    """The sampled counterpart of ``greedy_margins``, for a run that drew
+    ``tokens`` with row key ``row_key`` from stream position ``offset``:
+    each pick's distance from another pick in logit units (``_pick_margin``:
+    the top-two gap of logits plus gumbel noise, and the filters' cutoff),
+    comparable with a greedy margin. A small margin marks a step where
+    another run may fairly draw the other token."""
+    row_key = prng.as_key(row_key, resolve_device(device))
+    return [_pick_margin(logits, prng.gumbel(prng.fold_in(row_key, offset + i),
+                                             tuple(logits.shape)),
+                         temperature, top_k, top_p)
+            for i, logits in enumerate(_fed_logits(params, prompt, tokens,
+                                                   cfg, kv_quant, device))]

@@ -55,9 +55,10 @@ Routes, keys, metric names and knobs are the reference's:
 The port differs only here: the constructor takes ``device`` (None: the
 card, through ``model.resolve_device``), and what is not ported raises
 ``NotImplementedError`` naming its ROADMAP queue 1 item: ``resident=True``
-(item 8), a nonzero ``temperature``, ``top_k`` or ``top_p`` below 1 (item
-5), and, on the paged engine, a draft or ``spec_lookup`` (item 5) or
-``kv_quant=False`` (item 8), the last two raised by ``PagedPool``.
+and, on the paged engine, ``kv_quant=False`` (item 8, the latter raised by
+``PagedPool``). Sampling (``temperature``, ``top_k``, ``top_p`` and the
+pool ``key``) and the speculative rounds (a draft, or ``spec_lookup`` on
+the paged engine) are the pools' own, with the reference's checks.
 """
 
 from __future__ import annotations
@@ -142,7 +143,7 @@ class IngressServer:
     def __init__(self, params: Params, cfg: ModelConfig, *, port: int,
                  batch_size: int = 8, kv_quant: bool = False,
                  eos_id: int | None = None, temperature: float = 0.0,
-                 top_k: int = 0, top_p: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0, key=None,
                  draft_params: Params | None = None,
                  draft_cfg: ModelConfig | None = None, gamma: int = 4,
                  resident: bool = False, paged: bool = False,
@@ -160,17 +161,19 @@ class IngressServer:
         if resident:
             raise _not_ported("the resident engine (IngressServer with "
                               "resident=True)", "8: the other engines")
-        if top_k > 0 or top_p < 1.0:
-            raise _not_ported("sampling filters (top_k, top_p)",
-                              "5: sampling with threefry bit-parity")
         self.device = resolve_device(device)
+        # Sampling is the pool's: its temperature and filters come from the
+        # slice's env, and each request's stream from its server-assigned
+        # rid under the pool key.
         if paged:
             self.pool = PagedPool(params, cfg, batch_size,
                                   kv_blocks=kv_blocks, block_size=block_size,
                                   prefill_budget=prefill_budget,
                                   kv_quant=kv_quant, eos_id=eos_id,
-                                  temperature=temperature,
+                                  temperature=temperature, top_k=top_k,
+                                  top_p=top_p, key=key,
                                   draft_params=draft_params,
+                                  draft_cfg=draft_cfg, gamma=gamma,
                                   prefix_cache=prefix_cache,
                                   spec_lookup=spec_lookup,
                                   device=self.device)
@@ -181,6 +184,7 @@ class IngressServer:
                     "draft/verify seam; pick one of them")
             self.pool = SlotPool(params, cfg, batch_size, kv_quant=kv_quant,
                                  eos_id=eos_id, temperature=temperature,
+                                 top_k=top_k, top_p=top_p, key=key,
                                  draft_params=draft_params,
                                  draft_cfg=draft_cfg, gamma=gamma,
                                  device=self.device)

@@ -67,11 +67,31 @@ copy-on-write copy, the host restore, defrag's relocation and reset's
 zeroing all write into the tensors the pool holds, which also keeps the
 addresses the captured steps read.
 
+Sampling (``temperature > 0`` with a ``key``) is the reference's: token k
+of request r draws with ``fold_in(fold_in(fold_in(key, 1), r.rid), k)``
+(``prng``), after the temperature and the ``top_k`` / ``top_p`` filters,
+so a request's stream depends neither on its batch nor on its schedule,
+and a preempted, swapped, recomputed, cached or recovered row keeps it.
+Free and non-decoding rows draw with ``fold_in(fold_in(key, 0), slot)``
+and are discarded. The paged engine samples inside its captured decode
+step, from row keys and offsets in static buffers.
+
+Speculative rounds (``draft_params`` with ``draft_cfg`` and ``gamma``, or
+``spec_lookup``'s prompt-lookup drafts, ``ngram_lookup_drafts``) are
+greedy, as in the reference. On the paged engine each row commits its own
+accepted count (``_spec_round``): the draft's window steps gamma + 1
+tokens from each row's frontier, the target verifies last + gamma drafts
+in one multi-query chunk over its gathered window, and both windows are
+scattered back. The draft's pools share the target's block ids and
+tables, so the prefix cache, copy-on-write, the host tier and defrag move
+both. The round runs eagerly.
+
 Exactness: a request's tokens equal its solo greedy
 ``generate(kv_kernel=False)``, up to the order of float sums inside the
-kernels (the slot engine's speculative rounds commit the target's own
-argmaxes, so they equal its plain rounds); a preempted and resumed stream
-equals its never-preempted one, whichever arm resumed it.
+kernels (the speculative rounds commit the target's own argmaxes, so they
+equal plain rounds), and a sampled request's equal its solo sampled
+``generate`` with its row key; a preempted and resumed stream equals its
+never-preempted one, whichever arm resumed it.
 
 The Scheduler keeps the request log (``RequestLog``: each request's
 lifecycle events, a span tree at retirement) and the device ledger (each
@@ -82,8 +102,7 @@ resident row (``PagedPool.quarantine``), fed by the ``pool.device``,
 ``alloc``, ``sched.admit`` and ``swap.xfer`` fault seams.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): sampling, the paged engine's speculative rounds and prompt
-lookup, the resident engine and the float-pool gather path.
+queue 1 item): the resident engine and the float-pool gather path.
 """
 
 from __future__ import annotations
@@ -107,9 +126,12 @@ from tpu_bootstrap_torch.workload import (
     decode_attention,
     faults,
     graphs,
+    prng,
     quant,
 )
 from tpu_bootstrap_torch.workload.decode import (
+    Sampler,
+    decode_step,
     generate,
     init_paged_cache,
     paged_decode_step,
@@ -159,6 +181,8 @@ class _Slot:
     priority: int = 0
     seq: int = 0
     deadline: float | None = None
+    # The request's sampling key (2,), fixed at admission (sampled pools).
+    row_key: object = None
 
 
 @dataclasses.dataclass
@@ -890,15 +914,18 @@ def _paged_prefill_chunk(params: Params, pools: list, bt: torch.Tensor,
 
 def _paged_chunk_kernel(params: Params, pools: list, bt: torch.Tensor,
                         last: torch.Tensor, pos: torch.Tensor,
-                        cfg: ModelConfig, chunk: int) -> torch.Tensor:
-    """``chunk`` greedy decode steps over the paged pools: every step
-    writes each row's new KV at its frontier and attends over the row's
-    own blocks through kernel K2. Tokens stay on the device; returns
-    (B, chunk)."""
+                        cfg: ModelConfig, chunk: int,
+                        sampler: Sampler | None = None) -> torch.Tensor:
+    """``chunk`` decode steps over the paged pools: every step writes each
+    row's new KV at its frontier and attends over the row's own blocks
+    through kernel K2, then takes the argmax, or the ``sampler``'s draw
+    (step i of the chunk is pick i past each row's offset). Tokens stay on
+    the device; returns (B, chunk)."""
     tok, p, toks = last, pos, []
-    for _ in range(chunk):
+    for i in range(chunk):
         logits, _ = paged_decode_step(params, tok, p, pools, bt, cfg)
-        tok = torch.argmax(logits, dim=-1)
+        tok = (torch.argmax(logits, dim=-1) if sampler is None
+               else sampler(logits, i))
         toks.append(tok)
         p = p + 1
     return torch.stack(toks, dim=1)
@@ -906,13 +933,83 @@ def _paged_chunk_kernel(params: Params, pools: list, bt: torch.Tensor,
 
 def _paged_graph_step(params: Params, pools: list, bt: torch.Tensor,
                       tok: torch.Tensor, pos: torch.Tensor, out: torch.Tensor,
-                      step: torch.Tensor, cfg: ModelConfig) -> None:
+                      step: torch.Tensor, cfg: ModelConfig,
+                      sampler: Sampler | None = None) -> None:
     """One step of ``_paged_chunk_kernel`` on the pool's static buffers,
     the body its graphs capture: tokens ``tok`` (B,) at frontiers ``pos``
-    (B,) through table ``bt`` (B, nb), the argmax written into ``out``
-    (B, C) at column ``step``, and all three advanced in place."""
+    (B,) through table ``bt`` (B, nb), the argmax (or the ``sampler``'s
+    draw from its static keys and offsets, pick ``step``) written into
+    ``out`` (B, C) at column ``step``, and all three advanced in place."""
     logits, _ = paged_decode_step(params, tok, pos, pools, bt, cfg)
-    graphs.commit(torch.argmax(logits, dim=-1), tok, pos, out, step)
+    nxt = (torch.argmax(logits, dim=-1) if sampler is None
+           else sampler(logits, step))
+    graphs.commit(nxt, tok, pos, out, step)
+
+
+def _spec_draft_window(draft_params: Params, dwindow: list,
+                       last: torch.Tensor, pos: torch.Tensor,
+                       draft_cfg: ModelConfig, gamma: int) -> torch.Tensor:
+    """The draft half of a paged speculative round: gamma + 1 greedy draft
+    steps from each row's own frontier ``pos`` (B,) over the draft's
+    gathered window (written in place), the per-row frontier mode of
+    ``decode_step``. The extra step writes the last proposal's KV, so a
+    round that accepts everything leaves no hole in the draft's cache.
+    Returns the proposals (B, gamma)."""
+    tok, drafts = last, []
+    for i in range(gamma + 1):
+        logits, _ = decode_step(draft_params, tok, pos + i, dwindow,
+                                draft_cfg, kv_kernel=False)
+        tok = torch.argmax(logits, dim=-1)
+        drafts.append(tok)
+    return torch.stack(drafts[:gamma], dim=1)
+
+
+def _spec_verify_window(params: Params, window: list, drafts: torch.Tensor,
+                        last: torch.Tensor, pos: torch.Tensor,
+                        cfg: ModelConfig) -> tuple:
+    """The verify half: each row's chunk (last + its gamma drafts) scored
+    from its own frontier in one multi-query forward over the target's
+    window (written in place). Every row commits its own accepted count
+    + 1 of the target's argmaxes. Returns (greedy (B, gamma + 1), counts
+    (B,))."""
+    chunk = torch.cat([last[:, None], drafts], dim=1)
+    vlogits, _ = _verify_chunk(params, chunk, pos, window, cfg)
+    greedy = torch.argmax(vlogits, dim=-1)
+    match = (drafts == greedy[:, :-1]).long()
+    return greedy, torch.cumprod(match, dim=1).sum(dim=1) + 1
+
+
+def ngram_lookup_drafts(history: list, gamma: int, max_n: int = 3) -> list:
+    """Prompt-lookup drafting, the reference's: the ``gamma`` tokens that
+    followed the most recent earlier occurrence of the history's trailing
+    n-gram, the longest n first (``max_n`` down to 1). A short continuation
+    is padded, and a history with no match falls back, by repeating the
+    last token. The verify chunk commits the target's own argmaxes
+    whatever is proposed."""
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    hist = list(history)
+    fallback = [hist[-1]] * gamma if hist else [0] * gamma
+    for n in range(min(max_n, len(hist) - 1), 0, -1):
+        pat = hist[-n:]
+        # The most recent earlier occurrence with a token after it.
+        for start in range(len(hist) - n - 1, -1, -1):
+            if hist[start:start + n] == pat:
+                cont = hist[start + n:start + n + gamma]
+                return cont + fallback[:gamma - len(cont)]
+    return fallback
+
+
+def _stream_key(key: torch.Tensor, rid: int) -> torch.Tensor:
+    """A request's sampling key: ``fold_in(fold_in(key, 1), rid)``, fixed
+    at admission (domain 1; the dummy rows' keys are domain 0)."""
+    return prng.fold_in(prng.fold_in(key, 1), rid)
+
+
+def _dummy_keys(key: torch.Tensor, batch_size: int) -> list:
+    """The keys of free or non-decoding rows, one a slot:
+    ``fold_in(fold_in(key, 0), slot)``; their draws are discarded."""
+    return [prng.fold_in(prng.fold_in(key, 0), i) for i in range(batch_size)]
 
 
 def _copy_block(pools: list, src: int, dst: int) -> None:
@@ -986,6 +1083,97 @@ class _PoolBase:
         return {"new": [], "done": True, "generated": list(s.generated)}
 
     @staticmethod
+    def _check_pool_args(batch_size, temperature, key, draft_params,
+                         draft_cfg, gamma, spec_lookup=False) -> None:
+        """The constructor checks every engine shares, the reference's
+        rules and messages."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if temperature > 0 and key is None:
+            # A silent fixed seed would give every sampled request the
+            # same continuation.
+            raise ValueError("temperature > 0 requires an explicit PRNG key")
+        if draft_params is not None:
+            if temperature > 0:
+                raise ValueError(
+                    "speculative serving is greedy-only: sampled "
+                    "speculative draws from a shared key chain, so a "
+                    "request's tokens would depend on its batch cohort")
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+        if spec_lookup:
+            if draft_params is not None:
+                raise ValueError(
+                    "spec_lookup REPLACES the model draft (drafts are "
+                    "copied from the prompt/prior output); drop "
+                    "draft_params or drop spec_lookup")
+            if temperature > 0:
+                raise ValueError(
+                    "spec_lookup serving is greedy-only, like every "
+                    "speculative mode: the verify-commit loop commits "
+                    "target argmaxes")
+        if (draft_params is not None or spec_lookup) and gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+
+    def _sampling_init(self, temperature: float, top_k: int, top_p: float,
+                       key) -> None:
+        """The pool's sampling settings; the key and the dummy rows' keys
+        live on the host, as the requests' keys do."""
+        self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+        self.key = None if key is None else prng.as_key(key, "cpu")
+        self._dummy_keys = (_dummy_keys(self.key, self.batch_size)
+                            if temperature > 0 else None)
+
+    def _row_keys(self, rows: list) -> tuple:
+        """(row keys (B, 2), offsets (B,)) on the host for a sampled round
+        over ``rows`` (one entry a slot, None for a row that does not
+        draw): each drawing row's own key and the tokens it generated so
+        far, a dummy key and 0 for the rest."""
+        keys = torch.stack([s.row_key if s is not None else self._dummy_keys[i]
+                            for i, s in enumerate(rows)])
+        offs = torch.tensor([len(s.generated) if s is not None else 0
+                             for s in rows], dtype=torch.long)
+        return keys, offs
+
+    def _record_stream_gauges(self) -> None:
+        """The weight bytes a decode step of the target (and the draft)
+        streams, as gauges."""
+        reg = telemetry.metrics()
+        reg.set_gauge("serve_target_stream_bytes",
+                      quant.decode_stream_bytes(self.params))
+        if getattr(self, "draft_params", None) is not None:
+            reg.set_gauge("serve_draft_stream_bytes",
+                          quant.decode_stream_bytes(self.draft_params))
+
+    def _validate_spec_headroom(self, r: Request, cfg: ModelConfig) -> None:
+        """Speculative rounds write up to gamma slots past a row's
+        frontier, so the budget must leave that headroom below the cap."""
+        if self._spec:
+            if len(r.tokens) + r.max_new + self.gamma > cfg.max_seq_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt + max_new + gamma "
+                    f"({len(r.tokens)} + {r.max_new} + {self.gamma}) "
+                    f"exceeds max_seq_len ({cfg.max_seq_len}); speculative "
+                    "rounds write up to gamma slots past the frontier")
+
+    def _record_acceptance(self, counts, rows) -> None:
+        """Acceptance of a verify round over the slots ``rows`` that
+        decoded in it: counts[i] - 1 of each row's gamma proposals were
+        accepted. Keeps each row's count for its ``decode_round`` event,
+        and the cumulative ratio as the serve_spec_accept_rate gauge."""
+        self._last_accepts = {i: min(int(counts[i]) - 1, self.gamma)
+                              for i in rows}
+        self.stats["draft_accepted"] += sum(self._last_accepts.values())
+        self.stats["draft_proposed"] += self.gamma * len(rows)
+        if self.stats["draft_proposed"]:
+            telemetry.metrics().set_gauge(
+                "serve_spec_accept_rate",
+                round(self.stats["draft_accepted"]
+                      / self.stats["draft_proposed"], 4))
+
+    @staticmethod
     def validate(r: Request, cfg: ModelConfig) -> None:
         if r.max_new < 1:
             raise ValueError(f"request {r.rid}: max_new must be >= 1")
@@ -1045,8 +1233,12 @@ class _PoolBase:
             events[s.rid] = {"new": got, "done": done,
                              "generated": s.generated}
             if self.request_log is not None and got:
-                self._levent(s.rid, "decode_round", tokens=len(got),
-                             round=self.stats.get("rounds", 0))
+                dr = {"tokens": len(got),
+                      "round": self.stats.get("rounds", 0)}
+                acc = getattr(self, "_last_accepts", None)
+                if acc is not None and i in acc:
+                    dr["accepted"] = acc[i]
+                self._levent(s.rid, "decode_round", **dr)
             if done:
                 if self.request_log is not None:
                     # Before _on_retire clears the table: the footprint is
@@ -1067,28 +1259,22 @@ class _PoolBase:
 class SlotPool(_PoolBase):
     """The replay-slot engine: ``batch_size`` decode slots, no KV cache
     kept between rounds, every round a ragged left-padded replay of the
-    active histories through ``generate`` (greedy, the einsum path: per-row
-    masks). With ``draft_params`` each round runs the speculative
-    verify-commit loop instead, which commits the target's own argmaxes,
-    so the streams are unchanged. Drive it with ``admit`` and
-    ``step_round``."""
+    active histories through ``generate`` (the einsum path: per-row masks),
+    greedy, or sampled at ``temperature`` with ``top_k`` / ``top_p`` from
+    each request's stream key under ``key``. With ``draft_params`` each
+    round runs the speculative verify-commit loop instead (greedy only),
+    which commits the target's own argmaxes, so the streams are unchanged.
+    Drive it with ``admit`` and ``step_round``."""
 
     def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
                  kv_quant: bool = False, eos_id: int | None = None,
-                 temperature: float = 0.0,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, key=None,
                  draft_params: Params | None = None,
                  draft_cfg: ModelConfig | None = None, gamma: int = 4,
                  device=None):
-        if temperature != 0.0:
-            raise _not_ported("sampling (temperature > 0)",
-                              "5: sampling with threefry bit-parity")
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if draft_params is not None:
-            if draft_cfg is None:
-                raise ValueError("draft_params requires draft_cfg")
-            if gamma < 1:
-                raise ValueError(f"gamma must be >= 1, got {gamma}")
+        self._check_pool_args(batch_size, temperature, key, draft_params,
+                              draft_cfg, gamma)
         self.device = resolve_device(device)
         for name, tree in (("params", params), ("draft_params", draft_params)):
             if tree is not None and tree["embed"].device != self.device:
@@ -1098,16 +1284,17 @@ class SlotPool(_PoolBase):
         self.batch_size = batch_size
         self.kv_quant = kv_quant
         self.eos_id = eos_id
+        self._sampling_init(temperature, top_k, top_p, key)
         self.draft_params, self.draft_cfg, self.gamma = (
             draft_params, draft_cfg, gamma)
+        self._spec = draft_params is not None
         self.slots: list = [None] * batch_size
         self.stats = {"rounds": 0, "slot_steps": 0, "active_slot_steps": 0,
                       "replayed_tokens": 0}
         if draft_params is not None:
             self.stats.update({"verify_rounds": 0, "committed_tokens": 0,
                                "draft_steps": 0})
-        telemetry.metrics().set_gauge("serve_target_stream_bytes",
-                                      quant.decode_stream_bytes(params))
+        self._record_stream_gauges()
 
     def reset(self) -> None:
         """Abandon every in-flight row; the pool keeps no device state
@@ -1136,7 +1323,9 @@ class SlotPool(_PoolBase):
         self.slots[self._free_index()] = _Slot(
             rid=r.rid, history=list(r.tokens), remaining=r.max_new,
             generated=[], priority=r.priority, seq=seq,
-            deadline=r.deadline)
+            deadline=r.deadline,
+            row_key=(_stream_key(self.key, r.rid)
+                     if self.temperature > 0 else None))
 
     def step_round(self) -> dict:
         """One round over the active slots; returns the event fold's
@@ -1157,20 +1346,40 @@ class SlotPool(_PoolBase):
                 batch[i, width - len(s.history):] = torch.tensor(s.history)
         batch = batch.to(self.device)
         if self.draft_params is None:
+            sample_kw = {}
+            if self.temperature > 0:
+                # Each request's stream key and position, so rescheduling
+                # cannot change its tokens; free slots draw with their
+                # dummy keys, discarded.
+                row_keys, offs = self._row_keys(self.slots)
+                sample_kw = {"temperature": self.temperature,
+                             "top_k": self.top_k, "top_p": self.top_p,
+                             "row_keys": row_keys.to(self.device),
+                             "row_key_offsets": offs.to(self.device)}
             out = generate(self.params, batch, self.cfg, chunk,
                            kv_quant=self.kv_quant, prompt_lengths=lens,
-                           device=self.device)
+                           device=self.device, **sample_kw)
         else:
+            t0 = time.perf_counter()
             out, spec = speculative_generate(
                 self.params, self.draft_params, batch, self.cfg,
                 self.draft_cfg, chunk, gamma=self.gamma,
                 kv_quant=self.kv_quant, with_stats=True, prompt_lengths=lens,
                 device=self.device)
-            self.stats["verify_rounds"] += spec["verify_rounds"]
+            rounds = spec["verify_rounds"]
+            # One loop for all its rounds: the split is per round only.
+            telemetry.metrics().observe(
+                "serve_spec_round_ms",
+                (time.perf_counter() - t0) * 1e3 / max(rounds, 1))
+            self.stats["verify_rounds"] += rounds
             # gamma + 1 draft steps a verify round (speculative.py's
             # draft-cache-hole note).
-            self.stats["draft_steps"] += (spec["verify_rounds"]
-                                          * (self.gamma + 1))
+            self.stats["draft_steps"] += rounds * (self.gamma + 1)
+            if rounds > 0:
+                # Lockstep commits: chunk / rounds is every row's value.
+                telemetry.metrics().observe(
+                    "serve_spec_committed_per_round", chunk / rounds,
+                    buckets=tuple(range(1, self.gamma + 2)))
             self.stats["committed_tokens"] += len(active) * chunk
         self.stats["rounds"] += 1
         self.stats["replayed_tokens"] += sum(len(s.history) for s in active)
@@ -1180,12 +1389,15 @@ class SlotPool(_PoolBase):
             self._ledger_add(s.rid, "prefill", len(s.history))
         self.stats["slot_steps"] += self.batch_size * chunk
         self.stats["active_slot_steps"] += len(active) * chunk
-        return self._emit_events(out.tolist(), [chunk] * self.batch_size)
+        return self._emit_events(
+            out.tolist(), [chunk] * self.batch_size,
+            kind="verify" if self.draft_params is not None else "decode")
 
 
 class PagedPool(_PoolBase):
     """Block-paged continuous batching over int8 or int4 weights (dense
-    or MoE) and an int8 KV pool: ``batch_size`` rows at most, ``kv_blocks`` blocks of
+    or MoE; unquantized ones when drafted by their int8 copy) and an int8
+    KV pool: ``batch_size`` rows at most, ``kv_blocks`` blocks of
     ``block_size`` tokens (default: ``batch_size`` max-length rows'
     worth), prompts prefilled in chunks of at most ``prefill_budget``
     tokens per round, full prompt blocks shared through the prefix cache
@@ -1194,15 +1406,21 @@ class PagedPool(_PoolBase):
     many as ``kv_blocks``; 0: none). ``block_size``, ``prefill_budget``,
     ``prefix_cache`` and ``spec_lookup`` left None read the reference's
     knobs: ``TPUBC_KV_BLOCK`` (64), ``TPUBC_PREFILL_BUDGET`` (64),
-    ``TPUBC_PREFIX_CACHE`` (on) and ``TPUBC_SPEC_LOOKUP`` (off). Drive it
-    with ``admit`` and ``step_round``; preempted rows' resume records
-    collect in ``preempted``."""
+    ``TPUBC_PREFIX_CACHE`` (on) and ``TPUBC_SPEC_LOOKUP`` (off).
+    ``temperature`` > 0 samples with ``top_k`` / ``top_p`` from each
+    request's stream key under ``key``; ``draft_params`` with
+    ``draft_cfg``, or ``spec_lookup``, turns every decode into a greedy
+    speculative round of ``gamma`` proposals. Drive it with ``admit`` and
+    ``step_round``; preempted rows' resume records collect in
+    ``preempted``."""
 
     def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
                  kv_blocks: int | None = None, block_size: int | None = None,
                  prefill_budget: int | None = None, kv_quant: bool = False,
                  eos_id: int | None = None, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0, key=None,
                  draft_params: Params | None = None,
+                 draft_cfg: ModelConfig | None = None, gamma: int = 4,
                  spec_lookup: bool | None = None,
                  prefix_cache: bool | None = None,
                  host_blocks: int | None = None, device=None):
@@ -1212,17 +1430,11 @@ class PagedPool(_PoolBase):
         if spec_lookup is None:
             spec_lookup = os.environ.get(
                 "TPUBC_SPEC_LOOKUP", "").lower() in ("1", "true")
-        if temperature != 0.0:
-            raise _not_ported("sampling (temperature > 0)",
-                              "5: sampling with threefry bit-parity")
-        if draft_params is not None or spec_lookup:
-            raise _not_ported("speculative serving (draft_params, "
-                              "spec_lookup)", "5: paged spec rounds")
+        self._check_pool_args(batch_size, temperature, key, draft_params,
+                              draft_cfg, gamma, spec_lookup=spec_lookup)
         if not kv_quant:
             raise _not_ported("the float KV pool (gather/einsum decode)",
                               "8: the other engines")
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if block_size is None:
             block_size = int(os.environ.get("TPUBC_KV_BLOCK", "64"))
         if block_size < 1:
@@ -1239,9 +1451,10 @@ class PagedPool(_PoolBase):
                 f"Hk={cfg.kv_heads}, D={cfg.head_dim}) is outside the paged "
                 "kernel's limits; see decode_attention.paged_supports")
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"pool on {self.device}")
+        for name, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is not None and tree["embed"].device != self.device:
+                raise ValueError(f"{name} live on {tree['embed'].device}, "
+                                 f"the pool on {self.device}")
         self.block_size = block_size
         self.max_bpr = -(-cfg.max_seq_len // block_size)  # blocks per row cap
         if kv_blocks is None:
@@ -1253,6 +1466,11 @@ class PagedPool(_PoolBase):
         self.batch_size = batch_size
         self.kv_quant = kv_quant
         self.eos_id = eos_id
+        self._sampling_init(temperature, top_k, top_p, key)
+        self.draft_params, self.draft_cfg, self.gamma = (
+            draft_params, draft_cfg, gamma)
+        self.spec_lookup = spec_lookup
+        self._spec = draft_params is not None or spec_lookup
         if prefix_cache is None:
             prefix_cache = os.environ.get(
                 "TPUBC_PREFIX_CACHE", "1").lower() not in ("0", "false")
@@ -1267,6 +1485,11 @@ class PagedPool(_PoolBase):
         # kv_blocks usable blocks + the null block (id 0).
         self.pools = init_paged_cache(cfg, kv_blocks + 1, block_size,
                                       quantized=True, device=self.device)
+        # The draft's pools follow the target's frontiers block for block:
+        # one allocator and one table per row drive both.
+        self.dpools = (init_paged_cache(draft_cfg, kv_blocks + 1, block_size,
+                                        quantized=True, device=self.device)
+                       if draft_params is not None else None)
         self.slots: list = [None] * batch_size
         self._pre_rr = 0  # round-robin cursor over prefilling rows
         # Resume records of preempted rows, drained by the Scheduler into
@@ -1278,10 +1501,18 @@ class PagedPool(_PoolBase):
                       "defrags": 0, "prompt_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_hit_requests": 0,
                       "cow_copies": 0, "preemptions": 0, "grown_blocks": 0}
+        if self._spec:
+            self.stats.update({"verify_rounds": 0, "committed_tokens": 0,
+                               "draft_steps": 0, "draft_proposed": 0,
+                               "draft_accepted": 0})
         # Measured prefill cost per token (an EMA over the prefill phase),
         # the recompute arm's price; None until a prefill chunk has run.
         self._prefill_ms_per_tok: float | None = None
-        self._kv_bytes_per_tok = kv_bytes_per_token(cfg, kv_quant)
+        # KV bytes a token pins, the draft's pools included (a swap moves
+        # both).
+        self._kv_bytes_per_tok = kv_bytes_per_token(cfg, kv_quant) + (
+            kv_bytes_per_token(draft_cfg, kv_quant)
+            if draft_params is not None else 0)
         # The decode chunk's captured steps (None off the card) and the
         # static buffers they read and advance: last tokens, frontiers, a
         # step counter, the chunk's output (B, the largest chunk) and one
@@ -1294,6 +1525,15 @@ class PagedPool(_PoolBase):
         self._out = torch.zeros((batch_size, _bucket_down(cfg.max_seq_len)),
                                 dtype=torch.long, device=self.device)
         self._tables: dict = {}
+        # Sampled pools: the rows' keys and stream offsets, loaded before
+        # each chunk, which the sampler (and so the captured step) reads.
+        self._sampler = None
+        if temperature > 0:
+            self._rkeys = torch.zeros((batch_size, 2), dtype=torch.long,
+                                      device=self.device)
+            self._roff = torch.zeros_like(self._tok)
+            self._sampler = Sampler(temperature, top_k, top_p,
+                                    row_keys=self._rkeys, offsets=self._roff)
         # Set while an in-place write of the pools is under way (a prefill
         # chunk's scatter, a copy-on-write copy, a host restore, a decode
         # chunk, defrag): a failure that leaves it set may have written
@@ -1301,26 +1541,33 @@ class PagedPool(_PoolBase):
         # pools instead of salvaging their content.
         self._torn = False
         self._host_init(host_blocks)
-        telemetry.metrics().set_gauge("serve_target_stream_bytes",
-                                      quant.decode_stream_bytes(params))
+        self._record_stream_gauges()
         self._record_block_gauges()
 
     # ---- capacity ---------------------------------------------------------
 
+    def _over(self) -> int:
+        """Speculative rounds (a model draft or prompt lookup) write up to
+        gamma positions past the frontier: every capacity computation
+        covers that."""
+        return self.gamma if self._spec else 0
+
     def blocks_needed(self, r: Request) -> int:
         """Blocks the request's whole footprint reserves (refusal
         admission's reservation, and the bound ``validate`` checks)."""
-        return -(-(len(r.tokens) + r.max_new) // self.block_size)
+        return -(-(len(r.tokens) + r.max_new + self._over())
+                 // self.block_size)
 
     def _reserve_blocks(self, history_len: int, remaining: int,
                         reserve_new: int | None) -> int:
         """Blocks admission reserves now: the whole history plus the
         reserved slice of the decode budget, all of it when
         ``reserve_new`` is None (refusal admission), else the Scheduler's
-        estimate clamped into [1, remaining]."""
+        estimate clamped into [1, remaining], plus the speculative
+        overshoot."""
         new = (remaining if reserve_new is None
                else max(1, min(remaining, reserve_new)))
-        return -(-(history_len + new) // self.block_size)
+        return -(-(history_len + new + self._over()) // self.block_size)
 
     def admits(self, r: Request, *, extra_slots: int = 0,
                extra_blocks: int = 0, reserve_new: int | None = None,
@@ -1350,6 +1597,7 @@ class PagedPool(_PoolBase):
 
     def validate(self, r: Request, cfg: ModelConfig) -> None:
         _PoolBase.validate(r, cfg)
+        self._validate_spec_headroom(r, cfg)
         if self.blocks_needed(r) > self.allocator.num_blocks:
             raise ValueError(
                 f"request {r.rid}: needs {self.blocks_needed(r)} KV blocks "
@@ -1374,7 +1622,7 @@ class PagedPool(_PoolBase):
         self.preempted.clear()
         self.allocator = BlockAllocator(self.allocator.num_blocks,
                                         self.block_size)
-        for layer in self.pools:
+        for layer in self.pools + (self.dpools or []):
             for a in layer.values():
                 a.zero_()
         self._torn = False
@@ -1488,29 +1736,37 @@ class PagedPool(_PoolBase):
             "serve_swap_bandwidth_gbps", round(self._host_gbps_ema, 4))
 
     def _host_fetch(self, bid: int) -> dict:
-        """Copy ONE block of every layer (K, V and their scales) to host
-        memory: the demotion and swap-out transfer. Each copy waits for the
+        """Copy ONE block of every layer (K, V and their scales) of the
+        target's pools ("t") and the draft's ("d", None without a draft) to
+        host memory: the demotion and swap-out transfer. Each copy waits for the
         device, at a round boundary only. The ``swap.xfer`` fault fires
         before the device is touched, so a failed transfer leaves nothing
         half-copied."""
         faults.fire("swap.xfer")
         t = [{n: a[bid].to("cpu", copy=True) for n, a in layer.items()}
              for layer in self.pools]
-        nbytes = sum(x.numel() * x.element_size() for layer in t
+        d = ([{n: a[bid].to("cpu", copy=True) for n, a in layer.items()}
+              for layer in self.dpools]
+             if self.dpools is not None else None)
+        nbytes = sum(x.numel() * x.element_size() for layer in t + (d or [])
                      for x in layer.values())
-        return {"t": t, "d": None, "bytes": nbytes}
+        return {"t": t, "d": d, "bytes": nbytes}
 
     def _host_restore(self, ids: list, entries: list) -> int:
-        """Promote host entries into blocks ``ids``: per pool tensor ONE
-        stacked host-to-device copy and one ``index_copy_`` into the
-        tensor the pool holds (in place: the captured steps read its
-        address). Waits for the device, so the time is the transfer's.
-        Returns the bytes moved."""
+        """Promote host entries into blocks ``ids`` of the target's pools
+        (and the draft's): per pool tensor ONE stacked host-to-device copy
+        and one ``index_copy_`` into the tensor the pool holds (in place:
+        the captured steps read its address). Waits for the device, so the
+        time is the transfer's. Returns the bytes moved."""
         idx = torch.tensor(ids, dtype=torch.long, device=self.device)
-        for li, layer in enumerate(self.pools):
-            for n, a in layer.items():
-                payload = torch.stack([e["t"][li][n] for e in entries])
-                a.index_copy_(0, idx, payload.to(self.device))
+        halves = [("t", self.pools)]
+        if self.dpools is not None:
+            halves.append(("d", self.dpools))
+        for half, pools in halves:
+            for li, layer in enumerate(pools):
+                for n, a in layer.items():
+                    payload = torch.stack([e[half][li][n] for e in entries])
+                    a.index_copy_(0, idx, payload.to(self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return sum(e["bytes"] for e in entries)
@@ -1780,6 +2036,8 @@ class PagedPool(_PoolBase):
         if cow is not None:
             with self._writing():
                 _copy_block(self.pools, cow, fresh[fi])
+                if self.dpools is not None:
+                    _copy_block(self.dpools, cow, fresh[fi])
             self.allocator.free([cow])  # unpin
             hit_tokens = min(hit_tokens + self.block_size, prompt_len - 1)
             self.stats["cow_copies"] += 1
@@ -1812,7 +2070,11 @@ class PagedPool(_PoolBase):
         self.slots[i] = _PagedSlot(
             rid=r.rid, history=history, remaining=remaining,
             generated=list(preload or []), priority=r.priority, seq=seq,
-            deadline=r.deadline, prompt_len=prompt_len,
+            deadline=r.deadline,
+            # A resumed row keeps its stream: the key is the rid's.
+            row_key=(_stream_key(self.key, r.rid)
+                     if self.temperature > 0 else None),
+            prompt_len=prompt_len,
             prefilled=hit_tokens, admit_round=self.stats["rounds"],
             blocks=blocks, n_shared=len(shared), registered=len(plan),
             chain_key=chain, cached_tokens=hit_tokens)
@@ -1964,6 +2226,9 @@ class PagedPool(_PoolBase):
                 with self._writing():
                     _paged_prefill_chunk(self.params, self.pools, bt,
                                          tokens, pos, self.cfg)
+                    if self.dpools is not None:
+                        _paged_prefill_chunk(self.draft_params, self.dpools,
+                                             bt, tokens, pos, self.draft_cfg)
                 s.prefilled += w
                 s.prefill_chunks += 1
                 budget -= w
@@ -2014,11 +2279,10 @@ class PagedPool(_PoolBase):
             chunk = min(chunk, _bucket_down(max(1, self.chunk_hint)))
         return chunk
 
-    def _decode_inputs(self, dec: list, chunk: int) -> tuple:
-        """The device inputs of a ``chunk``-step decode over the rows
-        ``dec``: (block table (B, nb) on the device, last tokens (B,) and
-        frontiers (B,) on the host); rows outside ``dec`` are dummies at
-        token 0, position 0 and an all-null table."""
+    def _decode_rows(self, dec: list) -> tuple:
+        """The rows of a round over ``dec``, one entry a slot (None for a
+        row that does not decode), with their last tokens (B,) and
+        frontiers (B,) on the host: dummies at token 0, position 0."""
         decoding = {id(s) for s in dec}
         rows = [s if s is not None and id(s) in decoding else None
                 for s in self.slots]
@@ -2026,23 +2290,45 @@ class PagedPool(_PoolBase):
                             dtype=torch.long)
         pos = torch.tensor([len(s.history) - 1 if s else 0 for s in rows],
                            dtype=torch.long)
+        return rows, last, pos
+
+    def _decode_inputs(self, dec: list, chunk: int) -> tuple:
+        """The device inputs of a ``chunk``-step decode over the rows
+        ``dec``: (block table (B, nb) on the device, last tokens (B,) and
+        frontiers (B,) on the host); rows outside ``dec`` are dummies with
+        an all-null table."""
+        _rows, last, pos = self._decode_rows(dec)
         nb = self._bucket_blocks(max(
             -(-(len(s.history) + chunk - 1) // self.block_size)
             for s in dec))
         return self._table(nb, rows=dec), last, pos
 
+    def _sample_keys(self, dec: list) -> tuple | None:
+        """The sampling keys (B, 2) and stream offsets (B,) of a decode
+        over the rows ``dec`` on the host, dummy keys for the other rows;
+        None for a greedy pool."""
+        if self.temperature == 0:
+            return None
+        return self._row_keys(self._decode_rows(dec)[0])
+
     def _decode_chunk(self, bt: torch.Tensor, last: torch.Tensor,
-                      pos: torch.Tensor, chunk: int) -> list:
-        """``chunk`` greedy decode steps from ``last`` at ``pos`` through
-        table ``bt``; returns the (B, chunk) tokens as lists, read from the
-        device once. On the card: the static buffers loaded, then the
+                      pos: torch.Tensor, chunk: int,
+                      keys: tuple | None = None) -> list:
+        """``chunk`` decode steps from ``last`` at ``pos`` through table
+        ``bt``, greedy, or sampled from ``keys`` (row keys, offsets) when
+        the pool samples; returns the (B, chunk) tokens as lists, read from
+        the device once. On the card: the static buffers loaded, then the
         captured step of the table's width replayed ``chunk`` times (the
         first step of a new width is the warm-up, then the capture). Off
         the card: ``_paged_chunk_kernel``."""
+        if keys is not None:
+            self._rkeys.copy_(keys[0])
+            self._roff.copy_(keys[1])
         if self._graphs is None:
             return _paged_chunk_kernel(
                 self.params, self.pools, bt, last.to(self.device),
-                pos.to(self.device), self.cfg, chunk).tolist()
+                pos.to(self.device), self.cfg, chunk,
+                self._sampler).tolist()
         nb = bt.shape[1]
         if nb not in self._tables:
             self._tables[nb] = torch.zeros_like(bt)
@@ -2053,7 +2339,8 @@ class PagedPool(_PoolBase):
         self._step.zero_()
         self._graphs.run(nb, functools.partial(
             _paged_graph_step, self.params, self.pools, table, self._tok,
-            self._pos, self._out, self._step, self.cfg), chunk)
+            self._pos, self._out, self._step, self.cfg, self._sampler),
+            chunk)
         return self._out[:, :chunk].tolist()
 
     def step_round(self) -> dict:
@@ -2071,12 +2358,16 @@ class PagedPool(_PoolBase):
         self._prefill_phase()
         dec = self._decoding()
         chunk = 0
-        if dec:
-            # The capacity fold before any device input is built: every row
-            # of the dispatch must own the blocks of the positions this
-            # round keeps (at most its remaining budget: the overshoot is
-            # discarded and lands in the null block); under pressure rows
-            # are preempted instead.
+        # The capacity fold before any device input is built: every row of
+        # the dispatch must own the blocks of the positions this round
+        # keeps (at most its remaining budget: the overshoot is discarded
+        # and lands in the null block); under pressure rows are preempted
+        # instead. A speculative round keeps up to gamma + 1 tokens.
+        if dec and self._spec:
+            dec = self._capacity_fold(
+                dec, lambda s: len(s.history) + min(self.gamma + 1,
+                                                    s.remaining))
+        elif dec:
             chunk = self._chunk_len(dec)
             dec = self._capacity_fold(
                 dec, lambda s: len(s.history) + min(chunk, s.remaining) - 1)
@@ -2084,10 +2375,13 @@ class PagedPool(_PoolBase):
             self._register_phase()  # prefill chunks fill blocks too
             self._record_block_gauges()
             return {}  # an all-prefill (or all-preempted) round
+        if self._spec:
+            return self._spec_round(dec)
         bt, last, pos = self._decode_inputs(dec, chunk)
         with telemetry.span("serve.decode_chunk", chunk=chunk,
                             nb=bt.shape[1], rows=len(dec)), self._writing():
-            out = self._decode_chunk(bt, last, pos, chunk)
+            out = self._decode_chunk(bt, last, pos, chunk,
+                                     self._sample_keys(dec))
         self.stats["slot_steps"] += self.batch_size * chunk
         self.stats["active_slot_steps"] += sum(
             min(chunk, s.remaining) for s in dec)
@@ -2097,6 +2391,68 @@ class PagedPool(_PoolBase):
                   for s in self.slots])
         # Surviving rows register their newly full blocks, so live rows
         # share prefixes too (retiring rows registered in _on_retire).
+        self._register_phase()
+        self._record_block_gauges()
+        return events
+
+    def _spec_round(self, dec: list) -> dict:
+        """One greedy speculative round over the rows ``dec``, each row
+        committing its own accepted count + 1: the target's (and the
+        draft's) blocks gathered into windows as wide as every row's
+        frontier + gamma, the draft's gamma + 1 steps or the prompt-lookup
+        drafts, the verify chunk, the windows scattered back. The draft and
+        verify halves end in a host read each, so ``serve_spec_draft_ms`` and
+        ``serve_spec_verify_ms`` time them apart; ``serve_spec_commit_ms``
+        is the scatter and the event fold."""
+        nb = self._bucket_blocks(max(
+            -(-(len(s.history) + self.gamma) // self.block_size)
+            for s in dec))
+        bt = self._table(nb, rows=dec)
+        rows, last, pos = self._decode_rows(dec)
+        last, pos = last.to(self.device), pos.to(self.device)
+        window = _gather_windows(self.pools, bt)
+        t0 = time.perf_counter()
+        if self.draft_params is not None:
+            dwindow = _gather_windows(self.dpools, bt)
+            drafts = _spec_draft_window(self.draft_params, dwindow, last,
+                                        pos, self.draft_cfg, self.gamma)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the phase's end
+        else:
+            # Prompt lookup: n-gram copies on the host, no model pass and
+            # no draft pool (rows that do not decode propose zeros).
+            drafts = torch.tensor(
+                [ngram_lookup_drafts(s.history, self.gamma)
+                 if s is not None else [0] * self.gamma for s in rows],
+                dtype=torch.long, device=self.device)
+        t1 = time.perf_counter()
+        greedy, counts = _spec_verify_window(self.params, window, drafts,
+                                             last, pos, self.cfg)
+        greedy, counts = greedy.tolist(), counts.tolist()
+        t2 = time.perf_counter()
+        with self._writing():
+            _scatter_windows(self.pools, window, bt)
+            if self.dpools is not None:
+                _scatter_windows(self.dpools, dwindow, bt)
+        reg = telemetry.metrics()
+        reg.observe("serve_spec_draft_ms", (t1 - t0) * 1e3)
+        reg.observe("serve_spec_verify_ms", (t2 - t1) * 1e3)
+        self.stats["verify_rounds"] += 1
+        if self.draft_params is not None:
+            self.stats["draft_steps"] += self.gamma + 1
+        self._record_acceptance(
+            counts, [i for i, s in enumerate(rows) if s is not None])
+        kept = [min(counts[i], s.remaining) if s is not None else 0
+                for i, s in enumerate(rows)]
+        reg.observe(
+            "serve_spec_committed_per_round", sum(kept) / max(len(dec), 1),
+            buckets=tuple(range(1, self.gamma + 2)))
+        self.stats["committed_tokens"] += sum(kept)
+        self.stats["slot_steps"] += sum(kept)
+        self.stats["active_slot_steps"] += sum(kept)
+        events = self._emit_events(greedy, kept, kind="verify")
+        reg.observe("serve_spec_commit_ms",
+                    (time.perf_counter() - t2) * 1e3)
         self._register_phase()
         self._record_block_gauges()
         return events
@@ -2169,7 +2525,7 @@ class PagedPool(_PoolBase):
             perm[new] = old
         perm = perm.to(self.device)
         with self._writing():
-            for layer in self.pools:
+            for layer in self.pools + (self.dpools or []):
                 for a in layer.values():
                     a.copy_(a[perm])
         for s in self.slots:
@@ -2644,6 +3000,7 @@ class Scheduler:
 def serve(params: Params, cfg: ModelConfig, requests: list,
           batch_size: int, *, kv_quant: bool = False,
           eos_id: int | None = None, temperature: float = 0.0,
+          top_k: int = 0, top_p: float = 1.0, key=None,
           stats: dict | None = None, draft_params: Params | None = None,
           draft_cfg: ModelConfig | None = None, gamma: int = 4,
           resident: bool = False, paged: bool = False,
@@ -2652,24 +3009,31 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
           overcommit: bool | None = None, spec_lookup: bool | None = None,
           device=None) -> dict:
     """Run every request through a ``batch_size``-row pool; returns {rid:
-    generated token list}. Greedy; ``eos_id`` finishes a row at the first
-    emission of that token (inclusive). ``paged=True`` is the block-paged
+    generated token list}. ``eos_id`` finishes a row at the first emission
+    of that token (inclusive). Greedy, or sampled when ``temperature`` >
+    0 (with ``top_k`` / ``top_p``, and a ``key`` required): token k of
+    request r draws with ``fold_in(fold_in(fold_in(key, 1), r.rid), k)``, so
+    its stream is the same whatever the batch, the admission order or the
+    chunks. ``draft_params``/``draft_cfg``/``gamma`` (or, on the paged
+    engine, ``spec_lookup``) run greedy speculative rounds: the streams
+    are unchanged. ``paged=True`` is the block-paged
     engine (``kv_quant=True`` only; ``kv_blocks``, ``block_size``,
     ``prefill_budget``, ``prefix_cache`` and ``spec_lookup`` go to it, None
     reading their knobs as ``PagedPool`` does, and its host tier is sized
     by ``TPUBC_KV_HOST_BLOCKS``); admission overcommits and preempts
     unless ``overcommit=False`` (None reads ``TPUBC_OVERCOMMIT``, on by
     default, as in the reference); ``paged=False`` the
-    replay-slot engine, whose rounds run the speculative verify-commit
-    loop when ``draft_params``/``draft_cfg``/``gamma`` are given (greedy:
-    the streams are unchanged). ``stats``, if given, is filled with the
+    replay-slot engine (``spec_lookup`` refused there, as in the
+    reference). ``stats``, if given, is filled with the
     pool's accounting (rounds, slot_steps, active_slot_steps, and the
     engine's own: prefill_tokens, blocks_peak, preemptions, grown_blocks,
     the swap counters, ... or replayed_tokens, verify_rounds,
     committed_tokens, draft_steps) plus a ``"scheduler"`` sub-dict, and for
     the paged engine the allocator's stats (``"allocator"``), the host
     tier's snapshot (``"host"``, when the tier exists) and, on the card,
-    its graphs' (``"graphs"``: captured, capture_s, replays).
+    its graphs' (``"graphs"``: captured, capture_s, replays); speculative
+    pools add verify_rounds, committed_tokens and draft_steps (and the
+    paged engine draft_proposed and draft_accepted).
 
     A request's ``deadline`` is honoured as the reference honours it: a
     request still waiting past it returns no token, one running past it
@@ -2689,7 +3053,9 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
                          block_size=block_size,
                          prefill_budget=prefill_budget, kv_quant=kv_quant,
                          eos_id=eos_id, temperature=temperature,
-                         draft_params=draft_params, spec_lookup=spec_lookup,
+                         top_k=top_k, top_p=top_p, key=key,
+                         draft_params=draft_params, draft_cfg=draft_cfg,
+                         gamma=gamma, spec_lookup=spec_lookup,
                          prefix_cache=prefix_cache, device=device)
     else:
         if spec_lookup:
@@ -2698,9 +3064,9 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
                 "draft/verify seam; the replay pool has no per-row "
                 "frontier to verify from")
         pool = SlotPool(params, cfg, batch_size, kv_quant=kv_quant,
-                        eos_id=eos_id, temperature=temperature,
-                        draft_params=draft_params, draft_cfg=draft_cfg,
-                        gamma=gamma, device=device)
+                        eos_id=eos_id, temperature=temperature, top_k=top_k,
+                        top_p=top_p, key=key, draft_params=draft_params,
+                        draft_cfg=draft_cfg, gamma=gamma, device=device)
     for r in requests:
         pool.validate(r, cfg)  # every request fails loudly before compute
     sched = Scheduler(pool, overcommit=overcommit)
@@ -2740,15 +3106,16 @@ def serve_demo_from_env(device=None) -> None:
     WORKLOAD_EOS_ID, WORKLOAD_RESIDENT and WORKLOAD_PAGED pick the eos and
     the engine.
 
+    A nonzero temperature samples with the pool key ``PRNGKey(seed + 1)``.
+
     As in the reference, the engine is the replay-slot one unless
     WORKLOAD_PAGED=1, and the KV pool is float unless WORKLOAD_KV_QUANT=1:
     the port's main path (the paged engine on the int8 pool, kernels K1
     and K2) runs only with both set. WORKLOAD_PAGED=1 alone asks for the
     float pool and raises ``NotImplementedError`` naming ROADMAP queue 1
     item 8, loudly, rather than serving another engine than the one asked
-    for; so do WORKLOAD_RESIDENT=1 (item 8) and a nonzero temperature
-    (item 5). ``device`` None means the card, and without CUDA raises
-    before anything runs."""
+    for; so does WORKLOAD_RESIDENT=1. ``device`` None means the card, and
+    without CUDA raises before anything runs."""
     from tpu_bootstrap_torch.workload import checkpoint as ck
     from tpu_bootstrap_torch.workload.model import init_params
     from tpu_bootstrap_torch.workload.train import parse_model_env
@@ -2791,6 +3158,9 @@ def serve_demo_from_env(device=None) -> None:
             "(greedy decoding ignores the sampling filters)")
     eos_env = os.environ.get("WORKLOAD_EOS_ID", "")
     eos_id = int(eos_env) if eos_env else None
+    sample_kw = {"temperature": temperature, "top_k": top_k, "top_p": top_p,
+                 "eos_id": eos_id,
+                 "key": prng.key(seed + 1) if temperature > 0 else None}
     resident = os.environ.get("WORKLOAD_RESIDENT", "").lower() in ("1", "true")
     paged = os.environ.get("WORKLOAD_PAGED", "").lower() in ("1", "true")
 
@@ -2803,8 +3173,7 @@ def serve_demo_from_env(device=None) -> None:
                                                     "8")),
                       kv_quant=kv_quant, draft_params=draft_params,
                       draft_cfg=draft_cfg, resident=resident, paged=paged,
-                      eos_id=eos_id, temperature=temperature, top_k=top_k,
-                      top_p=top_p, device=device).serve_forever()
+                      device=device, **sample_kw).serve_forever()
         return
 
     n = int(os.environ.get("WORKLOAD_REQUESTS", "32"))
@@ -2821,8 +3190,7 @@ def serve_demo_from_env(device=None) -> None:
     t0 = time.time()
     done = serve(params, cfg, requests, batch, kv_quant=kv_quant, stats=stats,
                  draft_params=draft_params, draft_cfg=draft_cfg,
-                 resident=resident, paged=paged, eos_id=eos_id,
-                 temperature=temperature, device=device)
+                 resident=resident, paged=paged, device=device, **sample_kw)
     dt = time.time() - t0
     total = sum(len(v) for v in done.values())
     util = stats["active_slot_steps"] / max(stats["slot_steps"], 1)
@@ -2833,5 +3201,5 @@ def serve_demo_from_env(device=None) -> None:
 
 __all__ = ["BlockAllocator", "HostBlockPool", "PagedPool", "Request",
            "RequestLog", "RequestRecord", "Scheduler", "SlotPool",
-           "block_hash", "device_ledger_enabled", "request_events_enabled",
-           "serve", "serve_demo_from_env"]
+           "block_hash", "device_ledger_enabled", "ngram_lookup_drafts",
+           "request_events_enabled", "serve", "serve_demo_from_env"]

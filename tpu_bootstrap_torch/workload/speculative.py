@@ -1,9 +1,15 @@
-"""Greedy speculative decoding, the counterpart of
+"""Speculative decoding, the counterpart of
 ``tpu_bootstrap/workload/speculative.py``: a draft model proposes
 ``gamma`` tokens, the target scores all ``gamma + 1`` candidate positions
-in one multi-query forward, and every committed token is the target's own
-argmax, so the output equals the target's greedy ``generate`` whatever
-the draft proposes.
+in one multi-query forward. Greedy (``temperature`` 0), every committed
+token is the target's own argmax, so the output equals the target's
+greedy ``generate`` whatever the draft proposes. Sampled (``temperature
+> 0``), the reference's rejection scheme (Leviathan et al.): the draft
+samples from q, the target accepts a draft d with probability min(1,
+p(d) / q(d)) and resamples the first rejection from norm(max(p - q, 0)),
+so every committed token is distributed as target-only sampling. Its keys
+are the reference's: ``split(key, 4)`` a round, ``fold_in(draft_key, i)``
+for draft step i (``prng``).
 
 The reference runs the loop as one ``lax.while_loop``; here it is a
 Python loop with the same state. Acceptance is lockstep across the batch:
@@ -20,15 +26,15 @@ off or the prompts are ragged; the target runs only multi-query chunks
 equals ``generate(..., kv_kernel=False)``'s. Draft numerics never reach a
 committed token.
 
-``_verify_chunk`` is also the paged serving engine's prefill chunk (its
-per-row position mode). Sampled speculative decoding (``temperature >
-0``) is not ported.
+``_verify_chunk`` is also the paged serving engine's prefill chunk and
+verify chunk (its per-row position mode).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_bootstrap_torch.workload import prng
 from tpu_bootstrap_torch.workload.decode import (
     _block_step,
     _logits,
@@ -91,9 +97,11 @@ def _speculative(target_params: Params, draft_params: Params,
                  prompt: torch.Tensor, target_cfg: ModelConfig,
                  draft_cfg: ModelConfig, steps: int, gamma: int,
                  kv_quant: bool, kv_kernel: bool,
-                 lengths: torch.Tensor | None):
-    """The greedy verify-commit loop; returns ((B, steps) tokens on the
-    device, stats)."""
+                 lengths: torch.Tensor | None, temperature: float = 0.0,
+                 key: torch.Tensor | None = None):
+    """The verify-commit loop, greedy or (``temperature > 0``, ``key``)
+    sampled; returns ((B, steps) tokens on the device, stats)."""
+    sampled = temperature > 0
     b, s = prompt.shape
     dev = prompt.device
     cap = s + steps + gamma + 1  # slack: the last round may overshoot
@@ -104,7 +112,11 @@ def _speculative(target_params: Params, draft_params: Params,
                          lengths=lengths, kv_kernel=kv_kernel)
     prefill(draft_params, prompt, dcaches, draft_cfg, lengths=lengths,
             kv_kernel=kv_kernel)
-    last = torch.argmax(tlogits, dim=-1)  # exact: the target's own
+    if sampled:
+        key, sub = prng.split(key)
+        last = prng.categorical(sub, tlogits / temperature)
+    else:
+        last = torch.argmax(tlogits, dim=-1)  # exact: the target's own
     out = torch.zeros((b, steps + gamma + 1), dtype=torch.long, device=dev)
     out[:, 0] = last
     # Tokens committed so far, and the cache slot of ``last`` (the newest
@@ -116,25 +128,38 @@ def _speculative(target_params: Params, draft_params: Params,
         # pos + gamma. Without it a full-acceptance round would leave that
         # slot empty inside every later mask (the reference's
         # draft-cache-hole note); the extra proposal is discarded.
-        tok, drafts = last, []
+        if sampled:
+            key, draft_key, accept_key, resample_key = prng.split(key, 4)
+        tok, drafts, logq = last, [], []
         for i in range(gamma + 1):
             logits, _ = decode_step(draft_params, tok, pos + i, dcaches,
                                     draft_cfg, pad=pad, kv_kernel=kv_kernel)
-            tok = torch.argmax(logits, dim=-1)
+            if sampled:
+                lq = torch.log_softmax(logits / temperature, dim=-1)
+                tok = prng.categorical(prng.fold_in(draft_key, i), lq)
+                logq.append(lq)
+            else:
+                tok = torch.argmax(logits, dim=-1)
             drafts.append(tok)
         drafts = torch.stack(drafts[:gamma], dim=1)  # (B, gamma)
         chunk = torch.cat([last[:, None], drafts], dim=1)  # (B, gamma + 1)
         vlogits, _ = _verify_chunk(target_params, chunk, pos, tcaches,
                                    target_cfg, pad=pad)
-        # greedy[:, i] is the target's token after chunk[:, i]; draft i + 1
-        # is accepted iff it matches, and only a matching prefix counts.
-        greedy = torch.argmax(vlogits, dim=-1)
-        match = (drafts == greedy[:, :-1]).long()
-        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        if sampled:
+            committed, accepted = _reject(
+                vlogits, torch.stack(logq[:gamma], dim=1), drafts,
+                temperature, accept_key, resample_key)
+        else:
+            # greedy[:, i] is the target's token after chunk[:, i]; draft
+            # i + 1 is accepted iff it matches, and only a matching prefix
+            # counts.
+            committed = torch.argmax(vlogits, dim=-1)
+            match = (drafts == committed[:, :-1]).long()
+            accepted = torch.cumprod(match, dim=1).sum(dim=1)
         commit = int(accepted.min()) + 1  # the round's host read
         # All gamma + 1 are written; the next round overwrites the tail.
-        out[:, n_out:n_out + gamma + 1] = greedy
-        last = greedy[:, commit - 1]
+        out[:, n_out:n_out + gamma + 1] = committed
+        last = committed[:, commit - 1]
         n_out += commit
         pos += commit
         rounds += 1
@@ -146,6 +171,38 @@ def _speculative(target_params: Params, draft_params: Params,
     return out[:, :steps], stats
 
 
+def _reject(vlogits: torch.Tensor, logq: torch.Tensor, drafts: torch.Tensor,
+            temperature: float, accept_key: torch.Tensor,
+            resample_key: torch.Tensor) -> tuple:
+    """The sampled round's accept/resample, the reference's: draft i + 1
+    is accepted iff log(u_i) < log p(d) - log q(d), a row accepts the
+    prefix a of its acceptances, and position a takes a resample from
+    norm(max(p - q, 0)), or from p itself when every draft was accepted or
+    the residual rounded to nothing. Returns (committed (B, gamma + 1),
+    accepted counts (B,))."""
+    b, gamma = drafts.shape
+    logp = torch.log_softmax(vlogits / temperature, dim=-1)
+    idx = drafts[..., None]
+    p_at = torch.gather(logp[:, :gamma], -1, idx)[..., 0]
+    q_at = torch.gather(logq, -1, idx)[..., 0]
+    u = prng.uniform(accept_key, (b, gamma))
+    accept = (torch.log(u) < (p_at - q_at)).long()
+    a = torch.cumprod(accept, dim=1).sum(dim=1)
+    rows = torch.arange(b, device=drafts.device)
+    p_row = logp[rows, a]
+    q_row = logq[rows, torch.clamp(a, max=gamma - 1)]
+    residual = torch.clamp(torch.exp(p_row) - torch.exp(q_row), min=0.0)
+    has_mass = residual.sum(dim=-1, keepdim=True) > 0
+    use_p = (a[:, None] >= gamma) | ~has_mass
+    dist = torch.where(use_p, torch.exp(p_row), residual)
+    logdist = torch.log(dist).masked_fill(dist <= 0, float("-inf"))
+    resample = prng.categorical(resample_key, logdist)
+    cols = torch.arange(gamma + 1, device=drafts.device)[None, :]
+    padded = torch.cat([drafts, resample[:, None]], dim=1)
+    committed = torch.where(cols < a[:, None], padded, resample[:, None])
+    return committed, a
+
+
 def speculative_generate(target_params: Params, draft_params: Params,
                          prompt, target_cfg: ModelConfig,
                          draft_cfg: ModelConfig, steps: int, gamma: int = 4,
@@ -154,7 +211,7 @@ def speculative_generate(target_params: Params, draft_params: Params,
                          with_stats: bool = False,
                          temperature: float = 0.0, key=None,
                          prompt_lengths=None, device=None):
-    """Greedy generation of (B, steps) continuations (on the host), equal
+    """Generation of (B, steps) continuations (on the host), greedy equal
     to ``decode.generate(target_params, ..., kv_kernel=False)``'s for
     every row, at up to (gamma + 1)x fewer target weight streams per
     token. A cheap draft that rarely disagrees is the target's own int8
@@ -169,8 +226,10 @@ def speculative_generate(target_params: Params, draft_params: Params,
     lengths of a LEFT-padded ragged batch, as in ``generate``; they force
     the einsum path (per-row masks). ``device`` None means the card.
 
-    ``temperature > 0`` (the reference's rejection-sampling mode) raises
-    NotImplementedError; ``key`` belongs to it."""
+    ``temperature > 0`` is the reference's rejection sampling, seeded by
+    ``key`` (required; two uint32 words, as ``jax.random.PRNGKey`` gives):
+    every committed token is distributed as target-only sampling at that
+    temperature."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     if gamma < 1:
@@ -183,10 +242,6 @@ def speculative_generate(target_params: Params, draft_params: Params,
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if temperature > 0 and key is None:
         raise ValueError("temperature > 0 requires an explicit PRNG key")
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampled speculative decoding is not ported yet (ROADMAP queue "
-            "1 item 5.7: threefry sampling)")
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device).long()
     lengths = None
@@ -200,8 +255,9 @@ def speculative_generate(target_params: Params, draft_params: Params,
         kv_kernel = False  # per-row masks: the einsum path
     elif kv_kernel is None:
         kv_kernel = True
-    out, stats = _speculative(target_params, draft_params, prompt,
-                              target_cfg, draft_cfg, steps, gamma, kv_quant,
-                              kv_kernel, lengths)
+    out, stats = _speculative(
+        target_params, draft_params, prompt, target_cfg, draft_cfg, steps,
+        gamma, kv_quant, kv_kernel, lengths, float(temperature),
+        prng.as_key(prng.key(0) if key is None else key, device))
     out = out.cpu()
     return (out, stats) if with_stats else out
