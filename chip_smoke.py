@@ -80,12 +80,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               to the same solo runs. Then the flash prefill:
               generate(prefill_flash=True), whose prompt attention runs
               through K3, against generate() with the einsum prefill.
-9. serve_int4 -- the serve phase's workload on the same model with int4
+9. serve_int4 -- the serve phase's workload on the same widths at half
+              the depth (CUT_MODEL, 4 layers) with int4
               weights (quantize_params4, group 64, int8 head): K6, K1 and K2
               launched as the schedule implies, every stream held to solo
               generate as in serve, in bf16 and in f32; graph == eager.
 10. serve_moe -- the MoE decode model (the same widths with 8 experts,
-              top-2, capacity factor 2) served with int8 (K1, K1e, K2) and
+              top-2, capacity factor 2, at CUT_MODEL's 4 layers) served with int8 (K1, K1e, K2) and
               int4 (K6, K6e, K1 head, K2) weights on 16 of the requests,
               TIMED_RUNS times: every stream complete, every decode logit
               finite, every run and a watched serve bitwise the same, the
@@ -130,7 +131,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               clock.
 14. serve_faults -- the request log, the device ledger, crash recovery and
               deadlines on the serve phase's 32 requests (batch 8, block
-              64) through an explicit Scheduler: (a) TIMED_RUNS runs with
+              64; CUT_MODEL's 4 layers) through an explicit Scheduler: (a) TIMED_RUNS runs with
               the log and ledger on and as many off, interleaved: streams
               bitwise equal, K1 and K2 launches equal and as the schedule
               implies, tokens/s of each side, the ledger's busy, idle and
@@ -175,7 +176,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               within 120 s, 4 streams equal to the in-process ingress's up
               to near-ties, SIGTERM drains and exits 0; then
               serve_demo_from_env in process prints its serve done line.
-16. sampling -- sampling with threefry parity (prng) on the main path:
+16. sampling -- sampling with threefry parity (prng) on the main path
+              (CUT_MODEL's 4 layers):
               prng on the card bit for bit prng on the CPU (keys, a
               fold_in chain, split, per-row fold_in, bits and uniforms of
               (8, 32768); gumbel's largest ulp difference printed); serve's
@@ -202,7 +204,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               drafted round; K1 launched as the lookup's verify chunks and
               the draft's steps imply, K2 on the plain run's decode steps;
               tokens/s of each and the serve_spec_* phase times.
-18. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+18. serve_resident -- the reference's other engines on serve's model and
+              32 requests (batch 8), every stream held to the solo oracle
+              up to near-ties: the resident engine (serve(resident=True))
+              on the int8 KV cache TIMED_RUNS times (tokens/s median and
+              spread beside serve's, the runs alike), K1 launched as its
+              schedule implies (decode steps as replays of a captured
+              step, one prefill an admission) and K2 never; graph ==
+              eager, one resident chunk from a mid-serve state against
+              the eager loop on a clone of the caches, tokens and cache
+              bytes bitwise; the resident engine on a float cache and the
+              paged engine's float pool (serve(paged=True,
+              kv_quant=False)), once each, held to the float-cache oracle,
+              K2 never; the int8 pool with paged_kernel=False (the
+              gathered route), streams held to serve's; prompt lookup on
+              the resident engine over 8 requests (committed tokens a
+              round, streams held to the resident run's); the resident
+              engine in f32 on them, held to the f32 oracle.
+19. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache, prompts
               (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
               (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
@@ -211,12 +230,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-19. speculative -- bench.py's self-speculation: the bf16 target drafted by
+20. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-20. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+21. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -225,13 +244,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-21. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+22. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-22. train  -- the training slice end to end: make_train_step on the
+23. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -241,7 +260,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-23. train_long -- the reference's long-context configuration (seq 8192,
+24. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
@@ -289,6 +308,11 @@ DECODE_MODEL = dict(vocab_size=32768, num_layers=8, num_heads=16,
                     head_dim=64, embed_dim=1024, mlp_dim=4096,
                     max_seq_len=512)
 MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
+# Phases run at half the decode model's depth (its widths unchanged), so
+# that every phase fits the script's time limit; the serve, serve_ingress
+# and kernel phases keep the full depth.
+CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
+DEPTH_CUT = ("serve_int4", "serve_moe", "serve_faults", "sampling")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -1065,15 +1089,18 @@ def _serve_requests(serving, vocab: int, n: int, seed: int) -> list:
         .tolist(), max_new=int(rng.integers(8, 65))) for i in range(n)]
 
 
-def _solo_streams(decode, params, cfg, reqs, eos=None) -> dict:
+def _solo_streams(decode, params, cfg, reqs, eos=None,
+                  kv_quant: bool = True) -> dict:
     """Each request's solo greedy generate on the einsum path
-    (kv_kernel=False) over a contiguous int8 cache: the oracle the
-    serving engines are held to. With ``eos``, each stream is cut after
-    its first eos, as the engines cut it."""
+    (kv_kernel=False) over a contiguous int8 cache (a float one with
+    ``kv_quant`` off): the oracle the serving engines are held to. With
+    ``eos``, each stream is cut after its first eos, as the engines cut
+    it."""
     out = {}
     for r in reqs:
         got = decode.generate(params, [r.tokens], cfg, r.max_new,
-                              kv_quant=True, kv_kernel=False)[0].tolist()
+                              kv_quant=kv_quant,
+                              kv_kernel=False)[0].tolist()
         if eos in got:
             got = got[:got.index(eos) + 1]
         out[r.rid] = got
@@ -1081,27 +1108,29 @@ def _solo_streams(decode, params, cfg, reqs, eos=None) -> dict:
 
 
 def _first_divergence(decode, params, cfg, prompt: list, got: list,
-                      want: list):
-    """(step, the oracle's top-2 logit margin there) of the first token
-    where ``got`` leaves ``want``, or None when they are equal."""
+                      want: list, kv_quant: bool = True):
+    """(step, the oracle's top-2 logit margin there, on the int8 or the
+    float cache) of the first token where ``got`` leaves ``want``, or None
+    when they are equal."""
     if got == want:
         return None
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if j is None:  # one stream is a prefix of the other: never a near-tie
         return min(len(got), len(want)), float("inf")
     margin = decode.greedy_margins(params, prompt, want[:j + 1], cfg,
-                                   kv_quant=True)[j]
+                                   kv_quant=kv_quant)[j]
     return j, margin
 
 
-def _diverged(decode, params, cfg, reqs, done, solo: dict) -> list:
+def _diverged(decode, params, cfg, reqs, done, solo: dict,
+              kv_quant: bool = True) -> list:
     """Requests whose stream differs from its solo greedy generate
     (``solo``), each with the solo run's top-2 logit margin at the first
-    divergent step."""
+    divergent step (its KV cache int8, or float with ``kv_quant`` off)."""
     out = []
     for r in reqs:
         first = _first_divergence(decode, params, cfg, r.tokens,
-                                  done[r.rid], solo[r.rid])
+                                  done[r.rid], solo[r.rid], kv_quant)
         if first is not None:
             out.append({"rid": r.rid, "step": first[0], "margin": first[1]})
     return out
@@ -1491,7 +1520,7 @@ def _path_launches_ok(launches: dict, path: tuple) -> bool:
     return all(launches[k] > 0 for k in path)
 
 
-def phase_serve_int4(torch, kernels, device) -> dict:
+def phase_serve_int4(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
     """The serve phase's workload with int4 weights (quantize_params4,
     group 64, int8 head, the reference's WORKLOAD_QUANT=int4): every block
     projection on K6, the head on K1, attention on K2, the launches held
@@ -1503,7 +1532,7 @@ def phase_serve_int4(torch, kernels, device) -> dict:
 
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
-    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
     params = quant.quantize_params4(
         model.init_params(cfg, seed=0, device=device), group=INT4_GROUP,
         head="int8")
@@ -1567,7 +1596,7 @@ def _watched_serve(torch, kernels, serving, params, cfg, reqs) -> tuple:
     return done, bool(finite), sorted(shapes)
 
 
-def phase_serve_moe(torch, kernels, device) -> dict:
+def phase_serve_moe(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
     """The MoE decode model (the decode model's widths, 8 experts, top-2,
     capacity factor 2, random weights from a seed) served with int8 and
     with int4 weights on MOE_REQUESTS of the serve phase's requests,
@@ -1579,7 +1608,7 @@ def phase_serve_moe(torch, kernels, device) -> dict:
     graph == eager (_paged_graph_check)."""
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
-    cfg = model.ModelConfig(**DECODE_MODEL, **MOE_MODEL,
+    cfg = model.ModelConfig(**model_kw, **MOE_MODEL,
                             compute_dtype=torch.bfloat16)
     params = model.init_params(cfg, seed=0, device=device)
     n_params = sum(p.numel() for b in params["blocks"] for p in b.values())
@@ -1799,9 +1828,9 @@ def _streams_vs(decode, params, cfg, reqs, got: dict, want: dict) -> dict:
 
 def phase_serve_overcommit(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
     """Overcommit admission on bench.py:1060-1190's traffic, on the decode
-    model at full width (bf16, int8 weights from seed 0, the int8 KV pool:
-    bench.py runs it on bf16 weights and a float pool, which the port does
-    not have yet, ROADMAP queue 1 item 8). At block 16 and equal memory (a
+    model at full width (bf16, int8 weights from seed 0, the int8 KV pool,
+    the main path's, where bench.py runs bf16 weights and a float pool).
+    At block 16 and equal memory (a
     third of the 24-request burst's whole footprint), batch 24, eos the
     attractor token: the concurrent admissions of overcommit over refusal
     admission (the admit ratio, which must exceed 1), then the burst served
@@ -2029,8 +2058,8 @@ def phase_serve_host_tier(torch, kernels, device, tight: dict,
                           model_kw=DECODE_MODEL) -> dict:
     """The host tier on bench.py:951-1057's traffic at block 16, on the
     decode model at full width (bf16, int8 weights from seed 0, the int8
-    KV pool, where bench.py has bf16 weights and a float pool: ROADMAP
-    queue 1 item 8). The working set: ten 40-token prompts (max_new 8,
+    KV pool, the main path's, where bench.py has bf16 weights and a float
+    pool). The working set: ten 40-token prompts (max_new 8,
     64 blocks, a host tier of 64), every cached block demoted, the same
     prompts again: the host hit rate over phase B's prompt tokens (must be
     HOST_HIT_RATE), the effective cache blocks; every demoted payload and
@@ -3473,10 +3502,10 @@ SPEC_METRICS = ("serve_spec_draft_ms", "serve_spec_verify_ms",
 
 
 def _spec_run(torch, kernels, serving, telemetry, params, cfg, reqs,
-              **kw) -> dict:
+              engine_kw=SERVE_KW, **kw) -> dict:
     with _observed_many(telemetry.metrics(), SPEC_METRICS) as seen:
         run = _counted_serve(torch, kernels, serving, params, cfg, reqs, 8,
-                             **SERVE_KW, gamma=GAMMA, **kw)
+                             **engine_kw, gamma=GAMMA, **kw)
     stats = run["stats"]
     run["spec"] = {k: stats[k] for k in (
         "verify_rounds", "committed_tokens", "draft_steps",
@@ -3574,6 +3603,200 @@ def phase_serve_spec(torch, kernels, device, serve_out=None,
     emit(result)
     if bad or not all(checks.values()):
         raise SystemExit(f"serve_spec failed: bad={bad} checks={checks}")
+    return result
+
+
+# The resident engine (serve(resident=True)) on the int8 KV cache, and the
+# requests of serve_resident's prompt-lookup and f32 runs.
+RESIDENT_KW = dict(resident=True, kv_quant=True)
+RESIDENT_FEW = 8
+
+
+def _einsum_launches_exact(cfg, stats: dict, launches: dict, prefills: int,
+                           batch: int = 8) -> dict:
+    """The launches of a serve whose decode attends on einsums (the
+    resident engine, the paged engine's gathered route), from its schedule
+    alone: per layer four K1 projections in every decode step (slot_steps
+    / batch of them, replays counted) and in every prefill (an admission
+    prefill of the resident engine, a prefill chunk of the paged one),
+    the head once a step, and no K2."""
+    steps = stats["slot_steps"] // batch
+    want = {"int8_matmul": 4 * cfg.num_layers * (steps + prefills) + steps,
+            "paged_attention": 0}
+    got = {k: launches[k] for k in want}
+    return {"ok": got == want and steps > 0, "want": want, "got": got,
+            "decode_steps": steps, "prefills": prefills}
+
+
+def _resident_graph_check(torch, serving, params, cfg, reqs) -> dict:
+    """Graph == eager for the resident engine: a pool of batch 8 driven
+    mid-serve on ``reqs`` until a decode chunk of at least 2 steps over at
+    least 4 rows is due at a slab width whose step is already captured,
+    then that chunk through the captured step and through the eager loop
+    _resident_chunk on a clone of the caches: the tokens and every cache
+    byte must be equal."""
+    pool = serving.ResidentPool(params, cfg, 8, kv_quant=True)
+    pending = list(reqs)
+    for _ in range(400):
+        while pending and pool.free_slots():
+            pool.admit(pending.pop(0))
+        active = [s for s in pool.slots if s is not None]
+        chunk = serving._majority_chunk(active, cfg.max_seq_len)
+        lb = min(serving._bucket_up(max(len(s.history) for s in active)
+                                    + chunk - 1), cfg.max_seq_len)
+        if chunk > 1 and len(active) >= 4 and lb in pool._graphs._graphs:
+            break
+        pool.step_round()
+    else:
+        raise SystemExit("resident graph check: no captured width mid-serve")
+    last, pos = pool._rows()
+    twin = _clone_pools(pool.caches)
+    dev = twin[0]["k"].device
+    want = serving._resident_chunk(params, twin, last.to(dev), pos.to(dev),
+                                   cfg, chunk, lb).tolist()
+    replays = pool._graphs.stats["replays"]
+    got = pool._decode_chunk(lb, last, pos, chunk)
+    torch.cuda.synchronize()
+    out = {"chunk": chunk, "lb": lb, "rows": len(active),
+           "replays": pool._graphs.stats["replays"] - replays,
+           "tokens_equal": got == want,
+           "cache_bytes_equal": all(
+               torch.equal(a, b) for la, lb_ in zip(pool.caches, twin)
+               for a, b in zip(la.values(), lb_.values())),
+           "graphs": dict(pool._graphs.stats)}
+    out["ok"] = (out["tokens_equal"] and out["cache_bytes_equal"]
+                 and out["replays"] == chunk)
+    del pool
+    return out
+
+
+def phase_serve_resident(torch, kernels, device, serve_out=None,
+                         model_kw=DECODE_MODEL) -> dict:
+    """The reference's other engines (queue 1 item 8) at the decode
+    model's full width (bf16, int8 weights from seed 0) on serve's 32
+    requests, batch 8, every stream held to the solo oracle up to
+    near-ties (``serve_out``: phase serve's streams and int8-KV oracle):
+    (a) the resident engine on the int8 KV cache, TIMED_RUNS times
+    (_serve_runs: tokens/s median and spread, the runs alike), K1
+    launched as its schedule implies (every decode step a replay of its
+    captured step, every admission one prefill) and K2 never; (b) graph
+    == eager (_resident_graph_check); (c) the resident engine on a float
+    cache and (d) the paged engine's float pool (serve's SERVE_KW with
+    kv_quant off), each once, held to the float-cache oracle, K1 as
+    scheduled, K2 never; (e) the int8 pool with paged_kernel=False, its
+    streams held to serve's kernel route; (f) prompt lookup on the
+    resident engine over RESIDENT_FEW requests: committed tokens a round,
+    streams held to (a)'s; (g) the resident engine in f32 on them, held
+    to the f32 oracle at NEAR_TIE["float32"]. Tokens/s beside serve's."""
+    import dataclasses
+
+    from tpu_bootstrap_torch import telemetry
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    if serve_out is None:
+        serve_out = {"streams": serving.serve(params, cfg, reqs, 8,
+                                              **SERVE_KW),
+                     "solo": _solo_streams(decode, params, cfg, reqs),
+                     "tokens_per_s": None}
+    solo = serve_out["solo"]
+    runs = {}
+    run = _serve_runs(torch, kernels, serving, params, cfg, reqs,
+                      kw=RESIDENT_KW)
+    runs["resident"] = {
+        **_run_fields(run),
+        "exact": _einsum_launches_exact(
+            cfg, run["stats"], run["launches"],
+            run["stats"]["scheduler"]["admitted"]),
+        "diverged": _diverged(decode, params, cfg, reqs, run["done"], solo),
+        "stats": {k: v for k, v in run["stats"].items()
+                  if k != "scheduler"}}
+    graph = _resident_graph_check(torch, serving, params, cfg, reqs)
+    solo_f = _solo_streams(decode, params, cfg, reqs, kv_quant=False)
+    float_runs = {
+        "resident_float": dict(resident=True, kv_quant=False),
+        "float_pool": {**SERVE_KW, "kv_quant": False}}
+    for name, kw in float_runs.items():
+        one = _counted_serve(torch, kernels, serving, params, cfg, reqs, 8,
+                             **kw)
+        st = one["stats"]
+        prefills = (st["prefill_chunks"] if kw.get("paged")
+                    else st["scheduler"]["admitted"])
+        runs[name] = {
+            **{k: one[k] for k in ("wall_s", "tokens", "tokens_per_s",
+                                   "launches")},
+            "exact": _einsum_launches_exact(cfg, st, one["launches"],
+                                            prefills),
+            "diverged": _diverged(decode, params, cfg, reqs, one["done"],
+                                  solo_f, kv_quant=False)}
+        runs[name]["done"] = one["done"]
+    pool = serving.PagedPool(params, cfg, 8, kv_quant=True,
+                             prefix_cache=False, paged_kernel=False)
+    gather = _sched_run(torch, kernels, serving, pool,
+                        serving.Scheduler(pool, overcommit=False), reqs)
+    tokens = sum(len(v) for v in gather["done"].values())
+    runs["gather_int8"] = {
+        "wall_s": gather["wall_s"], "tokens": tokens,
+        "tokens_per_s": tokens / gather["wall_s"],
+        "launches": gather["launches"], "paged_kernel": pool.paged_kernel,
+        "exact": _einsum_launches_exact(cfg, pool.stats, gather["launches"],
+                                        pool.stats["prefill_chunks"]),
+        "diverged": _diverged(decode, params, cfg, reqs, gather["done"],
+                              serve_out["streams"])}
+    runs["gather_int8"]["done"] = gather["done"]
+    del pool
+    few = reqs[:RESIDENT_FEW]
+    lookup = _spec_run(torch, kernels, serving, telemetry, params, cfg, few,
+                       engine_kw=RESIDENT_KW, spec_lookup=True)
+    st = lookup["stats"]
+    k1_want = _spec_k1_want(
+        cfg, {"prefill_chunks": st["scheduler"]["admitted"]},
+        st["verify_rounds"])
+    runs["lookup"] = {
+        **{k: lookup[k] for k in ("wall_s", "tokens", "tokens_per_s",
+                                  "launches", "spec", "committed_per_round",
+                                  "phase_ms")},
+        "exact": {"ok": (lookup["launches"]["int8_matmul"] == k1_want
+                         and lookup["launches"]["paged_attention"] == 0),
+                  "k1_want": k1_want},
+        "diverged": _diverged(decode, params, cfg, few, lookup["done"],
+                              run["done"])}
+    runs["lookup"]["done"] = lookup["done"]
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    done32 = serving.serve(params, cfg32, few, 8, **RESIDENT_KW)
+    div32 = _diverged(decode, params, cfg32, few, done32,
+                      _solo_streams(decode, params, cfg32, few))
+    complete = all(
+        len(r_["done"][r.rid]) == r.max_new
+        for r_, rs in ((run, reqs), (runs["resident_float"], reqs),
+                       (runs["float_pool"], reqs), (runs["gather_int8"], reqs),
+                       (runs["lookup"], few)) for r in rs)
+    for name in ("resident_float", "float_pool", "gather_int8", "lookup"):
+        runs[name].pop("done")
+    bad = [d for name in runs for d in runs[name]["diverged"]
+           if d["margin"] >= NEAR_TIE["bfloat16"]]
+    bad += [d for d in div32 if d["margin"] >= NEAR_TIE["float32"]]
+    checks = {"runs_ok": run["ok"], "graph": graph["ok"],
+              "complete": complete,
+              "gather_route": runs["gather_int8"]["paged_kernel"] is False,
+              **{f"{name}_launches": runs[name]["exact"]["ok"]
+                 for name in runs}}
+    serve_tps = serve_out.get("tokens_per_s")
+    result = {"phase": "serve_resident", "requests": len(reqs),
+              "serve_tokens_per_s": serve_tps,
+              "resident_vs_serve": (run["tokens_per_s"] / serve_tps
+                                    if serve_tps else None),
+              "float_pool_vs_serve": (runs["float_pool"]["tokens_per_s"]
+                                      / serve_tps if serve_tps else None),
+              **runs, "graph_vs_eager": graph,
+              "float32": {"requests": len(few), "diverged": div32},
+              "near_tie": NEAR_TIE, "checks": checks}
+    emit(result)
+    if bad or not all(checks.values()):
+        raise SystemExit(f"serve_resident failed: bad={bad} checks={checks}")
     return result
 
 
@@ -4307,9 +4530,9 @@ def main() -> int:
     info = phase_device(torch)
     seconds = {}  # wall time of each phase, printed before the kernels line
 
-    def run(name, phase, *args):
+    def run(name, phase, *args, **kw):
         t0 = time.perf_counter()
-        result = phase(*args)
+        result = phase(*args, **kw)
         torch.cuda.empty_cache()
         seconds[name] = round(time.perf_counter() - t0, 1)
         return result
@@ -4335,17 +4558,20 @@ def main() -> int:
                         ("serve_ingress", phase_serve_ingress),
                         ("sampling", phase_sampling),
                         ("serve_spec", phase_serve_spec),
+                        ("serve_resident", phase_serve_resident),
                         ("generate_int8kv", phase_generate_int8kv),
                         ("speculative", phase_speculative)):
         # The host tier's phase reads the tight pool's pair that
-        # serve_overcommit ran; serve_ingress and serve_spec, serve's
-        # streams (and serve_ingress its oracle).
+        # serve_overcommit ran; serve_ingress, serve_spec and
+        # serve_resident, serve's streams (and serve_ingress and
+        # serve_resident its oracle).
         extra = ()
         if name == "serve_host_tier":
             extra = (out["serve_overcommit"]["tight"],)
-        elif name in ("serve_ingress", "serve_spec"):
+        elif name in ("serve_ingress", "serve_spec", "serve_resident"):
             extra = (out["serve"],)
-        out[name] = run(name, phase, torch, kernels, device, *extra)
+        kw = {"model_kw": CUT_MODEL} if name in DEPTH_CUT else {}
+        out[name] = run(name, phase, torch, kernels, device, *extra, **kw)
     out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
     out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
     out["train"] = run("train", phase_train, torch, kernels, device)
@@ -4363,11 +4589,15 @@ def path_launches(out: dict, name: str) -> dict:
     the tier off and on (the swapping run), the host tier's phase B,
     serve_faults' last run with the log and ledger on, its faulted run
     and its deadline run, serve_ingress's last timed burst, sampling's
-    first sampled serve, and serve_spec's three serves (prompt lookup on
+    first sampled serve, serve_spec's three serves (prompt lookup on
     the int8 target, the bf16 target plain and drafted by its int8 copy;
-    their speculative rounds attend on einsums, as the reference's do)."""
-    oc, ht, sf, sp = (out["serve_overcommit"], out["serve_host_tier"],
-                      out["serve_faults"], out["serve_spec"])
+    their speculative rounds attend on einsums, as the reference's do),
+    and serve_resident's last resident run, its float-cache resident run,
+    the float paged pool and the int8 pool's gathered route (all four
+    attend on einsums: K2 0). serve_faults runs at CUT_MODEL's depth."""
+    oc, ht, sf, sp, rs = (out["serve_overcommit"], out["serve_host_tier"],
+                          out["serve_faults"], out["serve_spec"],
+                          out["serve_resident"])
     tight = oc["tight"]
     return {"serve_overcommit": oc["overcommit"]["launches"][name],
             "serve_overcommit_tight": tight["tier_off"]["launches"][name],
@@ -4380,7 +4610,11 @@ def path_launches(out: dict, name: str) -> dict:
             "sampling": out["sampling"]["serve"]["launches"][name],
             "serve_spec_lookup": sp["lookup"]["launches"][name],
             "serve_spec_bf16_plain": sp["bf16_plain"]["launches"][name],
-            "serve_spec_bf16_drafted": sp["bf16_drafted"]["launches"][name]}
+            "serve_spec_bf16_drafted": sp["bf16_drafted"]["launches"][name],
+            "serve_resident": rs["resident"]["launches"][name],
+            "serve_resident_float": rs["resident_float"]["launches"][name],
+            "serve_float_pool": rs["float_pool"]["launches"][name],
+            "serve_gather_int8": rs["gather_int8"]["launches"][name]}
 
 
 def kernel_lines(out: dict) -> list:

@@ -189,7 +189,8 @@ def test_fault_schedules_match_reference():
         assert str(got.value) == str(want.value)
 
 
-def test_worker_main_refuses_what_is_not_ported(monkeypatch):
+def test_worker_main_refuses_what_is_not_ported(monkeypatch, capsys):
+    from tpu_bootstrap.workload import serving as jserving
     from tpu_bootstrap_torch.workload import serving as tserving
 
     monkeypatch.setenv("WORKLOAD_MODE", "serve")
@@ -211,18 +212,29 @@ def test_worker_main_refuses_what_is_not_ported(monkeypatch):
         ttrain.worker_main()
     assert built == []
     monkeypatch.undo()
-    # The paged engine asks for the int8 KV pool: WORKLOAD_PAGED=1 alone
-    # is the float pool, item 8 (the card mapped to the CPU here).
+    # WORKLOAD_PAGED=1 without WORKLOAD_KV_QUANT is the float paged pool,
+    # which the worker serves as the reference's does: the summary equals
+    # the reference entry's but for the rate (the card mapped to the CPU
+    # here).
     monkeypatch.setenv("WORKLOAD_MODE", "serve")
     monkeypatch.setenv("WORKLOAD_MODEL", "vocab_size=32,num_layers=1,"
                        "num_heads=2,head_dim=16,embed_dim=16,mlp_dim=32,"
                        "max_seq_len=64")
     monkeypatch.setenv("WORKLOAD_QUANT", "int8")
     monkeypatch.setenv("WORKLOAD_PAGED", "1")
+    monkeypatch.setenv("WORKLOAD_REQUESTS", "3")
     monkeypatch.setattr(tserving, "resolve_device",
                         lambda device=None: torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.worker_main()
+    lines = []
+    for entry in (jserving.serve_demo_from_env, ttrain.worker_main):
+        capsys.readouterr()
+        entry()
+        line = next(x for x in capsys.readouterr().out.splitlines()
+                    if "serve done" in x)
+        lines.append(line.split(" tok/s")[0].rsplit(",", 1)[0]
+                     + line.split(" tok/s")[1])
+    assert lines[1] == lines[0]
+    assert lines[0].startswith("serve done: 3 requests")
     monkeypatch.undo()
     monkeypatch.setenv("WORKLOAD_MODE", "train")
     monkeypatch.setenv("TPUBC_COORDINATOR_ADDRESS", "worker-0:1234")

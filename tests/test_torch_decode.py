@@ -81,9 +81,10 @@ NEAR_TIE = LOGIT_ATOL
 
 
 def assert_greedy_equal(got: dict, want: dict, prompts: dict, tparams,
-                        tcfg) -> list:
+                        tcfg, kv_quant: bool = True) -> list:
     """Token streams {key: tokens} equal, except where the first divergent
-    step is a near-tie by the port's own solo logits (warned, returned)."""
+    step is a near-tie by the port's own solo logits on the int8 KV cache
+    (``kv_quant``) or the float one (warned, returned)."""
     near = []
     for key, w in want.items():
         g = list(got[key])
@@ -93,7 +94,7 @@ def assert_greedy_equal(got: dict, want: dict, prompts: dict, tparams,
         assert len(g) == len(w), (key, g, w)
         j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
         margin = tdecode.greedy_margins(tparams, prompts[key], w[:j + 1],
-                                        tcfg, kv_quant=True,
+                                        tcfg, kv_quant=kv_quant,
                                         device="cpu")[j]
         assert margin < NEAR_TIE, (
             f"{key}: streams diverge at step {j} with top-2 margin "

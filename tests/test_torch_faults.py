@@ -20,9 +20,9 @@ old. Two tests cut a write short between two layers (a prefill chunk's
 scatter, and defrag) and one fails a graph capture.
 
 Not mirrored: :118-187 (the injector's grammar, ported with ckpt.save,
-tests/test_torch_data_checkpoint.py) and the kv_quant=False cases of :257
-(queue 1 item 8); its sampled case, a crash recovered with the streams
-kept, is in tests/test_torch_sampled_serving.py. The ingress halves,
+tests/test_torch_data_checkpoint.py); the kv_quant=False cases of :257
+are in tests/test_torch_float_pool.py, and its sampled case, a crash
+recovered with the streams kept, in tests/test_torch_sampled_serving.py. The ingress halves,
 :439-583 and :679 (the drain, the watchdog, socket and scrape faults and
 SIGTERM), are in tests/test_torch_ingress_faults.py."""
 

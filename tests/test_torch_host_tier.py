@@ -14,8 +14,9 @@ tensors in place, bitwise the demoted bytes.
 test_host_tier.py:141 (sampled streams and prompt lookup) is mirrored in
 tests/test_torch_sampled_serving.py and tests/test_torch_spec_serving.py
 (with a model draft too, whose pools' half of a host entry is held
-there). Not mirrored: :166 (marked slow in the reference) and the
-kv_quant=False case of :120 (the float pool, queue 1 item 8)."""
+there). The kv_quant=False case of :120 (the float pool) is in
+tests/test_torch_float_pool.py. Not mirrored: :166 (marked slow in the
+reference)."""
 
 import jax
 import numpy as np

@@ -21,8 +21,8 @@ its fixture, every call with a timeout.
 * The 429 and 503 answers of both servers (the engine never started).
 * The engine knobs the paged engine reads when given None
   (``TPUBC_KV_BLOCK``, ``TPUBC_PREFILL_BUDGET``, ``TPUBC_PREFIX_CACHE``,
-  ``TPUBC_SPEC_LOOKUP``), in both packages, and the options the port does
-  not serve yet, each raising with its ROADMAP item.
+  ``TPUBC_SPEC_LOOKUP``), in both packages, and every engine option
+  building the reference's engine.
 
 The mirrors of the reference's tests/test_ingress.py are in
 tests/test_torch_ingress_slot.py, the rest in
@@ -320,7 +320,7 @@ def test_throttle_429_and_drain_503_against_reference(pinned):
     assert dcode == 503 and dbody["draining"] is True
 
 
-# ---- what the port does not serve yet, and the engine knobs --------------
+# ---- the engine options and the engine knobs ------------------------------
 
 
 @pytest.mark.parametrize("kw, item", [
@@ -334,19 +334,15 @@ def test_throttle_429_and_drain_503_against_reference(pinned):
     ({"paged": True}, "item 8"),
 ])
 def test_unported_options_raise_naming_their_item(kw, item):
-    """The engines still to port (item 8) raise naming their item. The
-    sampling and speculative options (item 5, now ported) build the server
-    the reference's builds, or raise the reference's ValueError: a
-    temperature without a key; filters alone build a greedy pool, as
-    there."""
-    if item == "item 8":
-        with pytest.raises(NotImplementedError, match=item):
-            tingress.IngressServer(TPARAMS, TCFG, port=0, host="127.0.0.1",
-                                   device="cpu", **kw)
-        return
+    """Every option is ported now. The sampling and speculative options
+    (item 5) and the other engines (item 8: the resident engine, and the
+    paged engine's float pool) build the server the reference's builds, or
+    raise the reference's ValueError: a temperature without a key; filters
+    alone build a greedy pool, as there. The item 8 engines also serve a
+    request what the reference's engine serves."""
     jkw = {k: (JPARAMS if k == "draft_params" else
                JCFG if k == "draft_cfg" else v) for k, v in kw.items()}
-    servers = []
+    servers, started = [], []
     try:
         for build in (
                 lambda: jingress.IngressServer(JPARAMS, JCFG, port=0,
@@ -368,9 +364,20 @@ def test_unported_options_raise_naming_their_item(kw, item):
             assert (getattr(port.pool, attr, None)
                     == getattr(ref.pool, attr, None)), attr
         assert (port.pool.stats.keys() == ref.pool.stats.keys())
+        if item == "item 8":
+            assert port.pool.kv_quant is ref.pool.kv_quant is False
+            started.append(port.start())
+            code, _h, got = post(port.port, {"tokens": [3, 1, 4, 1, 5],
+                                             "max_new": 6, "stream": False})
+            want = jserving.serve(
+                JPARAMS, JCFG, [jserving.Request(rid=0, tokens=[3, 1, 4, 1, 5],
+                                                 max_new=6)], 2, **jkw)
+            assert code == 200 and got["tokens"] == want[0]
     finally:
         for srv in servers:
-            if not isinstance(srv, str):
+            if srv in started:
+                srv.stop()
+            elif not isinstance(srv, str):
                 srv.httpd.server_close()
 
 

@@ -12,7 +12,8 @@ Not mirrored here: the ingress half (test_prefix_cache.py:370, in
 tests/test_torch_ingress_paged.py), sampled streams (:427, in
 tests/test_torch_sampled_serving.py), the speculative pools (:443, in
 tests/test_torch_spec_serving.py) and sharded params (:466, item 11); the
-resident halves of :352 and :411 wait for the resident engine (item 8).
+float-pool and resident halves of :352 and :411 are in
+tests/test_torch_float_pool.py.
 Streams across the two frameworks may part only at a near-tie
 (tests/test_torch_decode.py:NEAR_TIE, judged by the port's solo logits);
 within the port, cached streams equal cold ones and solo generate exactly

@@ -9,8 +9,9 @@ serve and through the ingress. In f32 the streams are compared exactly.
 
 Mirrors test_serving.py:87, test_paged.py:267, test_prefix_cache.py:427,
 the sampled cases of test_scheduler.py:171, test_host_tier.py:143 and
-test_ingress.py:258; the reference's resident-engine halves wait for that
-engine (queue 1 item 8). Sampled generate (test_decode.py:69-110) is held
+test_ingress.py:258; the resident-engine halves (test_resident.py:139,
+test_paged.py:267) are in tests/test_torch_resident.py and
+tests/test_torch_float_pool.py. Sampled generate (test_decode.py:69-110) is held
 in tests/test_torch_decode.py and sampled speculative decoding
 (test_speculative.py:106-170) in tests/test_torch_speculative.py, which
 keeps this file within a minute."""

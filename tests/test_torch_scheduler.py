@@ -21,8 +21,8 @@ and pick a rate at which short victims recompute and long ones swap.
 Mirrored elsewhere: test_scheduler.py:195 and :383-430 (prompt lookup) in
 tests/test_torch_spec_serving.py, the sampled cases of :171 in
 tests/test_torch_sampled_serving.py, both on this file's differential.
-Not mirrored: :171's kv_quant=False cases (the float pool, queue 1 item
-8). :450-480 (the ingress) are in
+:171's kv_quant=False cases (the float pool) are in
+tests/test_torch_float_pool.py, on this file's differential. :450-480 (the ingress) are in
 tests/test_torch_ingress.py (429) and tests/test_torch_ingress_paged.py."""
 
 import jax
@@ -180,13 +180,16 @@ def _state(pool, sched) -> dict:
             "growth": pool.imminent_growth()}
 
 
-def _differential(specs, pool_kw, sched_kw, submit_at=None):
-    """Drive the reference's and the port's Scheduler + PagedPool step by
-    step on ``specs`` (submitted all at once, or ``submit_at[rid]`` steps
-    in), comparing the whole state and the events after every step.
-    Returns (streams, port pool, port scheduler, the preemption log)."""
-    jpool = jserving.PagedPool(JPARAMS, JCFG, kv_quant=True, **pool_kw)
-    tpool = tserving.PagedPool(TPARAMS, TCFG, **POOL, **pool_kw)
+def _differential(specs, pool_kw, sched_kw, submit_at=None, kv_quant=True):
+    """Drive the reference's and the port's Scheduler + PagedPool (the int8
+    KV pool, or the float one with ``kv_quant`` off) step by step on
+    ``specs`` (submitted all at once, or ``submit_at[rid]`` steps in),
+    comparing the whole state and the events after every step. Returns
+    (streams, port pool, port scheduler, the preemption log)."""
+    jpool = jserving.PagedPool(JPARAMS, JCFG, kv_quant=kv_quant, **pool_kw)
+    tpool = tserving.PagedPool(TPARAMS, TCFG, **{**POOL,
+                                                 "kv_quant": kv_quant},
+                               **pool_kw)
     jsched = jserving.Scheduler(jpool, **sched_kw)
     tsched = tserving.Scheduler(tpool, **sched_kw)
     jlog, tlog = [], []

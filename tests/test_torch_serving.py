@@ -6,8 +6,8 @@ greedy generate (kv_kernel=False: the einsum oracle); the replay-slot
 engine (serve(paged=False)) held likewise to the reference's
 serve(paged=False), to solo generate, and with a draft model to its own
 plain rounds; the allocator and scheduling helpers held to the
-reference's by differential tests; and the options the port does not
-have yet refusing loudly (overcommit and the host tier are held in
+reference's by differential tests; and the engine options building what
+the reference's build, or refusing as it refuses (overcommit and the host tier are held in
 tests/test_torch_scheduler.py and tests/test_torch_host_tier.py,
 sampling in tests/test_torch_sampled_serving.py, the paged engine's
 speculative rounds in tests/test_torch_spec_serving.py)."""
@@ -285,7 +285,9 @@ def test_scheduling_helpers_equal_reference():
 # Sampling and the paged speculative rounds are ported
 # (tests/test_torch_sampled_serving.py, tests/test_torch_spec_serving.py):
 # their cases here hold the reference's refusals, the same ValueError in
-# both packages; the engines still to port raise NotImplementedError.
+# both packages. So are the other engines (tests/test_torch_resident.py,
+# tests/test_torch_float_pool.py): their cases serve what the reference's
+# serve does, or refuse as it refuses (paged and resident together).
 REFUSED = {
     "sampling": ({"temperature": 0.8}, "explicit PRNG key"),
     "spec rounds": ({"draft_params": True}, "draft_params requires "
@@ -300,9 +302,10 @@ REFUSED = {
     ({"draft_params": TPARAMS}, "spec rounds"),
     pytest.param({"spec_lookup": True}, "spec rounds",
                  id="spec_lookup-spec rounds"),
+    # With paged=True (the default here) resident=True asks for two
+    # engines, the reference's ValueError.
     ({"resident": True}, "item 8"),
-    # serve(paged=False) is the slot engine now; with resident=True it is
-    # still the unported resident engine.
+    # serve(paged=False, resident=True) is the resident engine.
     pytest.param({"paged": False, "resident": True}, "item 8",
                  id="paged-item 8"),
     ({"kv_quant": False}, "float KV pool"),
@@ -313,8 +316,25 @@ def test_options_not_ported_raise(kw, item):
     if "spec_lookup" in kw:
         item = "lookup"
     if item not in REFUSED:
-        with pytest.raises(NotImplementedError, match=item):
-            tserving.serve(TPARAMS, TCFG, reqs, 2, **args)
+        jargs = {k: v for k, v in args.items() if k != "device"}
+        jreqs = [jserving.Request(rid=0, tokens=[1, 2], max_new=2)]
+        if args["paged"] and args.get("resident"):
+            for mod, params, cfg, a, rs in (
+                    (jserving, JPARAMS, JCFG, jargs, jreqs),
+                    (tserving, TPARAMS, TCFG, args, reqs)):
+                with pytest.raises(ValueError, match="distinct engines"):
+                    mod.serve(params, cfg, rs, 2, **a)
+            return
+        want_stats, stats = {}, {}
+        want = jserving.serve(JPARAMS, JCFG, jreqs, 2, stats=want_stats,
+                              **jargs)
+        got = tserving.serve(TPARAMS, TCFG, reqs, 2, stats=stats, **args)
+        assert_greedy_equal(got, want, {0: [1, 2]}, TPARAMS, TCFG,
+                            kv_quant=args["kv_quant"])
+        # The port's paged serve adds its allocator and host tier.
+        assert want_stats.keys() <= stats.keys()
+        for key in want_stats:
+            assert stats[key] == want_stats[key], key
         return
     refused, match = REFUSED[item]
     jkw = {k: (JPARAMS if v is True and k == "draft_params" else

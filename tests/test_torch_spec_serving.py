@@ -14,7 +14,8 @@ accounting against the reference's (its ledger bills "verify" work).
 Mirrors test_paged.py:285, test_prefix_cache.py:443, test_scheduler.py:195
 and :383-430, and test_spec_serving.py's paged-engine halves (its slot
 engine halves are in tests/test_torch_serving.py); the resident engine's
-halves wait for that engine (queue 1 item 8)."""
+halves are in tests/test_torch_resident.py, the float pool's
+(test_paged.py:285) in tests/test_torch_float_pool.py."""
 
 import jax
 import numpy as np

@@ -323,10 +323,12 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
 def prefill(params: Params, tokens: torch.Tensor, caches: list,
             cfg: ModelConfig, lengths: torch.Tensor | None = None,
             all_logits: bool = False, flash: bool = False,
-            kv_kernel: bool = True):
+            kv_kernel: bool = True, logits: bool = True):
     """Run the prompt (B, S) into cache slots [0, S) (in place). Returns
     (logits of the last position (B, vocab), caches), or all positions'
-    logits with ``all_logits``. ``lengths`` (B,) are the true lengths of
+    logits with ``all_logits``; with ``logits=False`` the head is never
+    computed and the first item is None (an admission prefill that keeps
+    only the cache). ``lengths`` (B,) are the true lengths of
     a LEFT-padded ragged batch: pad columns are masked out and rotary
     phases count from each row's first real token. ``flash`` runs the
     prompt's causal self-attention through kernel K3, in O(S) memory: the
@@ -356,6 +358,8 @@ def prefill(params: Params, tokens: torch.Tensor, caches: list,
     for block, cache in zip(params["blocks"], caches):
         x, _ = _block_step(block, x, cache, positions, valid, cfg, slot=slot,
                            prefill_flash=flash, kv_kernel=kv_kernel)
+    if not logits:
+        return None, caches
     if all_logits:
         return _logits(params, x), caches
     return _logits(params, x[:, -1:])[:, 0], caches

@@ -9,7 +9,8 @@ tokens back, streamed as they decode.
     python -m tpu_bootstrap_torch.workload.train
 
 Design, as in the reference: one ENGINE thread owns the pool (the paged
-engine ``PagedPool``, or the replay-slot ``SlotPool``) and its
+engine ``PagedPool``, the resident-cache ``ResidentPool``, or the
+replay-slot ``SlotPool``) and its
 ``Scheduler`` and steps them against live queues: admission at round
 boundaries, each request's output queue fed from every round's events.
 HTTP handler threads never touch the card: they validate, enqueue and
@@ -53,12 +54,11 @@ Routes, keys, metric names and knobs are the reference's:
   and every open stream ends with a ``{"draining": true}`` chunk.
 
 The port differs only here: the constructor takes ``device`` (None: the
-card, through ``model.resolve_device``), and what is not ported raises
-``NotImplementedError`` naming its ROADMAP queue 1 item: ``resident=True``
-and, on the paged engine, ``kv_quant=False`` (item 8, the latter raised by
-``PagedPool``). Sampling (``temperature``, ``top_k``, ``top_p`` and the
-pool ``key``) and the speculative rounds (a draft, or ``spec_lookup`` on
-the paged engine) are the pools' own, with the reference's checks.
+card, through ``model.resolve_device``). The engine is the reference's
+pick: ``paged`` (the int8 or float pool), ``resident``, or the replay-slot
+one. Sampling (``temperature``, ``top_k``, ``top_p`` and the pool ``key``)
+and the speculative rounds (a draft, or ``spec_lookup`` on the paged and
+resident engines) are the pools' own, with the reference's checks.
 """
 
 from __future__ import annotations
@@ -84,9 +84,9 @@ from tpu_bootstrap_torch.workload.model import (
 from tpu_bootstrap_torch.workload.serving import (
     PagedPool,
     Request,
+    ResidentPool,
     Scheduler,
     SlotPool,
-    _not_ported,
 )
 
 
@@ -158,9 +158,6 @@ class IngressServer:
         if paged and resident:
             raise ValueError("paged and resident are distinct engines; "
                              "pick one")
-        if resident:
-            raise _not_ported("the resident engine (IngressServer with "
-                              "resident=True)", "8: the other engines")
         self.device = resolve_device(device)
         # Sampling is the pool's: its temperature and filters come from the
         # slice's env, and each request's stream from its server-assigned
@@ -177,6 +174,16 @@ class IngressServer:
                                   prefix_cache=prefix_cache,
                                   spec_lookup=spec_lookup,
                                   device=self.device)
+        elif resident:
+            # Resident-cache engine: no history replay, per-row frontiers.
+            self.pool = ResidentPool(params, cfg, batch_size,
+                                     kv_quant=kv_quant, eos_id=eos_id,
+                                     temperature=temperature, top_k=top_k,
+                                     top_p=top_p, key=key,
+                                     draft_params=draft_params,
+                                     draft_cfg=draft_cfg, gamma=gamma,
+                                     spec_lookup=spec_lookup,
+                                     device=self.device)
         else:
             if spec_lookup:
                 raise ValueError(
@@ -1032,7 +1039,7 @@ class IngressServer:
               f"(pool={self.pool.batch_size}, "
               f"speculative="
               f"{getattr(self.pool, 'draft_params', None) is not None}, "
-              f"resident=False, "
+              f"resident={isinstance(self.pool, ResidentPool)}, "
               f"paged={isinstance(self.pool, PagedPool)})", flush=True)
         self.httpd.serve_forever()
 

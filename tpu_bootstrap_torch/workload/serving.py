@@ -1,8 +1,8 @@
 """Continuous batching, the counterpart of
 ``tpu_bootstrap/workload/serving.py``: the ``PagedPool`` engine behind
-``serve(paged=True)`` with its ``BlockAllocator``, the replay-slot
-``SlotPool`` behind ``serve(paged=False)``, and the ``Scheduler`` in front
-of either.
+``serve(paged=True)`` with its ``BlockAllocator``, the resident-cache
+``ResidentPool`` behind ``serve(resident=True)``, the replay-slot
+``SlotPool`` behind ``serve()``, and the ``Scheduler`` in front of each.
 
 ``SlotPool`` keeps no KV cache between rounds: each round left-pads every
 active row's whole history into one batch and runs ``decode.generate``
@@ -101,8 +101,14 @@ recovers a failed round of the paged engine as a preemption of every
 resident row (``PagedPool.quarantine``), fed by the ``pool.device``,
 ``alloc``, ``sched.admit`` and ``swap.xfer`` fault seams.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): the resident engine and the float-pool gather path.
+``ResidentPool`` keeps one cap-length KV cache row per slot: admission
+prefills a prompt once into its row, and a round is ``chunk`` decode
+steps at per-row frontiers over the [0, lb) slab of the caches on the
+einsum path (``_window_scan``), captured as CUDA graphs on the card. The
+paged engine's float pool (``kv_quant=False``), and its int8 pool with
+``paged_kernel=False`` or at a block K2 cannot tile, decode on the same
+``_window_scan`` over each row's blocks gathered into a window
+(``_paged_chunk``), eagerly.
 """
 
 from __future__ import annotations
@@ -133,8 +139,10 @@ from tpu_bootstrap_torch.workload.decode import (
     Sampler,
     decode_step,
     generate,
+    init_cache,
     init_paged_cache,
     paged_decode_step,
+    prefill,
 )
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
@@ -147,11 +155,6 @@ from tpu_bootstrap_torch.workload.speculative import (
     _verify_chunk,
     speculative_generate,
 )
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 @dataclasses.dataclass
@@ -931,6 +934,94 @@ def _paged_chunk_kernel(params: Params, pools: list, bt: torch.Tensor,
     return torch.stack(toks, dim=1)
 
 
+def _prefill_temp(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  kv_quant: bool) -> list:
+    """Admission prefill of ONE resident row: the right-padded (1, W)
+    prompt through a W-wide temporary cache on the einsum path, no head.
+    Plain causal masks: the pad columns hold garbage that the row's own
+    decode writes replace before its frontier ever reads them."""
+    caches = init_cache(cfg, 1, tokens.shape[1], quantized=kv_quant,
+                        device=tokens.device)
+    prefill(params, tokens, caches, cfg, kv_kernel=False, logits=False)
+    return caches
+
+
+def _paste_row(big: list, temp: list, row: int) -> None:
+    """Copy a temporary admission cache into positions [0, W) of cache row
+    ``row`` of the resident caches, in place."""
+    for bc, tc in zip(big, temp):
+        for name, arr in bc.items():
+            arr[row, :tc[name].shape[1]].copy_(tc[name][0])
+
+
+def _window_scan(params: Params, window: list, last: torch.Tensor,
+                 pos: torch.Tensor, cfg: ModelConfig, chunk: int,
+                 sampler: Sampler | None = None) -> torch.Tensor:
+    """``chunk`` decode steps at per-row frontiers ``pos`` (B,) over an
+    attention WINDOW, a (B, L, ...) cache view its caller carved out of
+    its storage (the resident engine's [0, lb) slab, the paged engine's
+    gathered blocks), written in place. The one loop both engines run, so
+    the paged and resident engines cannot part. Greedy, or the
+    ``sampler``'s draw: token k of row r with its row key at offset
+    ``offsets[r] + k``. Returns the tokens (B, chunk) on the device."""
+    tok, p, toks = last, pos, []
+    for i in range(chunk):
+        logits, _ = decode_step(params, tok, p, window, cfg, kv_kernel=False)
+        tok = (torch.argmax(logits, dim=-1) if sampler is None
+               else sampler(logits, i))
+        toks.append(tok)
+        p = p + 1
+    return torch.stack(toks, dim=1)
+
+
+def _slab(caches: list, lb: int) -> list:
+    """The [0, lb) attention slab of the cap-length resident caches as
+    views: decode writes through them land in the caches themselves, so
+    nothing is sliced out or spliced back."""
+    return [{n: a[:, :lb] for n, a in layer.items()} for layer in caches]
+
+
+def _resident_chunk(params: Params, caches: list, last: torch.Tensor,
+                    pos: torch.Tensor, cfg: ModelConfig, chunk: int, lb: int,
+                    sampler: Sampler | None = None) -> torch.Tensor:
+    """``chunk`` decode steps over the RESIDENT caches at per-row frontiers
+    ``pos`` (B,), attention bounded to the window [0, lb) (a power of two
+    at least every frontier this round reaches): the whole pool advances
+    together, each row at its own position, no history replayed. Returns
+    the tokens (B, chunk) on the device."""
+    return _window_scan(params, _slab(caches, lb), last, pos, cfg, chunk,
+                        sampler)
+
+
+def _resident_graph_step(params: Params, window: list, tok: torch.Tensor,
+                         pos: torch.Tensor, out: torch.Tensor,
+                         step: torch.Tensor, cfg: ModelConfig,
+                         sampler: Sampler | None = None) -> None:
+    """One step of ``_resident_chunk`` on the pool's static buffers, the
+    body its graphs capture: tokens ``tok`` (B,) at frontiers ``pos`` (B,)
+    over the slab ``window``, the argmax (or the ``sampler``'s draw, pick
+    ``step``) written into ``out`` at column ``step``, and all three
+    advanced in place."""
+    logits, _ = decode_step(params, tok, pos, window, cfg, kv_kernel=False)
+    nxt = (torch.argmax(logits, dim=-1) if sampler is None
+           else sampler(logits, step))
+    graphs.commit(nxt, tok, pos, out, step)
+
+
+def _paged_chunk(params: Params, pools: list, bt: torch.Tensor,
+                 last: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                 chunk: int, sampler: Sampler | None = None) -> torch.Tensor:
+    """The gathered-window route of ``chunk`` decode steps over the paged
+    pools (the float pool, or ``paged_kernel=False``): each row's blocks
+    gathered into a window as wide as the table, the resident engine's
+    ``_window_scan`` over it on the einsum path, the window scattered back
+    in place. Returns the tokens (B, chunk) on the device."""
+    window = _gather_windows(pools, bt)
+    toks = _window_scan(params, window, last, pos, cfg, chunk, sampler)
+    _scatter_windows(pools, window, bt)
+    return toks
+
+
 def _paged_graph_step(params: Params, pools: list, bt: torch.Tensor,
                       tok: torch.Tensor, pos: torch.Tensor, out: torch.Tensor,
                       step: torch.Tensor, cfg: ModelConfig,
@@ -1117,6 +1208,36 @@ class _PoolBase:
         if (draft_params is not None or spec_lookup) and gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
 
+    def _bind_device(self, device, params: Params,
+                     draft_params: Params | None) -> torch.device:
+        """The pool's device (None: the card), on which the params and the
+        draft's must already live."""
+        device = resolve_device(device)
+        for name, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is not None and tree["embed"].device != device:
+                raise ValueError(f"{name} live on {tree['embed'].device}, "
+                                 f"the pool on {device}")
+        return device
+
+    def _step_buffers(self) -> None:
+        """The static buffers a captured decode step reads and advances,
+        allocated outside any capture: last tokens, frontiers, a step
+        counter and the chunk's output (B, the largest chunk); a sampled
+        pool's row keys and stream offsets, loaded before each chunk, and
+        the sampler that reads them."""
+        b, dev = self.batch_size, self.device
+        self._tok = torch.zeros(b, dtype=torch.long, device=dev)
+        self._pos = torch.zeros_like(self._tok)
+        self._step = torch.zeros(1, dtype=torch.long, device=dev)
+        self._out = torch.zeros((b, _bucket_down(self.cfg.max_seq_len)),
+                                dtype=torch.long, device=dev)
+        self._sampler = None
+        if self.temperature > 0:
+            self._rkeys = torch.zeros((b, 2), dtype=torch.long, device=dev)
+            self._roff = torch.zeros_like(self._tok)
+            self._sampler = Sampler(self.temperature, self.top_k, self.top_p,
+                                    row_keys=self._rkeys, offsets=self._roff)
+
     def _sampling_init(self, temperature: float, top_k: int, top_p: float,
                        key) -> None:
         """The pool's sampling settings; the key and the dummy rows' keys
@@ -1185,6 +1306,15 @@ class _PoolBase:
                 f"({r.max_new}) buckets to "
                 f"{_bucket_up(len(r.tokens) + r.max_new)} > the model's "
                 f"max_seq_len ({cfg.max_seq_len})")
+
+    def admits(self, r: Request, *, extra_slots: int = 0,
+               extra_blocks: int = 0, reserve_new: int | None = None,
+               preload: list | None = None) -> bool:
+        """Whether a slot engine can take ``r`` now: its capacity is
+        slots, not blocks, so the Scheduler's block inputs
+        (``extra_blocks``, ``reserve_new``, ``preload``) mean nothing
+        here (the paged engine overrides this)."""
+        return self.free_slots() > extra_slots
 
     def _on_retire(self, i: int, s) -> None:
         """Called by the event fold just before a finished row's slot is
@@ -1275,11 +1405,7 @@ class SlotPool(_PoolBase):
                  device=None):
         self._check_pool_args(batch_size, temperature, key, draft_params,
                               draft_cfg, gamma)
-        self.device = resolve_device(device)
-        for name, tree in (("params", params), ("draft_params", draft_params)):
-            if tree is not None and tree["embed"].device != self.device:
-                raise ValueError(f"{name} live on {tree['embed'].device}, "
-                                 f"the pool on {self.device}")
+        self.device = self._bind_device(device, params, draft_params)
         self.params, self.cfg = params, cfg
         self.batch_size = batch_size
         self.kv_quant = kv_quant
@@ -1300,14 +1426,6 @@ class SlotPool(_PoolBase):
         """Abandon every in-flight row; the pool keeps no device state
         beyond its slots."""
         self.slots = [None] * self.batch_size
-
-    def admits(self, r: Request, *, extra_slots: int = 0,
-               extra_blocks: int = 0, reserve_new: int | None = None,
-               preload: list | None = None) -> bool:
-        """Capacity is slots, not blocks: the Scheduler's block inputs
-        (``extra_blocks``, ``reserve_new``, ``preload``) mean nothing
-        here."""
-        return self.free_slots() > extra_slots
 
     def admit(self, r: Request, *, reserve_new: int | None = None,
               preload: list | None = None, seq: int = 0) -> None:
@@ -1394,10 +1512,248 @@ class SlotPool(_PoolBase):
             kind="verify" if self.draft_params is not None else "decode")
 
 
+class ResidentPool(_PoolBase):
+    """The resident-cache engine: continuous batching WITHOUT history
+    replay. Every slot owns a cap-length row of one KV cache (float, or
+    int8 with ``kv_quant``), admission prefills a prompt once into its row
+    (``_prefill_temp``, ``_paste_row``), and a round is ``chunk`` decode
+    steps at per-row frontiers over the [0, lb) slab of the caches
+    (``_resident_chunk``, the einsum path, as in the reference), the chunk
+    the majority rule's. On the card each step is a replay of a CUDA graph
+    of one step (``graphs``), one graph per slab width lb, over static
+    buffers the pool keeps; on the CPU the eager loop runs.
+
+    Sampling is the other engines': token k of request r draws with
+    ``fold_in(fold_in(fold_in(key, 1), r.rid), k)``. With ``draft_params``
+    (and ``draft_cfg``), or ``spec_lookup``, every round is a greedy
+    speculative round in which each row commits its own accepted count
+    (``_spec_round``, eager over the slab views; a model draft keeps its
+    own resident cache). Drive it with ``admit`` and ``step_round``; every
+    request's tokens equal its solo ``generate(kv_kernel=False)``."""
+
+    def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
+                 kv_quant: bool = False, eos_id: int | None = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, key=None,
+                 draft_params: Params | None = None,
+                 draft_cfg: ModelConfig | None = None, gamma: int = 4,
+                 spec_lookup: bool | None = None, device=None):
+        if spec_lookup is None:
+            spec_lookup = os.environ.get(
+                "TPUBC_SPEC_LOOKUP", "").lower() in ("1", "true")
+        self._check_pool_args(batch_size, temperature, key, draft_params,
+                              draft_cfg, gamma, spec_lookup=spec_lookup)
+        self.device = self._bind_device(device, params, draft_params)
+        self.params, self.cfg = params, cfg
+        self.batch_size = batch_size
+        self.kv_quant = kv_quant
+        self.eos_id = eos_id
+        self._sampling_init(temperature, top_k, top_p, key)
+        self.draft_params, self.draft_cfg, self.gamma = (
+            draft_params, draft_cfg, gamma)
+        self.spec_lookup = spec_lookup
+        # A model draft and prompt lookup share everything after the
+        # draft source: the verify chunk, per-row commits, gamma headroom.
+        self._spec = draft_params is not None or spec_lookup
+        self.caches = init_cache(cfg, batch_size, cfg.max_seq_len,
+                                 quantized=kv_quant, device=self.device)
+        self.dcaches = (init_cache(draft_cfg, batch_size, cfg.max_seq_len,
+                                   quantized=kv_quant, device=self.device)
+                        if draft_params is not None else None)
+        self.slots: list = [None] * batch_size
+        self.stats = {"rounds": 0, "slot_steps": 0, "active_slot_steps": 0,
+                      "prefill_tokens": 0}
+        if self._spec:
+            self.stats.update({"verify_rounds": 0, "committed_tokens": 0,
+                               "draft_steps": 0, "draft_proposed": 0,
+                               "draft_accepted": 0})
+        # The decode chunk's captured steps (None off the card), their
+        # static buffers and one slab of views per width lb.
+        self._graphs = graphs.for_device(self.device)
+        self._step_buffers()
+        self._slabs: dict = {}
+        self._record_stream_gauges()
+
+    def validate(self, r: Request, cfg: ModelConfig) -> None:
+        _PoolBase.validate(r, cfg)
+        self._validate_spec_headroom(r, cfg)
+
+    def reset(self) -> None:
+        """Abandon every in-flight row and zero the caches. The reference
+        rebuilds its donated caches here; the port zeroes its own IN
+        PLACE, because the captured steps read their addresses."""
+        self.slots = [None] * self.batch_size
+        for layer in self.caches + (self.dcaches or []):
+            for a in layer.values():
+                a.zero_()
+
+    def admit(self, r: Request, *, reserve_new: int | None = None,
+              preload: list | None = None, seq: int = 0) -> None:
+        """Prefill ``r``'s prompt once into a free slot's row (raises when
+        full: callers check ``admits``). Its frontier is the last prompt
+        token's position: the first decode step re-feeds that token and
+        emits the first continuation."""
+        if preload:
+            raise ValueError("slot engines never preempt, so they have "
+                             "nothing to resume (preload is paged-only)")
+        self.validate(r, self.cfg)
+        # Stamped before the admission prefill, so its device work lands
+        # in the record's prefill phase, not its queue wait.
+        self._levent(r.rid, "admitted", engine="resident",
+                     prompt=len(r.tokens))
+        i = self._free_index()
+        w = _bucket_up(len(r.tokens))
+        row = torch.zeros((1, w), dtype=torch.long)
+        # Right-padded: the row's positions are its true positions.
+        row[0, :len(r.tokens)] = torch.tensor(r.tokens)
+        row = row.to(self.device)
+        _paste_row(self.caches, _prefill_temp(self.params, row, self.cfg,
+                                              self.kv_quant), i)
+        if self.draft_params is not None:
+            # The draft's cache follows the target's frontier: prefilled
+            # once at admission too.
+            _paste_row(self.dcaches,
+                       _prefill_temp(self.draft_params, row, self.draft_cfg,
+                                     self.kv_quant), i)
+        self.stats["prefill_tokens"] += len(r.tokens)
+        self._ledger_add(r.rid, "prefill", len(r.tokens))
+        self._levent(r.rid, "prefill_chunk", tokens=len(r.tokens),
+                     prefilled=len(r.tokens))
+        self.slots[i] = _Slot(
+            rid=r.rid, history=list(r.tokens), remaining=r.max_new,
+            generated=[], priority=r.priority, seq=seq, deadline=r.deadline,
+            row_key=(_stream_key(self.key, r.rid)
+                     if self.temperature > 0 else None))
+
+    def _rows(self) -> tuple:
+        """(last tokens (B,), frontiers (B,)) on the host: free slots at
+        token 0, position 0 (their writes land in their own free row)."""
+        last = torch.tensor([s.history[-1] if s is not None else 0
+                             for s in self.slots], dtype=torch.long)
+        pos = torch.tensor([len(s.history) - 1 if s is not None else 0
+                            for s in self.slots], dtype=torch.long)
+        return last, pos
+
+    def _decode_chunk(self, lb: int, last: torch.Tensor, pos: torch.Tensor,
+                      chunk: int) -> list:
+        """``chunk`` decode steps from ``last`` at ``pos`` over the [0, lb)
+        slab, greedy or sampled; returns the (B, chunk) tokens as lists,
+        read from the device once. On the card: the static buffers loaded,
+        then the captured step of width lb replayed ``chunk`` times (the
+        first step of a new width is the warm-up, then the capture). Off
+        the card: ``_resident_chunk``."""
+        if self.temperature > 0:
+            keys, offs = self._row_keys(self.slots)
+            self._rkeys.copy_(keys)
+            self._roff.copy_(offs)
+        if self._graphs is None:
+            return _resident_chunk(
+                self.params, self.caches, last.to(self.device),
+                pos.to(self.device), self.cfg, chunk, lb,
+                self._sampler).tolist()
+        if lb not in self._slabs:
+            self._slabs[lb] = _slab(self.caches, lb)
+        self._tok.copy_(last)
+        self._pos.copy_(pos)
+        self._step.zero_()
+        self._graphs.run(lb, functools.partial(
+            _resident_graph_step, self.params, self._slabs[lb], self._tok,
+            self._pos, self._out, self._step, self.cfg, self._sampler),
+            chunk)
+        return self._out[:, :chunk].tolist()
+
+    def step_round(self) -> dict:
+        """One round over the active slots: a decode chunk of the majority
+        rule's length, or a speculative round; returns the event fold's
+        {rid: {"new", "done", "generated"}}."""
+        active = [s for s in self.slots if s is not None]
+        if not active:
+            return {}
+        faults.fire("pool.device")
+        last, pos = self._rows()
+        if self._spec:
+            return self._spec_round(active, last, pos)
+        # The majority chunk, not the min: a row near its budget retires
+        # mid-chunk through the event fold instead of cutting the cohort
+        # into one-token rounds.
+        chunk = _majority_chunk(active, self.cfg.max_seq_len)
+        # Frontiers start at len(history) - 1, so a round writes up to
+        # column len(history) + chunk - 2: the slab is that wide, bucketed
+        # up (O(log) graphs) and capped at the cache length.
+        lb = min(_bucket_up(max(len(s.history) for s in active) + chunk - 1),
+                 self.cfg.max_seq_len)
+        with telemetry.span("serve.decode_chunk", chunk=chunk, lb=lb,
+                            rows=len(active)):
+            out = self._decode_chunk(lb, last, pos, chunk)
+        self.stats["rounds"] += 1
+        self.stats["slot_steps"] += self.batch_size * chunk
+        # Useful steps are clamped per row: a minority row's overshoot runs
+        # and is discarded, counted in slot_steps only.
+        self.stats["active_slot_steps"] += sum(
+            min(chunk, s.remaining) for s in active)
+        return self._emit_events(out, [chunk] * self.batch_size)
+
+    def _spec_round(self, active: list, last: torch.Tensor,
+                    pos: torch.Tensor) -> dict:
+        """One greedy speculative round, each row committing its own
+        accepted count + 1 (the event fold caps it at the row's budget):
+        the draft's gamma + 1 steps over its slab, or the prompt-lookup
+        drafts, then the verify chunk over the target's slab, both slabs
+        views written in place. The draft and verify halves end in a host
+        read each, so ``serve_spec_draft_ms`` and ``serve_spec_verify_ms``
+        time them apart; ``serve_spec_commit_ms`` is the event fold."""
+        # A speculative round writes up to frontier + gamma.
+        lb = min(_bucket_up(max(len(s.history) for s in active) + self.gamma),
+                 self.cfg.max_seq_len)
+        last, pos = last.to(self.device), pos.to(self.device)
+        window = _slab(self.caches, lb)
+        t0 = time.perf_counter()
+        if self.draft_params is not None:
+            drafts = _spec_draft_window(self.draft_params,
+                                        _slab(self.dcaches, lb), last, pos,
+                                        self.draft_cfg, self.gamma)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the phase's end
+        else:
+            # Prompt lookup: n-gram copies on the host, no model pass;
+            # free slots propose zeros (their commits are discarded).
+            drafts = torch.tensor(
+                [ngram_lookup_drafts(s.history, self.gamma)
+                 if s is not None else [0] * self.gamma for s in self.slots],
+                dtype=torch.long, device=self.device)
+        t1 = time.perf_counter()
+        greedy, counts = _spec_verify_window(self.params, window, drafts,
+                                             last, pos, self.cfg)
+        greedy, counts = greedy.tolist(), counts.tolist()
+        t2 = time.perf_counter()
+        reg = telemetry.metrics()
+        reg.observe("serve_spec_draft_ms", (t1 - t0) * 1e3)
+        reg.observe("serve_spec_verify_ms", (t2 - t1) * 1e3)
+        self.stats["rounds"] += 1
+        self.stats["verify_rounds"] += 1
+        if self.draft_params is not None:
+            self.stats["draft_steps"] += self.gamma + 1
+        self._record_acceptance(
+            counts, [i for i, s in enumerate(self.slots) if s is not None])
+        kept = [min(counts[i], s.remaining) if s is not None else 0
+                for i, s in enumerate(self.slots)]
+        reg.observe(
+            "serve_spec_committed_per_round", sum(kept) / max(len(active), 1),
+            buckets=tuple(range(1, self.gamma + 2)))
+        self.stats["committed_tokens"] += sum(kept)
+        self.stats["slot_steps"] += sum(kept)
+        self.stats["active_slot_steps"] += sum(kept)
+        events = self._emit_events(greedy, kept, kind="verify")
+        reg.observe("serve_spec_commit_ms",
+                    (time.perf_counter() - t2) * 1e3)
+        return events
+
+
 class PagedPool(_PoolBase):
     """Block-paged continuous batching over int8 or int4 weights (dense
     or MoE; unquantized ones when drafted by their int8 copy) and an int8
-    KV pool: ``batch_size`` rows at most, ``kv_blocks`` blocks of
+    KV pool (``kv_quant``), or a float one: ``batch_size`` rows at most,
+    ``kv_blocks`` blocks of
     ``block_size`` tokens (default: ``batch_size`` max-length rows'
     worth), prompts prefilled in chunks of at most ``prefill_budget``
     tokens per round, full prompt blocks shared through the prefix cache
@@ -1410,9 +1766,13 @@ class PagedPool(_PoolBase):
     ``temperature`` > 0 samples with ``top_k`` / ``top_p`` from each
     request's stream key under ``key``; ``draft_params`` with
     ``draft_cfg``, or ``spec_lookup``, turns every decode into a greedy
-    speculative round of ``gamma`` proposals. Drive it with ``admit`` and
-    ``step_round``; preempted rows' resume records collect in
-    ``preempted``."""
+    speculative round of ``gamma`` proposals. ``paged_kernel`` picks the
+    decode route as the reference does: None takes kernel K2 on the int8
+    pool at a block it tiles (``decode_attention.paged_supports``) and
+    the gathered-window route (``_paged_chunk``) otherwise; True insists
+    on K2 and raises where it cannot run; False always gathers. Drive it
+    with ``admit`` and ``step_round``; preempted rows' resume records
+    collect in ``preempted``."""
 
     def __init__(self, params: Params, cfg: ModelConfig, batch_size: int, *,
                  kv_blocks: int | None = None, block_size: int | None = None,
@@ -1423,7 +1783,8 @@ class PagedPool(_PoolBase):
                  draft_cfg: ModelConfig | None = None, gamma: int = 4,
                  spec_lookup: bool | None = None,
                  prefix_cache: bool | None = None,
-                 host_blocks: int | None = None, device=None):
+                 host_blocks: int | None = None,
+                 paged_kernel: bool | None = None, device=None):
         # None reads the reference's knobs, with its defaults:
         # TPUBC_SPEC_LOOKUP (off), TPUBC_KV_BLOCK (64), TPUBC_PREFILL_BUDGET
         # (64) and TPUBC_PREFIX_CACHE (on).
@@ -1432,9 +1793,6 @@ class PagedPool(_PoolBase):
                 "TPUBC_SPEC_LOOKUP", "").lower() in ("1", "true")
         self._check_pool_args(batch_size, temperature, key, draft_params,
                               draft_cfg, gamma, spec_lookup=spec_lookup)
-        if not kv_quant:
-            raise _not_ported("the float KV pool (gather/einsum decode)",
-                              "8: the other engines")
         if block_size is None:
             block_size = int(os.environ.get("TPUBC_KV_BLOCK", "64"))
         if block_size < 1:
@@ -1444,17 +1802,24 @@ class PagedPool(_PoolBase):
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
-        if not decode_attention.paged_supports(block_size, cfg.kv_heads,
-                                               cfg.head_dim, cfg.num_heads):
-            raise ValueError(
-                f"block_size={block_size} with (H={cfg.num_heads}, "
-                f"Hk={cfg.kv_heads}, D={cfg.head_dim}) is outside the paged "
-                "kernel's limits; see decode_attention.paged_supports")
-        self.device = resolve_device(device)
-        for name, tree in (("params", params), ("draft_params", draft_params)):
-            if tree is not None and tree["embed"].device != self.device:
-                raise ValueError(f"{name} live on {tree['embed'].device}, "
-                                 f"the pool on {self.device}")
+        tiles = decode_attention.paged_supports(block_size, cfg.kv_heads,
+                                                cfg.head_dim, cfg.num_heads)
+        if paged_kernel is None:
+            # AUTO, the reference's rule: K2 streams the int8 pool at a
+            # block it tiles; anything else takes the gathered route.
+            paged_kernel = kv_quant and tiles
+        elif paged_kernel:
+            if not kv_quant:
+                raise ValueError("paged_kernel=True requires kv_quant=True "
+                                 "(the kernel streams the int8 pool)")
+            if not tiles:
+                raise ValueError(
+                    f"paged_kernel=True but block_size={block_size} is not "
+                    f"a legal kernel tile for (Hk={cfg.kv_heads}, "
+                    f"D={cfg.head_dim}) \u2014 see decode_attention."
+                    "paged_supports")
+        self.paged_kernel = bool(paged_kernel)
+        self.device = self._bind_device(device, params, draft_params)
         self.block_size = block_size
         self.max_bpr = -(-cfg.max_seq_len // block_size)  # blocks per row cap
         if kv_blocks is None:
@@ -1484,11 +1849,12 @@ class PagedPool(_PoolBase):
         self.allocator = BlockAllocator(kv_blocks, block_size)
         # kv_blocks usable blocks + the null block (id 0).
         self.pools = init_paged_cache(cfg, kv_blocks + 1, block_size,
-                                      quantized=True, device=self.device)
+                                      quantized=kv_quant, device=self.device)
         # The draft's pools follow the target's frontiers block for block:
         # one allocator and one table per row drive both.
         self.dpools = (init_paged_cache(draft_cfg, kv_blocks + 1, block_size,
-                                        quantized=True, device=self.device)
+                                        quantized=kv_quant,
+                                        device=self.device)
                        if draft_params is not None else None)
         self.slots: list = [None] * batch_size
         self._pre_rr = 0  # round-robin cursor over prefilling rows
@@ -1513,27 +1879,13 @@ class PagedPool(_PoolBase):
         self._kv_bytes_per_tok = kv_bytes_per_token(cfg, kv_quant) + (
             kv_bytes_per_token(draft_cfg, kv_quant)
             if draft_params is not None else 0)
-        # The decode chunk's captured steps (None off the card) and the
-        # static buffers they read and advance: last tokens, frontiers, a
-        # step counter, the chunk's output (B, the largest chunk) and one
-        # table per width nb, all allocated outside any capture.
-        self._graphs = graphs.for_device(self.device)
-        self._tok = torch.zeros(batch_size, dtype=torch.long,
-                                device=self.device)
-        self._pos = torch.zeros_like(self._tok)
-        self._step = torch.zeros(1, dtype=torch.long, device=self.device)
-        self._out = torch.zeros((batch_size, _bucket_down(cfg.max_seq_len)),
-                                dtype=torch.long, device=self.device)
+        # The kernel route's captured steps (None off the card, and on the
+        # gathered route, which runs eagerly), their static buffers and one
+        # table per width nb.
+        self._graphs = (graphs.for_device(self.device) if self.paged_kernel
+                        else None)
+        self._step_buffers()
         self._tables: dict = {}
-        # Sampled pools: the rows' keys and stream offsets, loaded before
-        # each chunk, which the sampler (and so the captured step) reads.
-        self._sampler = None
-        if temperature > 0:
-            self._rkeys = torch.zeros((batch_size, 2), dtype=torch.long,
-                                      device=self.device)
-            self._roff = torch.zeros_like(self._tok)
-            self._sampler = Sampler(temperature, top_k, top_p,
-                                    row_keys=self._rkeys, offsets=self._roff)
         # Set while an in-place write of the pools is under way (a prefill
         # chunk's scatter, a copy-on-write copy, a host restore, a decode
         # chunk, defrag): a failure that leaves it set may have written
@@ -2317,13 +2669,19 @@ class PagedPool(_PoolBase):
         """``chunk`` decode steps from ``last`` at ``pos`` through table
         ``bt``, greedy, or sampled from ``keys`` (row keys, offsets) when
         the pool samples; returns the (B, chunk) tokens as lists, read from
-        the device once. On the card: the static buffers loaded, then the
-        captured step of the table's width replayed ``chunk`` times (the
-        first step of a new width is the warm-up, then the capture). Off
-        the card: ``_paged_chunk_kernel``."""
+        the device once. The gathered route (``paged_kernel`` off):
+        ``_paged_chunk``, eagerly. The kernel route on the card: the static
+        buffers loaded, then the captured step of the table's width
+        replayed ``chunk`` times (the first step of a new width is the
+        warm-up, then the capture); off the card: ``_paged_chunk_kernel``."""
         if keys is not None:
             self._rkeys.copy_(keys[0])
             self._roff.copy_(keys[1])
+        if not self.paged_kernel:
+            return _paged_chunk(
+                self.params, self.pools, bt, last.to(self.device),
+                pos.to(self.device), self.cfg, chunk,
+                self._sampler).tolist()
         if self._graphs is None:
             return _paged_chunk_kernel(
                 self.params, self.pools, bt, last.to(self.device),
@@ -2471,15 +2829,15 @@ class PagedPool(_PoolBase):
     def snapshot(self) -> dict:
         """The pool's state, paged half: the block accounting (live,
         cached and free mirror the allocator exactly), each row's blocks,
-        the watermark headroom, the cache digest and the host tier. The
-        port's decode always runs the paged kernel K2."""
+        the watermark headroom, the cache digest and the host tier, and
+        whether decode runs the paged kernel K2 or the gathered route."""
         snap = super().snapshot()
         a = self.allocator
         imminent = self.imminent_growth()
         snap.update({
             "block_size": self.block_size,
             "prefix_cache": self.prefix_cache,
-            "paged_kernel": True,
+            "paged_kernel": self.paged_kernel,
             "blocks": {"total": a.num_blocks, "live": a.used(),
                        "cached": a.cached(),
                        "free": a.available() - a.cached(),
@@ -3015,25 +3373,30 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
     request r draws with ``fold_in(fold_in(fold_in(key, 1), r.rid), k)``, so
     its stream is the same whatever the batch, the admission order or the
     chunks. ``draft_params``/``draft_cfg``/``gamma`` (or, on the paged
-    engine, ``spec_lookup``) run greedy speculative rounds: the streams
-    are unchanged. ``paged=True`` is the block-paged
-    engine (``kv_quant=True`` only; ``kv_blocks``, ``block_size``,
-    ``prefill_budget``, ``prefix_cache`` and ``spec_lookup`` go to it, None
-    reading their knobs as ``PagedPool`` does, and its host tier is sized
-    by ``TPUBC_KV_HOST_BLOCKS``); admission overcommits and preempts
-    unless ``overcommit=False`` (None reads ``TPUBC_OVERCOMMIT``, on by
-    default, as in the reference); ``paged=False`` the
-    replay-slot engine (``spec_lookup`` refused there, as in the
-    reference). ``stats``, if given, is filled with the
+    and resident engines, ``spec_lookup``) run greedy speculative rounds:
+    the streams are unchanged. ``paged=True`` is the block-paged engine
+    (``kv_blocks``, ``block_size``, ``prefill_budget``, ``prefix_cache``
+    and ``spec_lookup`` go to it, None reading their knobs as
+    ``PagedPool`` does, and its host tier is sized by
+    ``TPUBC_KV_HOST_BLOCKS``; the int8 pool decodes through kernel K2,
+    the float pool, ``kv_quant=False``, on the gathered route); admission
+    overcommits and preempts unless ``overcommit=False`` (None reads
+    ``TPUBC_OVERCOMMIT``, on by default, as in the reference).
+    ``resident=True`` is the resident-cache engine (``ResidentPool``),
+    ``paged`` and ``resident`` both False the replay-slot engine
+    (``spec_lookup`` refused there, as in the reference); asking for
+    paged and resident together is a ValueError. ``stats``, if given, is
+    filled with the
     pool's accounting (rounds, slot_steps, active_slot_steps, and the
     engine's own: prefill_tokens, blocks_peak, preemptions, grown_blocks,
     the swap counters, ... or replayed_tokens, verify_rounds,
     committed_tokens, draft_steps) plus a ``"scheduler"`` sub-dict, and for
     the paged engine the allocator's stats (``"allocator"``), the host
-    tier's snapshot (``"host"``, when the tier exists) and, on the card,
-    its graphs' (``"graphs"``: captured, capture_s, replays); speculative
+    tier's snapshot (``"host"``, when the tier exists) and, for the
+    paged and resident engines on the card, their graphs' (``"graphs"``:
+    captured, capture_s, replays); speculative
     pools add verify_rounds, committed_tokens and draft_steps (and the
-    paged engine draft_proposed and draft_accepted).
+    paged and resident engines draft_proposed and draft_accepted).
 
     A request's ``deadline`` is honoured as the reference honours it: a
     request still waiting past it returns no token, one running past it
@@ -3041,13 +3404,12 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
     recovered (crash-is-preemption) and the streams go on unchanged.
 
     ``device`` None means the card (and raises without CUDA); ``params``
-    must already live there. The resident engine and the reference's
-    other options raise ``NotImplementedError``."""
-    if resident:
-        raise _not_ported("the resident engine (serve with resident=True)",
-                          "8: the other engines")
+    must already live there."""
     if len({r.rid for r in requests}) != len(requests):
         raise ValueError("duplicate request rids (results key by rid)")
+    if paged and resident:
+        raise ValueError("paged and resident are distinct engines; "
+                         "pick one")
     if paged:
         pool = PagedPool(params, cfg, batch_size, kv_blocks=kv_blocks,
                          block_size=block_size,
@@ -3057,6 +3419,13 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
                          draft_params=draft_params, draft_cfg=draft_cfg,
                          gamma=gamma, spec_lookup=spec_lookup,
                          prefix_cache=prefix_cache, device=device)
+    elif resident:
+        pool = ResidentPool(params, cfg, batch_size, kv_quant=kv_quant,
+                            eos_id=eos_id, temperature=temperature,
+                            top_k=top_k, top_p=top_p, key=key,
+                            draft_params=draft_params, draft_cfg=draft_cfg,
+                            gamma=gamma, spec_lookup=spec_lookup,
+                            device=device)
     else:
         if spec_lookup:
             raise ValueError(
@@ -3086,8 +3455,8 @@ def serve(params: Params, cfg: ModelConfig, requests: list,
             stats["allocator"] = dict(pool.allocator.stats)
             if pool.host is not None:
                 stats["host"] = pool.host.snapshot_json()
-            if pool._graphs is not None:
-                stats["graphs"] = dict(pool._graphs.stats)
+        if getattr(pool, "_graphs", None) is not None:
+            stats["graphs"] = dict(pool._graphs.stats)
     return done
 
 
@@ -3109,12 +3478,12 @@ def serve_demo_from_env(device=None) -> None:
     A nonzero temperature samples with the pool key ``PRNGKey(seed + 1)``.
 
     As in the reference, the engine is the replay-slot one unless
-    WORKLOAD_PAGED=1, and the KV pool is float unless WORKLOAD_KV_QUANT=1:
-    the port's main path (the paged engine on the int8 pool, kernels K1
-    and K2) runs only with both set. WORKLOAD_PAGED=1 alone asks for the
-    float pool and raises ``NotImplementedError`` naming ROADMAP queue 1
-    item 8, loudly, rather than serving another engine than the one asked
-    for; so does WORKLOAD_RESIDENT=1. ``device`` None means the card, and
+    WORKLOAD_PAGED=1 (the block-paged engine) or WORKLOAD_RESIDENT=1 (the
+    resident-cache engine; both together are refused), and the KV cache
+    is float unless WORKLOAD_KV_QUANT=1: the port's main path (the paged
+    engine on the int8 pool, kernels K1 and K2) runs with WORKLOAD_PAGED
+    and WORKLOAD_KV_QUANT both set; WORKLOAD_PAGED=1 alone serves the
+    float pool on the gathered route. ``device`` None means the card, and
     without CUDA raises before anything runs."""
     from tpu_bootstrap_torch.workload import checkpoint as ck
     from tpu_bootstrap_torch.workload.model import init_params
@@ -3199,7 +3568,20 @@ def serve_demo_from_env(device=None) -> None:
           f"slot utilization {util:.2f}")
 
 
+def static_schedule_slot_steps(requests: list, batch_size: int) -> int:
+    """Slot-steps a STATIC batcher would run on the same requests (fill a
+    batch, run every row for the batch's longest budget, repeat): the
+    baseline the engines' utilization is compared with."""
+    total = 0
+    q = list(requests)
+    while q:
+        wave, q = q[:batch_size], q[batch_size:]
+        total += batch_size * max(r.max_new for r in wave)
+    return total
+
+
 __all__ = ["BlockAllocator", "HostBlockPool", "PagedPool", "Request",
-           "RequestLog", "RequestRecord", "Scheduler", "SlotPool",
-           "block_hash", "device_ledger_enabled", "ngram_lookup_drafts",
-           "request_events_enabled", "serve", "serve_demo_from_env"]
+           "RequestLog", "RequestRecord", "ResidentPool", "Scheduler",
+           "SlotPool", "block_hash", "device_ledger_enabled",
+           "ngram_lookup_drafts", "request_events_enabled", "serve",
+           "serve_demo_from_env", "static_schedule_slot_steps"]
