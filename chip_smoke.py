@@ -97,12 +97,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               otherwise).
 11. serve_prefix -- the prefix cache on bench.py:867-889's traffic (24
               requests sharing a 192-token system prompt, 8 unique tokens
-              each, max_new 16, batch 8, block 64) on the decode model,
-              cached and cold, TIMED_RUNS times each: hit rate above 0.5,
-              copy-on-write copies, evictions; cached streams held to the
-              cold ones and every stream to solo generate (near-ties
-              allowed); the host tier, on with the cache, never used (no
-              swap in or out: the pool never evicts).
+              each, max_new 16, batch 8, block 64) on the decode model at
+              CUT_MODEL's 4 layers, cached and cold, TIMED_RUNS times
+              each: hit rate above 0.5, copy-on-write copies, evictions;
+              cached streams held to the cold ones and every stream to
+              solo generate (near-ties allowed); the host tier, on with
+              the cache, never used (no swap in or out: the pool never
+              evicts).
 12. serve_overcommit -- overcommit admission and preemption on
               bench.py:1060-1190's traffic (block 16, the attractor token
               as eos): a 24-request burst of 8-token prompts (max_new 64)
@@ -264,6 +265,27 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
+25. quality -- fine-tuning and evaluation on a trained model
+              (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
+              1024, batch 8, flash, bf16) for 300 steps on
+              quality.markov_batch's chain over 4096 tokens; K1 and K6 at
+              the score's T = 1,024 against their plain versions; the
+              int8 and int4 ladder (eval_quality against the bf16 copy on
+              markov_batch(10_000, 8, 129)), K1 and K6 launched as the
+              scoring prefill implies; acceptance of the int8 self-draft
+              (spec_acceptance, gamma 4, 48 steps); a 2-layer draft
+              distilled for 150 steps, its acceptance and tokens/s of
+              speculative decoding with it against plain greedy (the
+              two-point rule), its streams held to plain greedy up to
+              near-ties; sampling's top-k / top-p cutoff gaps on the
+              trained weights and on a random init (recorded); QLoRA
+              (make_lora_train_step on the int8 model, flash, wq and wv)
+              for 20 steps on a second chain: the loss
+              falls, the base's bytes unchanged, merge_lora then
+              quantize_params served greedy equal to the merged float
+              params up to near-ties; the flash kernels launched as
+              scheduled in every training step. The limits are
+              tests/test_quality.py's (QUALITY_LIMITS).
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time), one
 ``{"kernels": [...]}`` line and, last, the device line the caller reads.
@@ -312,7 +334,8 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # that every phase fits the script's time limit; the serve, serve_ingress
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
-DEPTH_CUT = ("serve_int4", "serve_moe", "serve_faults", "sampling")
+DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_faults",
+             "sampling")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -1673,9 +1696,11 @@ def _prefix_requests(serving, vocab: int) -> list:
         max_new=PREFIX_NEW) for i in range(PREFIX_REQUESTS)]
 
 
-def phase_serve_prefix(torch, kernels, device) -> dict:
+def phase_serve_prefix(torch, kernels, device,
+                       model_kw=DECODE_MODEL) -> dict:
     """The prefix cache on bench.py's shared-system-prompt traffic, on the
-    decode model at full width (bf16, int8 weights from seed 0): served
+    decode model at full width (bf16, int8 weights from seed 0; main runs
+    it at CUT_MODEL's depth, DEPTH_CUT): served
     with the cache (the default, with the host tier under it) and cold
     (prefix_cache=False),
     TIMED_RUNS times each. Held: the hit rate above PREFIX_HIT_RATE; the
@@ -1687,7 +1712,7 @@ def phase_serve_prefix(torch, kernels, device) -> dict:
     tier idle (the pool never evicts)."""
     from tpu_bootstrap_torch.workload import decode, model, quant, serving
 
-    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
     params = quant.quantize_params(model.init_params(cfg, seed=0,
                                                      device=device))
     reqs = _prefix_requests(serving, cfg.vocab_size)
@@ -4489,6 +4514,389 @@ def phase_train_long(torch, kernels, device) -> dict:
     return out
 
 
+# bench.py:350-458: the quantization ladder, speculative acceptance and a
+# distilled draft on a model trained in the phase, on quality.markov_batch's
+# chain over a 4096-token sub-vocabulary (p 0.85, seed 0), at TRAIN_MODEL's
+# widths, max_seq_len 1024, batch 8.
+QUALITY_VOCAB, QUALITY_BATCH, QUALITY_SEQ = 4096, 8, 1024
+QUALITY_STEPS = 300
+QUALITY_HELD_OUT = (10_000, 129)  # markov_batch's (step, seq_len)
+QUALITY_PROMPT = (20_000, 16)
+QUALITY_SPEC_STEPS = 48
+DISTILL_LAYERS, DISTILL_STEPS, DISTILL_STEP0 = 2, 150, 500
+TWO_POINT = (32, 96)  # bench.py:445-452's generate lengths
+TWO_POINT_PAIRS = 3
+# QLoRA: the int8 trained model fine-tuned on a second chain (another
+# permutation, seed 1) at LoraConfig's defaults (rank 8, alpha 16, wq and
+# wv), then merged, quantized again and served QLORA_NEW greedy tokens.
+QLORA_STEPS, QLORA_TASK_SEED, QLORA_NEW = 20, 1, 8
+
+
+def chain_floor(p: float, vocab: int) -> float:
+    """The chain's cross-entropy floor (nats): next = perm[cur] with
+    probability p + (1 - p) / vocab, each other token (1 - p) / vocab."""
+    hit, miss = p + (1 - p) / vocab, (1 - p) / vocab
+    return -hit * math.log(hit) - (vocab - 1) * miss * math.log(miss)
+
+
+# The phase's limits are tests/test_quality.py:64-147's, on the reference
+# test's chain (p 0.9, vocabulary 128). Its "trained, not noise" limit,
+# ppl_base < 5, sits 0.805 nats above that chain's floor (2.24); this chain's
+# floor (p 0.85, vocabulary 4096) is 5.31, so no model can reach 5 here, and
+# the phase holds the same margin above its own floor: 11.9.
+QUALITY_LIMITS = {
+    "trained_loss_frac": 0.6,
+    "int8_agreement_pct": 85.0, "int8_ppl_delta": 0.5,
+    "int4_agreement_pct": 60.0, "int4_ppl_delta": 2.0,
+    "ppl_base": math.exp(chain_floor(0.85, QUALITY_VOCAB)
+                         + math.log(5.0) - chain_floor(0.9, 128)),
+    "mean_committed": 1.5,
+}
+
+
+def _bf16_copy(torch, tree):
+    """The tree with every f32 tensor cast to bf16 (serving's copy of f32
+    masters, as bench.py's _bf16)."""
+    if isinstance(tree, dict):
+        return {k: _bf16_copy(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_bf16_copy(torch, v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.to(torch.bfloat16)
+    return tree
+
+
+def _chain(torch, quality, step: int, seq: int, device, seed: int = 0):
+    return torch.from_numpy(quality.markov_batch(
+        step, QUALITY_BATCH, seq, QUALITY_VOCAB, seed=seed)).to(device)
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def _counted_steps(kernels, run_step, steps: int) -> tuple:
+    """``run_step(i)`` for each step, with the flash kernels' launches of
+    each step: (the steps' losses, read after the loop, and the set of
+    distinct per-step launch tuples, FLASH_KERNELS' order)."""
+    losses, per_step = [], set()
+    for i in range(steps):
+        before = [kernels.LAUNCHES[k] for k in FLASH_KERNELS]
+        losses.append(run_step(i))
+        per_step.add(tuple(kernels.LAUNCHES[k] - b
+                           for k, b in zip(FLASH_KERNELS, before)))
+    return [x.item() for x in losses], per_step
+
+
+def _trained_t_check(torch, kernels, quant, model, params, q8, q4, cfg,
+                     tokens) -> dict:
+    """K1 and K6 at T = batch x (S - 1), the rows score's projections
+    launch, against their plain versions: the first layer's normed
+    activations of the held-out batch against its int8 and int4 wqkv."""
+    h = model._rms_norm(params["embed"][tokens[:, :-1]].to(cfg.compute_dtype),
+                        params["blocks"][0]["attn_norm"])
+    x = h.reshape(-1, h.shape[-1]).contiguous()
+    w8, w4 = q8["blocks"][0]["wqkv"], q4["blocks"][0]["wqkv"]
+    k4 = quant._k4(w4)
+    pairs = {"int8_matmul": (kernels.int8_matmul(x, w8.q, w8.s),
+                             quant.int8_matmul_plain(x, w8.q, w8.s)),
+             "int4_matmul": (kernels.int4_matmul(x, w4.q, w4.s, w4.group, k4),
+                             quant.int4_matmul_plain(x, w4.q, w4.s, w4.group,
+                                                     k4))}
+    rtol, atol = MATMUL_TOL[str(x.dtype).removeprefix("torch.")]
+    out = {"T": x.shape[0], "K": x.shape[1]}
+    for name, (got, want) in pairs.items():
+        got, want = got.float(), want.float()
+        out[name] = {
+            "N": got.shape[-1],
+            "max_abs_err": (got - want).abs().max().item(),
+            "close": bool(torch.isfinite(got).all())
+            and torch.allclose(got, want, rtol=rtol, atol=atol)}
+    return out
+
+
+def _cutoff_gaps(torch, decode, params, cfg, tokens) -> dict:
+    """Sampling's cutoffs (SAMPLE_KW: top-k, then the nucleus) at the
+    held-out positions: how many tokens the filters keep, the gap (in
+    logits over the temperature, what the filters compare) between the
+    last kept logit and the next, and the share of positions where that
+    gap is under NEAR_TIE's bf16 limit (where two bf16 runs may fairly
+    keep different sets)."""
+    b, s = tokens.shape
+    with torch.no_grad():
+        logits, _ = decode.prefill(
+            params, tokens[:, :-1],
+            decode.init_cache(cfg, b, s - 1, device=tokens.device), cfg,
+            kv_kernel=False, all_logits=True)
+    k = SAMPLE_KW["top_k"]
+    z = torch.topk(logits.float().reshape(-1, logits.shape[-1])
+                   / SAMPLE_KW["temperature"], k + 1, dim=-1).values
+    probs = torch.softmax(z[:, :k], dim=-1)
+    kept = ((probs.cumsum(-1) - probs) < SAMPLE_KW["top_p"]).sum(-1)
+    gap = z.gather(1, kept[:, None] - 1) - z.gather(1, kept[:, None])
+    return {"kept_median": kept.float().median().item(),
+            "gap_median": gap.median().item(),
+            "gap_under_near_tie": (gap < NEAR_TIE["bfloat16"]).float()
+            .mean().item()}
+
+
+def _merged_greedy(torch, decode, lora, quant, qbase, adapters, lcfg, cfg,
+                   prompt) -> dict:
+    """merge_lora, then quantize_params, then greedy generate, held to
+    generate on the merged float params (the base's int8 head copy
+    dropped, so both the head and the blocks are float) up to near-ties."""
+    merged = lora.merge_lora(qbase, adapters, lcfg)
+    merged = {k: v for k, v in merged.items() if k != "lm_head"}
+    served = quant.quantize_params(merged)
+    got = decode.generate(served, prompt, cfg, QLORA_NEW)
+    want = decode.generate(merged, prompt, cfg, QLORA_NEW)
+    diverged = []
+    for row, (g, w) in enumerate(zip(got.tolist(), want.tolist())):
+        first = _first_divergence(decode, merged, cfg, prompt[row].tolist(),
+                                  g, w, kv_quant=False)
+        if first is not None:
+            diverged.append({"row": row, "step": first[0],
+                             "margin": first[1]})
+    return {"tokens": QLORA_NEW, "rows": len(got), "diverged": diverged,
+            "ok": all(d["margin"] < NEAR_TIE["bfloat16"] for d in diverged)}
+
+
+def phase_quality(torch, kernels, device, model_kw=TRAIN_MODEL,
+                  seq: int = QUALITY_SEQ, steps: int = QUALITY_STEPS,
+                  distill_steps: int = DISTILL_STEPS,
+                  qlora_steps: int = QLORA_STEPS) -> dict:
+    """Fine-tuning and evaluation on the card, modelled on
+    bench.py:350-458: train TRAIN_MODEL (flash, bf16) on the chain, then
+    the int8 and int4 ladder (quality.eval_quality against the bf16
+    copy), the int8 self-draft's acceptance, a distilled 2-layer draft's
+    acceptance and tokens/s against plain greedy, and QLoRA on the int8
+    trained model."""
+    import dataclasses
+
+    from tpu_bootstrap_torch.workload import (decode, lora, model, quality,
+                                              quant, speculative, train)
+    from tpu_bootstrap_torch.workload.flash_attention import \
+        make_flash_attn_fn
+
+    cfg = train.TrainConfig(model=model.ModelConfig(
+        **model_kw, max_seq_len=seq, compute_dtype=torch.bfloat16),
+        attention="flash")
+    mcfg, layers = cfg.model, cfg.model.num_layers
+    out = {"phase": "quality", "vocab": QUALITY_VOCAB, "batch": QUALITY_BATCH,
+           "seq": seq, "layers": layers, "limits": QUALITY_LIMITS,
+           "chain_floor_ppl": math.exp(chain_floor(0.85, QUALITY_VOCAB))}
+    t_phase = time.perf_counter()
+
+    # 1. Train on the chain: the host draws batch i + 1 while the card
+    # runs step i (the losses are read once, after the loop).
+    params, opt_state = train.init_train_state(cfg, seed=0, device=device)
+    step = train.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+
+    def train_step(i):
+        nonlocal params, opt_state
+        params, opt_state, loss = step(params, opt_state,
+                                       _chain(torch, quality, i, seq, device))
+        return loss
+
+    losses, flash = _counted_steps(kernels, train_step, steps)
+    torch.cuda.synchronize()
+    out["train"] = {"steps": steps, "s": time.perf_counter() - t0,
+                    "first_loss": losses[0], "loss": losses[-1],
+                    "losses_every_50": losses[::50],
+                    "launches": dict(kernels.LAUNCHES),
+                    "flash_per_step": sorted(flash),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del opt_state, step
+
+    # 2. The ladder on the held-out batch, after K1 and K6 at its T.
+    tbf = _bf16_copy(torch, params)
+    q8, q4 = quant.quantize_params(params), quant.quantize_params4(params)
+    held = _chain(torch, quality, QUALITY_HELD_OUT[0], QUALITY_HELD_OUT[1],
+                  device)
+    out["t_check"] = _trained_t_check(torch, kernels, quant, model, params,
+                                      q8, q4, mcfg, held)
+    for name, qp in (("int8", q8), ("int4", q4)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = quality.eval_quality(tbf, qp, mcfg, held)
+        out[name]["s"] = time.perf_counter() - t0
+        out[name]["launches"] = dict(kernels.LAUNCHES)
+    del q4
+    # Sampling's cutoffs on trained weights against a random init's.
+    out["cutoffs"] = {"trained": _cutoff_gaps(torch, decode, tbf, mcfg, held),
+                      "random": _cutoff_gaps(torch, decode, _bf16_copy(
+                          torch, model.init_params(mcfg, seed=0,
+                                                   device=device)),
+                          mcfg, held)}
+
+    # 3. The int8 self-draft's acceptance on trained weights.
+    prompt = _chain(torch, quality, QUALITY_PROMPT[0], QUALITY_PROMPT[1],
+                    device)
+    kernels.reset_launches()
+    out["spec_int8"] = quality.spec_acceptance(
+        tbf, q8, mcfg, prompt, steps=QUALITY_SPEC_STEPS, gamma=GAMMA,
+        device=device)
+    out["spec_int8"]["launches"] = dict(kernels.LAUNCHES)
+
+    # 4. A distilled 2-layer draft: acceptance, then tokens/s of
+    # speculative decoding with it against plain greedy (bench.py's
+    # two-point rule: batch x 64 tokens over the time between a 32-step
+    # and a 96-step call, median of 3 pairs after a warm pair).
+    scfg = dataclasses.replace(mcfg, num_layers=DISTILL_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    draft, dloss = quality.distill_draft(
+        params, mcfg, scfg, steps=distill_steps,
+        batch_fn=lambda i: quality.markov_batch(
+            DISTILL_STEP0 + i, QUALITY_BATCH, seq, QUALITY_VOCAB),
+        device=device)
+    torch.cuda.synchronize()
+    out["distill"] = {"steps": distill_steps, "loss": dloss,
+                      "s": time.perf_counter() - t0,
+                      "launches": dict(kernels.LAUNCHES),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}
+    dbf = _bf16_copy(torch, draft)
+    del draft
+    out["spec_distilled"] = quality.spec_acceptance(
+        tbf, dbf, mcfg, prompt, steps=QUALITY_SPEC_STEPS, gamma=GAMMA,
+        draft_cfg=scfg, device=device)
+    runs = {}
+
+    def plain(n):
+        t0 = time.perf_counter()
+        runs["plain", n] = decode.generate(tbf, prompt, mcfg, n)
+        return time.perf_counter() - t0
+
+    def spec(n):
+        t0 = time.perf_counter()
+        runs["spec", n] = speculative.speculative_generate(
+            tbf, dbf, prompt, mcfg, scfg, n, gamma=GAMMA)
+        return time.perf_counter() - t0
+
+    def per_token_s(f):
+        f(TWO_POINT[0]), f(TWO_POINT[1])
+        samples = sorted((f(TWO_POINT[1]) - f(TWO_POINT[0]))
+                         / (TWO_POINT[1] - TWO_POINT[0])
+                         for _ in range(TWO_POINT_PAIRS))
+        return max(samples[len(samples) // 2], 1e-9)
+
+    plain_s, spec_s = per_token_s(plain), per_token_s(spec)
+    n = TWO_POINT[1]
+    want = runs["plain", n].tolist()
+    diverged = []
+    for row, got in enumerate(runs["spec", n].tolist()):
+        first = _first_divergence(decode, tbf, mcfg, prompt[row].tolist(),
+                                  got, want[row], kv_quant=False)
+        if first is not None:
+            diverged.append({"row": row, "step": first[0],
+                             "margin": first[1]})
+    out["spec_distilled"].update({
+        "tokens_per_s": QUALITY_BATCH / spec_s,
+        "plain_tokens_per_s": QUALITY_BATCH / plain_s,
+        "speedup": plain_s / spec_s, "diverged_from_plain": diverged})
+    del dbf, runs
+
+    # 5. QLoRA on the int8 trained model, on a second chain.
+    lcfg = lora.LoraConfig()
+    frozen = [t.clone() for t in _quantized_tensors(quant, q8)]
+    lstep, lopt = lora.make_lora_train_step(
+        cfg, train.MeshConfig(), q8, lcfg,
+        attn_fn=make_flash_attn_fn(block_size=cfg.attention_block))
+    adapters = lora.init_lora(q8, lcfg, seed=0, device=device)
+    lstate = lopt.init(adapters)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+
+    def qlora_step(i):
+        nonlocal adapters, lstate
+        adapters, lstate, loss = lstep(adapters, lstate, _chain(
+            torch, quality, i, seq, device, seed=QLORA_TASK_SEED))
+        return loss
+
+    qlosses, flash = _counted_steps(kernels, qlora_step, qlora_steps)
+    out["qlora"] = {
+        "steps": qlora_steps, "targets": list(lcfg.targets),
+        "rank": lcfg.rank, "s": time.perf_counter() - t0,
+        "first_loss": qlosses[0], "loss": qlosses[-1], "losses": qlosses,
+        "launches": dict(kernels.LAUNCHES),
+        "flash_per_step": sorted(flash),
+        "base_unchanged": all(torch.equal(a, b) for a, b in zip(
+            frozen, _quantized_tensors(quant, q8)))}
+    del frozen, lstate
+    kernels.reset_launches()
+    out["qlora"]["served"] = _merged_greedy(torch, decode, lora, quant, q8,
+                                            adapters, lcfg, mcfg, prompt)
+    out["qlora"]["served"]["launches"] = dict(kernels.LAUNCHES)
+    out["s"] = time.perf_counter() - t_phase
+    emit(out)
+    _quality_verdict(out, layers)
+    del params, tbf, q8, adapters
+    torch.cuda.empty_cache()
+    return out
+
+
+def _quantized_tensors(quant, params) -> list:
+    """Every tensor of a quantized tree: the values and scales of its
+    quantized leaves, the float leaves as they are."""
+    from tpu_bootstrap_torch.workload.train import tree_leaves
+
+    return [t for leaf in tree_leaves(params)
+            for t in ((leaf.q, leaf.s) if quant.is_quantized(leaf)
+                      else (leaf,))]
+
+
+def _quality_verdict(out: dict, layers: int) -> None:
+    """SystemExit with the numbers unless every check of the phase holds."""
+    lim = QUALITY_LIMITS
+    losses = (out["train"]["losses_every_50"]
+              + [out["train"]["loss"], out["distill"]["loss"]]
+              + out["qlora"]["losses"])
+    scheduled = {"int8": {"int8_matmul": 4 * layers + 1, "int4_matmul": 0},
+                 "int4": {"int8_matmul": 1, "int4_matmul": 4 * layers}}
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "trained": out["train"]["loss"]
+        < lim["trained_loss_frac"] * out["train"]["first_loss"],
+        "int8": out["int8"]["argmax_agreement_pct"] > lim["int8_agreement_pct"]
+        and abs(out["int8"]["ppl_delta"]) < lim["int8_ppl_delta"]
+        and out["int8"]["ppl_base"] < lim["ppl_base"],
+        "int4": out["int4"]["argmax_agreement_pct"] > lim["int4_agreement_pct"]
+        and abs(out["int4"]["ppl_delta"]) < lim["int4_ppl_delta"],
+        "acceptance": min(out["spec_int8"]["mean_committed"],
+                          out["spec_distilled"]["mean_committed"])
+        > lim["mean_committed"],
+        "distilled_exact": all(d["margin"] < NEAR_TIE["bfloat16"] for d in
+                               out["spec_distilled"]["diverged_from_plain"]),
+        "qlora": out["qlora"]["loss"] < out["qlora"]["first_loss"]
+        and out["qlora"]["base_unchanged"] and out["qlora"]["served"]["ok"],
+        "flash_scheduled": all(
+            out[part]["flash_per_step"] == [(layers,) * len(FLASH_KERNELS)]
+            for part in ("train", "qlora")),
+        "score_launches": all(
+            out[name]["launches"][k] == n
+            for name, want in scheduled.items() for k, n in want.items()),
+        "t_check": all(out["t_check"][k]["close"]
+                       for k in ("int8_matmul", "int4_matmul")),
+    }
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise SystemExit(
+            f"quality failed: {checks} train={out['train']['first_loss']}->"
+            f"{out['train']['loss']} int8={out['int8']} int4={out['int4']} "
+            f"spec_int8={out['spec_int8']} "
+            f"spec_distilled={out['spec_distilled']} "
+            f"qlora_losses={out['qlora']['losses']} "
+            f"qlora_base_unchanged={out['qlora']['base_unchanged']} "
+            f"qlora_served={out['qlora']['served']} "
+            f"t_check={out['t_check']}")
+
+
 def step_totals(rows: list, per_step: list, layers: int = 8) -> dict:
     """A kernel's numbers for one decode step at batch 8: ``per_step``
     lists (shape, x dtype, launches per layer or None for once a step) of
@@ -4576,6 +4984,7 @@ def main() -> int:
     out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
     out["train"] = run("train", phase_train, torch, kernels, device)
     run("train_long", phase_train_long, torch, kernels, device)
+    out["quality"] = run("quality", phase_quality, torch, kernels, device)
     emit({"phase_seconds": seconds})
     emit({"kernels": kernel_lines(out)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
@@ -4615,6 +5024,25 @@ def path_launches(out: dict, name: str) -> dict:
             "serve_resident_float": rs["resident_float"]["launches"][name],
             "serve_float_pool": rs["float_pool"]["launches"][name],
             "serve_gather_int8": rs["gather_int8"]["launches"][name]}
+
+
+# The quality phase's counted runs, by the keys of its output.
+QUALITY_PATHS = {"quality_train": ("train",), "quality_int8_score": ("int8",),
+                 "quality_int4_score": ("int4",),
+                 "quality_spec_int8": ("spec_int8",),
+                 "quality_distill": ("distill",), "quality_qlora": ("qlora",),
+                 "quality_qlora_served": ("qlora", "served")}
+
+
+def quality_launches(out: dict, name: str) -> dict:
+    """``name``'s launches in each of the quality phase's counted runs."""
+    found = {}
+    for path, keys in QUALITY_PATHS.items():
+        part = out["quality"]
+        for key in keys:
+            part = part[key]
+        found[path] = part["launches"][name]
+    return found
 
 
 def kernel_lines(out: dict) -> list:
@@ -4657,7 +5085,8 @@ def kernel_lines(out: dict) -> list:
          "ms": k1_step["kernel_ms"], "plain_ms": k1_step["plain_ms"],
          "bound_ms": k1_step["bound_ms"], "bound_by": k1_step["bound_by"],
          "library_ms": k1_step["library_ms"],
-         "launches_by_path": path_launches(out, "int8_matmul"),
+         "launches_by_path": path_launches(out, "int8_matmul")
+         | quality_launches(out, "int8_matmul"),
          "at": "one decode step, T=8: 8 x (wqkv, wo, w_up, w_down) bf16 "
                "+ lm_head f32"},
         {"name": "paged_decode_attention_int8", "route": "cuda",
@@ -4668,12 +5097,14 @@ def kernel_lines(out: dict) -> list:
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"], "split": k2_main["plan"],
-         "launches_by_path": path_launches(out, "paged_attention"),
+         "launches_by_path": path_launches(out, "paged_attention")
+         | quality_launches(out, "paged_attention"),
          "at": "one launch, B=8 H=Hk=16 D=64 bs=64 nb=8, bf16 q, lengths "
                + ",".join(map(str, K2_LENGTHS))},
         {"name": "flash_fwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:110",
          "launches": train_launches["flash_fwd"],
+         "launches_by_path": quality_launches(out, "flash_fwd"),
          "max_abs_err": k3["max_abs_err"],
          "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
@@ -4685,6 +5116,7 @@ def kernel_lines(out: dict) -> list:
         {"name": "flash_dq", "route": "cuda", "source": src,
          "replaces": f"{ref}:233",
          "launches": train_launches["flash_dq"],
+         "launches_by_path": quality_launches(out, "flash_dq"),
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dq_ms"], "plain_ms": k4_main["dq_plain_ms"],
          "bound_ms": k4_main["dq_bound_ms"],
@@ -4694,6 +5126,7 @@ def kernel_lines(out: dict) -> list:
         {"name": "flash_dkv", "route": "cuda", "source": src,
          "replaces": f"{ref}:267",
          "launches": train_launches["flash_dkv"],
+         "launches_by_path": quality_launches(out, "flash_dkv"),
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dkv_ms"], "plain_ms": k4_main["dkv_plain_ms"],
          "bound_ms": k4_main["dkv_bound_ms"],
@@ -4712,7 +5145,8 @@ def kernel_lines(out: dict) -> list:
                 for shape in ("wqkv", "wo", "w_up", "w_down")]),
             "one int4 decode step, T=8: 8 x (wqkv, wo, w_up, w_down), group "
             "64, bf16; library: torch.matmul on the bf16-dequantized "
-            "weights"),
+            "weights")
+        | {"launches_by_path": quality_launches(out, "int4_matmul")},
         kernel_entry(
             "int4_expert_matmul", "int4_matmul_sm90.cu", "quant.py:268",
             out["serve_moe"]["int4"]["launches"]["int4_expert_matmul"],

@@ -37,7 +37,8 @@ def test_port_modules_cover_the_slice():
                 "workload.flash_attention", "workload.xent",
                 "workload.faults", "workload.checkpoint", "workload.data",
                 "workload.train", "workload.graphs", "workload.ingress",
-                "workload.prng"):
+                "workload.prng", "workload.lora", "workload.distill",
+                "workload.quality"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 

@@ -1,0 +1,198 @@
+"""LoRA fine-tuning, the counterpart of ``tpu_bootstrap/workload/lora.py``:
+low-rank adapters over a frozen base model.
+
+Each targeted projection is reparameterized as w + (alpha / r) * A @ B,
+A (in, r), B (r, out). The train step builds the effective params from
+the frozen base and the adapters (``apply_lora``) and runs the same model
+code as training (``model.loss_from_inputs``), so the dense core and the
+flash kernels K3/K4 (an ``attn_fn``) both work under LoRA unchanged.
+Gradients are taken with respect to the adapters alone: the base leaves
+never require grad, and the optimizer state covers the adapters only.
+
+The base may be quantized (int8 ``QuantizedWeight`` or int4
+``Quantized4Weight``, the QLoRA recipe): each step dequantizes it with
+``quant.dequantize_any`` in plain torch ops, as the reference does outside
+any Pallas kernel, and the stored base is never written. B starts at zero,
+so the adapted model starts equal to the base. ``merge_lora`` folds the
+adapters in for serving (``decode.generate`` or ``quant.quantize_params``
+on the result).
+
+The port trains on one device: a mesh with a pipe axis raises the
+reference's ``ValueError``, and any other mesh of more than one device
+raises ``NotImplementedError`` naming ROADMAP queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from tpu_bootstrap_torch.workload import quant
+from tpu_bootstrap_torch.workload.model import (
+    Params,
+    loss_from_inputs,
+    resolve_device,
+)
+from tpu_bootstrap_torch.workload.train import (
+    descend,
+    make_optimizer,
+    require_one_device,
+    tree_leaves,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    rank: int = 8
+    alpha: float = 16.0
+    # Which block projections get adapters: any of _FORWARD_LEAVES.
+    targets: tuple = ("wq", "wv")
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+# The projection leaves the model's forward reads.
+_FORWARD_LEAVES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+
+
+def init_lora(params: Params, lcfg: LoraConfig, seed: int = 0,
+              device=None) -> Params:
+    """Adapter tree mirroring params["blocks"]: per block, per target,
+    {"a": (in, r) normal / sqrt(in), "b": (r, out) zeros}, f32, on
+    ``device`` (None: the card), drawn from a ``torch.Generator`` seeded
+    with ``seed``: the reference's shapes and scales, not its numbers.
+    ``in`` is the weight's first logical axis (both of ``wo``'s), for
+    plain and quantized leaves alike."""
+    if lcfg.rank < 1:
+        raise ValueError(f"rank must be >= 1, got {lcfg.rank}")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    blocks = []
+    for block in params["blocks"]:
+        adapters = {}
+        for name in lcfg.targets:
+            if name not in _FORWARD_LEAVES:
+                # An adapter on any other key would never enter the
+                # forward (zero gradients, a loss that never moves).
+                raise ValueError(
+                    f"LoRA target {name!r} is not an adaptable projection "
+                    f"(valid: {list(_FORWARD_LEAVES)})")
+            if "router" in block and name in ("w_up", "w_down"):
+                raise ValueError(
+                    "LoRA on MoE expert stacks is not supported (per-expert "
+                    "adapters would need the (E, K, N) layout); target the "
+                    "attention projections instead")
+            shape = tuple(block[name].shape)  # logical, quantized or not
+            k_in = shape[0] if name != "wo" else shape[0] * shape[1]
+            n_out = math.prod(shape) // k_in
+            a = torch.randn((k_in, lcfg.rank), generator=gen, device=device,
+                            dtype=torch.float32)
+            adapters[name] = {
+                "a": a / math.sqrt(k_in),
+                "b": torch.zeros((lcfg.rank, n_out), dtype=torch.float32,
+                                 device=device),
+            }
+        blocks.append(adapters)
+    return {"blocks": blocks}
+
+
+def _effective(adapter: dict, w, scale: float) -> torch.Tensor:
+    """base + (alpha/r) * A @ B in the base's logical shape. A quantized
+    base is dequantized to f32 and the result takes the adapter's dtype;
+    a plain base keeps its own dtype (the delta rounded to it first)."""
+    if quant.is_quantized(w):
+        shape, dtype = tuple(w.shape), adapter["a"].dtype
+        base = quant.dequantize_any(w).reshape(shape)
+    else:
+        shape, dtype = tuple(w.shape), w.dtype
+        base = w
+    d = (adapter["a"] @ adapter["b"]) * scale
+    return (base + d.reshape(shape).to(base.dtype)).to(dtype)
+
+
+def apply_lora(params: Params, lora: Params, lcfg: LoraConfig) -> Params:
+    """Effective params: base + adapter deltas on the targeted leaves.
+    Untargeted quantized projections are dequantized plain (the training
+    forward reads float tensors), and the fused ``wqkv`` / ``w_gateup``
+    decode copies of the BASE are dropped from every block (they would
+    serve stale logits next to adapted weights); re-derive them with
+    ``quant.quantize_params`` after ``merge_lora``."""
+    blocks = []
+    for block, adapters in zip(params["blocks"], lora["blocks"]):
+        eff = dict(block)
+        eff.pop("wqkv", None)
+        eff.pop("w_gateup", None)
+        for name in _FORWARD_LEAVES:
+            if name in adapters:
+                eff[name] = _effective(adapters[name], block[name],
+                                       lcfg.scale)
+            elif name in block and quant.is_quantized(block[name]):
+                w = block[name]
+                eff[name] = quant.dequantize_any(w).reshape(tuple(w.shape))
+        blocks.append(eff)
+    return {**params, "blocks": blocks}
+
+
+def merge_lora(params: Params, lora: Params, lcfg: LoraConfig) -> Params:
+    """Fold the adapters in for serving: plain params for
+    ``decode.generate`` / ``quant.quantize_params``."""
+    return apply_lora(params, lora, lcfg)
+
+
+def _strip_decode_copies(base: Params) -> Params:
+    """The base without its decode-only leaves: the top-level int8
+    ``lm_head`` (the training forward ties the head to ``embed``) and each
+    block's fused ``wqkv`` / ``w_gateup``."""
+    return {**{k: v for k, v in base.items() if k != "lm_head"},
+            "blocks": [{k: v for k, v in b.items()
+                        if k not in ("wqkv", "w_gateup")}
+                       for b in base["blocks"]]}
+
+
+def make_lora_train_step(cfg, mesh, base_params: Params, lcfg: LoraConfig,
+                         attn_fn=None):
+    """Returns (step(lora, opt_state, tokens) -> (lora, opt_state, loss),
+    optimizer). ``cfg`` is a ``train.TrainConfig``, ``mesh`` a
+    ``train.MeshConfig``. The base is closed over frozen, without its
+    decode-only copies; the optimizer (``train.make_optimizer(cfg)``)
+    state exists only for the adapters, which the step updates in place
+    and returns. ``cfg.remat`` recomputes the loss's activations in the
+    backward (``torch.utils.checkpoint``)."""
+    if mesh.pipe > 1:
+        raise ValueError(
+            "LoRA does not compose with pipeline meshes (adapters would "
+            "need the stacked per-stage layout); use the GSPMD axes "
+            "(data/fsdp/expert/seq/tensor)")
+    require_one_device(mesh)
+    base = _strip_decode_copies(base_params)
+    opt = make_optimizer(cfg)
+
+    def loss(lora, inputs, targets):
+        eff = apply_lora(base, lora, lcfg)
+        return loss_from_inputs(eff, inputs, targets, cfg.model,
+                                attn_fn=attn_fn)
+
+    if cfg.remat:
+        plain = loss
+
+        def loss(lora, inputs, targets):
+            return checkpoint(plain, lora, inputs, targets,
+                              use_reentrant=False)
+
+    def step(lora, opt_state, tokens):
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        loss_value = descend(opt, opt_state, tree_leaves(lora),
+                             lambda: loss(lora, inputs, targets))
+        return lora, opt_state, loss_value
+
+    return step, opt
+
+
+__all__ = ["LoraConfig", "apply_lora", "init_lora", "make_lora_train_step",
+           "merge_lora"]

@@ -94,10 +94,10 @@ class TrainConfig:
     attention_block: int = 512  # validated only: the kernels pick tiles
 
 
-def _single_device(cfg: TrainConfig) -> None:
-    if cfg.mesh.size > 1:
+def require_one_device(mesh: MeshConfig) -> None:
+    if mesh.size > 1:
         raise NotImplementedError(
-            f"a {cfg.mesh.size}-device mesh ({cfg.mesh}) is not ported yet "
+            f"a {mesh.size}-device mesh ({mesh}) is not ported yet "
             "(ROADMAP queue 1 item 11: multi-device)")
 
 
@@ -186,7 +186,7 @@ def tree_leaves(tree) -> list:
 
 def init_train_state(cfg: TrainConfig, seed: int = 0, device=None) -> tuple:
     """(params, optimizer state) on ``device`` (None: the card)."""
-    _single_device(cfg)
+    require_one_device(cfg.mesh)
     params = init_params(cfg.model, seed=seed, device=device)
     return params, make_optimizer(cfg).init(params)
 
@@ -200,7 +200,7 @@ def make_train_step(cfg: TrainConfig):
     ``jax.checkpoint(loss)``."""
     if cfg.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
-    _single_device(cfg)
+    require_one_device(cfg.mesh)
     opt = make_optimizer(cfg)
     attn = (make_flash_attn_fn(block_size=cfg.attention_block)
             if cfg.attention == "flash" else None)
@@ -218,20 +218,28 @@ def make_train_step(cfg: TrainConfig):
 
     def step(params, opt_state, tokens):
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        leaves = tree_leaves(params)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            loss_value = loss(params, inputs, targets)
-            grads = torch.autograd.grad(loss_value, leaves)
-        with torch.no_grad():
-            for p, u in zip(leaves, opt.update(list(grads), opt_state,
-                                               leaves)):
-                p.requires_grad_(False)
-                p.add_(u)
-        return params, opt_state, loss_value.detach()
+        loss_value = descend(opt, opt_state, tree_leaves(params),
+                             lambda: loss(params, inputs, targets))
+        return params, opt_state, loss_value
 
     return step
+
+
+def descend(opt: AdamW, opt_state: dict, leaves: list, loss) -> torch.Tensor:
+    """One optimizer step on ``leaves`` in place: ``loss()`` with grad
+    enabled on them, its gradients with respect to them alone, and
+    ``opt``'s update added to each. Returns the (pre-update) loss,
+    detached."""
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        loss_value = loss()
+        grads = torch.autograd.grad(loss_value, leaves)
+    with torch.no_grad():
+        for p, u in zip(leaves, opt.update(list(grads), opt_state, leaves)):
+            p.requires_grad_(False)
+            p.add_(u)
+    return loss_value.detach()
 
 
 def global_batch_size(cfg: TrainConfig) -> int:
@@ -269,7 +277,7 @@ def train_loop(cfg: TrainConfig, steps: int, *,
     span and sets the reference's ``workload_*`` gauges."""
     if save_every < 1:
         raise ValueError(f"save_every must be >= 1, got {save_every}")
-    _single_device(cfg)
+    require_one_device(cfg.mesh)
     device = resolve_device(device)
     reg = telemetry.metrics()
     mgr = latest = None
