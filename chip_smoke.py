@@ -2,6 +2,11 @@
 """Build and drive the PyTorch port (``tpu_bootstrap_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    torchrun --nproc-per-node 4 chip_smoke.py --mesh-cards
+
+The second form (several cards) runs only phase_mesh_cards: the train
+phase's model on meshes whose collectives cross cards, held to one card's
+plain steps. Without arguments the script needs one card.
 
 Phases, in order; each prints one JSON line and any failure exits non-zero:
 
@@ -223,11 +228,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               round, streams held to the resident run's); the resident
               engine in f32 on them, held to the f32 oracle.
 19. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
-              decode model with int8 weights and an int8 KV cache, prompts
-              (8, 64), 64 and 192 steps, with K5 (AUTO) and without it
-              (kv_kernel=False); K5 launched exactly (steps - 1) x 8 times a
-              call; every stream of the kernel path held to the einsum
-              path's (near-ties allowed); the 192-step call's tokens equal
+              decode model with int8 weights and an int8 KV cache (CUT_MODEL's
+              4 layers), prompts (8, 64), 64 and 192 steps, with K5 (AUTO)
+              and without it (kv_kernel=False); K5 launched exactly
+              (steps - 1) x layers times a call; every stream of the
+              kernel path held to the einsum path's (near-ties allowed);
+              the 192-step call's tokens equal
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
@@ -261,11 +267,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-24. train_long -- the reference's long-context configuration (seq 8192,
+24. train_mesh -- the train phase's model and batch on a one-rank NCCL
+              process group and build_mesh(MeshConfig()) over the seven
+              axes (the DTensor mesh path at world 1): 6 steps on the mesh
+              against 6 plain steps from the same state, each loss within
+              FLASH_DENSE_TOL (bitwise equality and the largest gap
+              reported); the first step's attention-weight gradients
+              within ATTN_GRAD_TOL of the plain path's; K3 and K4 launched
+              8 times a mesh step under local_map, their device time above
+              0 in a profiled mesh step; every param and moment a DTensor
+              placed by param_shardings; a checkpoint saved on the mesh
+              restored bitwise on the plain device and with the same
+              placements on the mesh; train_loop(cfg, 2, mesh=mesh); ms a
+              step on each path and the NCCL init time.
+25. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
-25. quality -- fine-tuning and evaluation on a trained model
+26. quality -- fine-tuning and evaluation on a trained model
               (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
               1024, batch 8, flash, bf16) for 300 steps on
               quality.markov_batch's chain over 4096 tokens; K1 and K6 at
@@ -335,7 +354,7 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
 DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_faults",
-             "sampling")
+             "sampling", "generate_int8kv")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -3892,7 +3911,8 @@ def _graph_totals(made: list) -> dict:
             for key in ("captured", "capture_s", "replays")}
 
 
-def phase_generate_int8kv(torch, kernels, device) -> dict:
+def phase_generate_int8kv(torch, kernels, device,
+                          model_kw=DECODE_MODEL) -> dict:
     """bench.py:470-505 and :664 (decode_int8kv_tokens_per_sec): generate on
     the decode model at full width, int8 weights from seed 0, an int8 KV
     cache, prompts (8, 64), 64 and 192 steps. With kv_kernel AUTO every
@@ -3904,10 +3924,11 @@ def phase_generate_int8kv(torch, kernels, device) -> dict:
     after one warm-up pair; one profiled 64-step call of each path. Each
     call's decode steps are replays of one captured step: the 192-step
     call on the kernel path must equal the eager loop (_eager_generate)
-    token for token."""
+    token for token. In the full script it runs at CUT_MODEL's depth
+    (DEPTH_CUT)."""
     from tpu_bootstrap_torch.workload import decode, graphs, model, quant
 
-    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
     params = quant.quantize_params(model.init_params(cfg, seed=0,
                                                      device=device))
     prompt = _gen_prompt(torch, cfg, device)
@@ -4489,6 +4510,296 @@ def phase_train(torch, kernels, device) -> dict:
     return out
 
 
+# The train phase's model on a one-rank NCCL mesh over the seven axes: the
+# step's params and moments are DTensors, its attention runs under
+# local_map. Predicted for the whole phase (NVIDIA H100 80GB HBM3, 700 W)
+# before its first run on the card: 15-40 s (NCCL init, one init of
+# TRAIN_MODEL, 6 steps a path of about 88 ms, a 1.6 GB checkpoint written
+# and read).
+MESH_PREDICTED_S = (15, 40)
+MESH_STEPS = 6  # one warm-up and five timed, on each path
+
+
+def _clone_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(torch, v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _mesh_attn_grads(torch, model, train, sharding, mesh, params, cfg,
+                     tokens, attn) -> tuple:
+    """(loss, {name: flat gradient over the layers}) of the mesh path's
+    loss at ``params`` (DTensors): gathered through sharding.gather_tree,
+    the attention in the local_map region, as descend computes them."""
+    leaves = [blk[n] for n in ATTN_WEIGHTS for blk in params["blocks"]]
+    held = [sharding.local(p) for p in leaves]
+    grads_of = {id(p): t for p, t in zip(leaves, held)}
+    for t in held:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            full = sharding.gather_tree(params, grads_of)
+            loss = model.loss_fn(full, train.local_rows(tokens, mesh),
+                                 cfg.model, attn)
+            grads = torch.autograd.grad(loss, held)
+    finally:
+        for t in held:
+            t.requires_grad_(False)
+    layers = len(params["blocks"])
+    return loss.item(), {n: torch.cat([g.flatten() for g in
+                                       grads[i * layers:(i + 1) * layers]])
+                         for i, n in enumerate(ATTN_WEIGHTS)}
+
+
+def _timed_steps(torch, kernels, step, params, opt_state, tokens) -> dict:
+    """MESH_STEPS steps from the state given (updated in place): one
+    warm-up, then the rest timed with the launch counts set to 0 just
+    before and read just after."""
+    losses = [step(params, opt_state, tokens)[2].item()]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS - 1):
+        losses.append(step(params, opt_state, tokens)[2].item())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (MESH_STEPS - 1)
+    return {"losses": losses, "step_ms": step_s * 1e3,
+            "launches": dict(kernels.LAUNCHES)}
+
+
+def phase_train_mesh(torch, kernels, device) -> dict:
+    """The train phase's model and batch (TRAIN_MODEL, seq 1024, batch 8,
+    bf16, flash, seed 0, the tokens of _run_train) on a one-rank NCCL
+    process group and build_mesh(MeshConfig()) over the seven axes:
+    MESH_STEPS steps on the mesh against as many plain steps from the same
+    state, each loss within FLASH_DENSE_TOL (bitwise equality and the
+    largest gap reported); the first step's attention-weight gradients on
+    the mesh path within ATTN_GRAD_TOL of the plain path's; K3 and K4
+    launched num_layers times a timed mesh step, and their device time
+    above 0 in a profiled mesh step (the kernels, not their plain
+    versions, ran under local_map); every param and moment a DTensor
+    placed as param_shardings says; a checkpoint saved on the mesh
+    restored on the plain device bitwise, and on the mesh with the same
+    placements; train_loop(cfg, 2, mesh=mesh) finite. Reported: ms a step
+    on each path, the NCCL init seconds. The process group is destroyed on
+    the way out."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_bootstrap_torch.workload import checkpoint, model, sharding, train
+    from tpu_bootstrap_torch.workload.flash_attention import \
+        make_flash_attn_fn
+
+    cfg = train.TrainConfig(model=model.ModelConfig(
+        **TRAIN_MODEL, max_seq_len=1024, compute_dtype=torch.bfloat16),
+        attention="flash")
+    layers = cfg.model.num_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1)
+    try:
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe)  # NCCL's communicator comes up here
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t0
+        mesh = sharding.build_mesh(sharding.MeshConfig(), "cuda")
+        params, opt_state = train.init_train_state(cfg, seed=0, device=device)
+        mparams = sharding.shard_params(
+            _clone_tree(torch, params),
+            sharding.param_shardings(mesh, params))
+        mopt = train.make_optimizer(cfg).init(mparams)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        tokens = torch.randint(0, cfg.model.vocab_size,
+                               (8, cfg.model.max_seq_len), generator=gen,
+                               device=device)
+        flash = make_flash_attn_fn(block_size=cfg.attention_block)
+        plain_loss, plain_grads = _attn_grads(torch, model, params, cfg,
+                                              tokens, flash)
+        mesh_loss, mesh_grads = _mesh_attn_grads(
+            torch, model, train, sharding, mesh, mparams, cfg, tokens,
+            train.mesh_attention(mesh, flash, cfg.model))
+        grad_err = {n: ((mesh_grads[n] - plain_grads[n]).norm()
+                        / plain_grads[n].norm()).item() for n in ATTN_WEIGHTS}
+        del plain_grads, mesh_grads
+        plain = _timed_steps(torch, kernels, train.make_train_step(cfg),
+                             params, opt_state, tokens)
+        del params, opt_state
+        torch.cuda.empty_cache()
+        mstep = train.make_train_step(cfg, mesh)
+        meshed = _timed_steps(torch, kernels, mstep, mparams, mopt, tokens)
+        per_step = {k: meshed["launches"][k] / (MESH_STEPS - 1)
+                    for k in FLASH_KERNELS}
+        profile = _profile(torch, lambda: mstep(mparams, mopt, tokens),
+                           FLASH_TAGS)
+        want = sharding.param_shardings(mesh, mparams)
+        placed = all(
+            sharding.is_placed(p) and tuple(p.placements)
+            == tuple(sh.placements) and tuple(m.placements)
+            == tuple(sh.placements)
+            for p, sh, m in zip(train.tree_leaves(mparams),
+                                train.tree_leaves(want),
+                                mopt["mu"] + mopt["nu"]))
+        placed = placed and len(mopt["mu"]) == len(mopt["nu"]) == len(
+            train.tree_leaves(mparams))
+        mgr = checkpoint.make_manager(f"{tmp}/ckpt")
+        t1 = time.perf_counter()
+        checkpoint.save(mgr, 1, mparams, mopt)
+        save_s = time.perf_counter() - t1
+        r_params, r_opt = checkpoint.restore(mgr, 1, device)
+        restored_plain = all(
+            torch.equal(a, sharding.local(b)) for a, b in zip(
+                train.tree_leaves(r_params) + r_opt["mu"] + r_opt["nu"],
+                train.tree_leaves(mparams) + mopt["mu"] + mopt["nu"]))
+        del r_params, r_opt
+        m_params, m_opt = checkpoint.restore(mgr, 1, mesh=mesh)
+        restored_mesh = all(
+            tuple(a.placements) == tuple(b.placements)
+            and torch.equal(sharding.local(a), sharding.local(b))
+            for a, b in zip(train.tree_leaves(m_params) + m_opt["mu"],
+                            train.tree_leaves(mparams) + mopt["mu"]))
+        del m_params, m_opt, mparams, mopt
+        torch.cuda.empty_cache()
+        loop = train.train_loop(cfg, 2, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gaps = [abs(a - b) for a, b in zip(meshed["losses"], plain["losses"])]
+    out = {"phase": "train_mesh", "predicted_s": list(MESH_PREDICTED_S),
+           "mesh": "dcn,pipe,data,fsdp,expert,seq,tensor = 1 each, NCCL",
+           "nccl_init_s": nccl_init_s, "mesh_losses": meshed["losses"],
+           "plain_losses": plain["losses"],
+           "losses_bitwise_equal": meshed["losses"] == plain["losses"],
+           "max_loss_gap": max(gaps), "flash_dense_tol": FLASH_DENSE_TOL,
+           "first_loss": {"mesh": mesh_loss, "plain": plain_loss},
+           "attn_grad_err": grad_err, "attn_grad_tol": ATTN_GRAD_TOL,
+           "step_ms": {"mesh": meshed["step_ms"], "plain": plain["step_ms"]},
+           "launches": meshed["launches"], "launches_per_step": per_step,
+           "profile": profile, "placed": placed, "checkpoint_save_s": save_s,
+           "restored_plain_bitwise": restored_plain,
+           "restored_mesh": restored_mesh, "train_loop_losses": loop}
+    emit(out)
+    ok = (max(gaps) <= FLASH_DENSE_TOL
+          and max(grad_err.values()) <= ATTN_GRAD_TOL
+          and all(per_step[k] == layers for k in per_step)
+          and all(profile[k] > 0 for k in FLASH_TAGS)
+          and placed and restored_plain and restored_mesh
+          and len(loop) == 2 and all(math.isfinite(x) for x in loop)
+          and all(math.isfinite(x) for x in meshed["losses"]))
+    if not ok:
+        raise SystemExit(
+            f"train_mesh failed: gaps={gaps} grads={grad_err} "
+            f"launches={per_step} profile={[profile[k] for k in FLASH_TAGS]}"
+            f" placed={placed} restored={restored_plain, restored_mesh} "
+            f"loop={loop}")
+    return out
+
+
+# Several cards (``torchrun --nproc-per-node 4 chip_smoke.py
+# --mesh-cards``): the train phase's model and batch on meshes whose
+# collectives cross cards, each held to the plain path on one card.
+MESH_CARDS = (dict(fsdp=2, tensor=2), dict(dcn=2, data=2))
+
+
+def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
+                     seq: int = 1024, batch: int = 8) -> dict:
+    """On every rank of the process group: MESH_STEPS plain steps of the
+    whole batch on this rank's card, then MESH_STEPS steps on each mesh
+    of MESH_CARDS from the same init (each rank its rows and shards), the
+    launch counts over the timed steps. Each mesh loss must be equal on
+    every rank and within FLASH_DENSE_TOL of the plain path's step for
+    step, and K3/K4 must launch num_layers times a step on every rank.
+    Rank 0 gets every rank's record."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tpu_bootstrap_torch.workload import model, sharding, train
+
+    cfg0 = train.TrainConfig(model=model.ModelConfig(
+        **model_kw, max_seq_len=seq, compute_dtype=torch.bfloat16),
+        attention="flash")
+    layers = cfg0.model.num_layers
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg0.model.vocab_size, (batch, seq),
+                           generator=gen).to(device)
+    params, opt_state = train.init_train_state(cfg0, seed=0, device=device)
+    plain = _timed_steps(torch, kernels, train.make_train_step(cfg0),
+                         params, opt_state, tokens)
+    del params, opt_state
+    mine = {"rank": dist.get_rank(), "plain": plain, "meshes": []}
+    for extents in MESH_CARDS:
+        cfg = dataclasses.replace(cfg0, mesh=sharding.MeshConfig(**extents))
+        mesh = sharding.build_mesh(cfg.mesh, device.type)
+        params, opt_state = train.init_train_state(cfg, seed=0, mesh=mesh)
+        run = _timed_steps(torch, kernels, train.make_train_step(cfg, mesh),
+                           params, opt_state, tokens)
+        run.update(extents=extents, dp=sharding.dp_coordinate(mesh),
+                   local_wq=list(sharding.local(
+                       params["blocks"][0]["wq"]).shape))
+        mine["meshes"].append(run)
+        del params, opt_state
+        torch.cuda.empty_cache()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    failed = []
+    for i, extents in enumerate(MESH_CARDS):
+        runs = [r["meshes"][i] for r in everyone]
+        if any(r["losses"] != runs[0]["losses"] for r in runs):
+            failed.append(f"{extents}: losses differ across ranks")
+        gaps = [abs(a - b) for a, b in zip(runs[0]["losses"],
+                                           plain["losses"])]
+        runs[0]["max_gap_to_plain"] = max(gaps)
+        if max(gaps) > FLASH_DENSE_TOL:
+            failed.append(f"{extents}: gaps {gaps} to the plain path")
+        for r in runs:
+            per = {k: r["launches"][k] / (MESH_STEPS - 1)
+                   for k in FLASH_KERNELS}
+            if any(v != layers for v in per.values()):
+                failed.append(f"{extents}: launches {per}")
+    out = {"phase": "mesh_cards", "world": dist.get_world_size(),
+           "flash_dense_tol": FLASH_DENSE_TOL, "ranks": everyone,
+           "failed": failed}
+    if dist.get_rank() == 0:
+        emit(out)
+    if failed:
+        raise SystemExit(f"mesh_cards failed: {failed}")
+    return out
+
+
+def mesh_cards_main(torch) -> int:
+    """``--mesh-cards``, under torchrun: join the group as the train
+    worker does (``train.rendezvous``), build the kernels once (rank 0
+    first), run phase_mesh_cards, and print the device line on rank 0."""
+    import torch.distributed as dist
+
+    from tpu_bootstrap_torch.workload import kernels, train
+
+    if not train.rendezvous():
+        raise SystemExit("--mesh-cards runs under torchrun (WORLD_SIZE > 1)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
+    try:
+        info = phase_device(torch) if dist.get_rank() == 0 else None
+        if dist.get_rank() == 0:
+            kernels.build()
+        dist.barrier()
+        phase_mesh_cards(torch, kernels, torch.device(
+            "cuda", torch.cuda.current_device()))
+        if dist.get_rank() == 0:
+            emit({"ok": True, "device": {"platform": "gpu",
+                                         "kind": info["name"],
+                                         "count": info["count"]}})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def phase_train_long(torch, kernels, device) -> dict:
     """The reference's long-context configuration (bench.py:1786-1791):
     max_seq_len 8192, batch 2, remat, vocab_chunk 4096; one warm-up step
@@ -4930,6 +5241,8 @@ def main() -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:] == ["--mesh-cards"]:
+        return mesh_cards_main(torch)
     from tpu_bootstrap_torch.workload import (decode, decode_attention,
                                               kernels, quant)
     from tpu_bootstrap_torch.workload import flash_attention as fa
@@ -4983,6 +5296,8 @@ def main() -> int:
     out["k3"] = run("k3", phase_k3, torch, fa, kernels, device)
     out["k4"] = run("k4", phase_k4, torch, fa, kernels, device)
     out["train"] = run("train", phase_train, torch, kernels, device)
+    out["train_mesh"] = run("train_mesh", phase_train_mesh, torch, kernels,
+                            device)
     run("train_long", phase_train_long, torch, kernels, device)
     out["quality"] = run("quality", phase_quality, torch, kernels, device)
     emit({"phase_seconds": seconds})
@@ -5104,7 +5419,8 @@ def kernel_lines(out: dict) -> list:
         {"name": "flash_fwd", "route": "cuda", "source": src,
          "replaces": f"{ref}:110",
          "launches": train_launches["flash_fwd"],
-         "launches_by_path": quality_launches(out, "flash_fwd"),
+         "launches_by_path": quality_launches(out, "flash_fwd")
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_fwd"]},
          "max_abs_err": k3["max_abs_err"],
          "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
@@ -5116,7 +5432,8 @@ def kernel_lines(out: dict) -> list:
         {"name": "flash_dq", "route": "cuda", "source": src,
          "replaces": f"{ref}:233",
          "launches": train_launches["flash_dq"],
-         "launches_by_path": quality_launches(out, "flash_dq"),
+         "launches_by_path": quality_launches(out, "flash_dq")
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_dq"]},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dq_ms"], "plain_ms": k4_main["dq_plain_ms"],
          "bound_ms": k4_main["dq_bound_ms"],
@@ -5126,7 +5443,8 @@ def kernel_lines(out: dict) -> list:
         {"name": "flash_dkv", "route": "cuda", "source": src,
          "replaces": f"{ref}:267",
          "launches": train_launches["flash_dkv"],
-         "launches_by_path": quality_launches(out, "flash_dkv"),
+         "launches_by_path": quality_launches(out, "flash_dkv")
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_dkv"]},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dkv_ms"], "plain_ms": k4_main["dkv_plain_ms"],
          "bound_ms": k4_main["dkv_bound_ms"],
@@ -5160,7 +5478,8 @@ def kernel_lines(out: dict) -> list:
             out["k5"], k5_main,
             "one launch, B=8 L=256 H=Hk=16 D=64, all slots valid, bf16 q "
             "(the last step of a 192-step generate); launches: that "
-            "generate call; library: scaled_dot_product_attention on the "
+            "generate call, at CUT_MODEL's 4 layers; library: "
+            "scaled_dot_product_attention on the "
             "bf16-dequantized cache with the boolean mask")
         | {"split": k5_main["plan"]},
     ]

@@ -238,8 +238,20 @@ def test_worker_main_refuses_what_is_not_ported(monkeypatch, capsys):
     monkeypatch.undo()
     monkeypatch.setenv("WORKLOAD_MODE", "train")
     monkeypatch.setenv("TPUBC_COORDINATOR_ADDRESS", "worker-0:1234")
+    # A multi-host JobSet env: worker_main joins that process group
+    # (train.rendezvous, exercised end to end by the dryrun in
+    # tests/test_torch_mesh_finetune.py); here its parameters, the
+    # reference's dict for dict.
     for hosts, slices in (("2", "1"), ("1", "2")):
         monkeypatch.setenv("TPUBC_NUM_HOSTS", hosts)
         monkeypatch.setenv("TPUBC_NUM_SLICES", slices)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ttrain.worker_main()
+        assert ttrain.bootstrap_from_env() == jtrain.bootstrap_from_env() \
+            == {"coordinator_address": "worker-0:1234", "num_processes": 2,
+                "process_id": 0}
+    # The TPU's megascale discovery has no counterpart: it still raises,
+    # naming the env that does rendezvous.
+    monkeypatch.delenv("TPUBC_COORDINATOR_ADDRESS")
+    monkeypatch.setenv("MEGASCALE_COORDINATOR_ADDRESS", "worker-0:1234")
+    with pytest.raises(NotImplementedError,
+                       match="TPUBC_COORDINATOR_ADDRESS"):
+        ttrain.worker_main()

@@ -38,7 +38,8 @@ def test_port_modules_cover_the_slice():
                 "workload.faults", "workload.checkpoint", "workload.data",
                 "workload.train", "workload.graphs", "workload.ingress",
                 "workload.prng", "workload.lora", "workload.distill",
-                "workload.quality"):
+                "workload.quality", "workload.sharding",
+                "workload.dryrun_mp"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 

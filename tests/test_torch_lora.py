@@ -487,10 +487,16 @@ def test_rejects_bad_configs(jbase):
                                   dict(seq=2), dict(expert=2), dict(dcn=2),
                                   dict(data=2, fsdp=2, tensor=2)])
 def test_multi_device_mesh_raises_item_11(jbase, mesh):
-    """The reference's sharded LoRA tests (tests/test_lora.py:96, :121,
-    :218) need meshes the port does not run yet."""
+    """A mesh over the axes not ported yet (seq, expert) raises naming
+    item 11; any other mesh of several devices needs a process group of
+    that size, which this process has not, and refuses rather than train
+    on one device. The sharded LoRA tests run on gloo ranks
+    (tests/test_torch_mesh_finetune.py)."""
     cfg = ttrain.TrainConfig(model=TMODEL)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    cm = (pytest.raises(NotImplementedError, match="item 11")
+          if "seq" in mesh or "expert" in mesh
+          else pytest.raises(ValueError, match="mesh needs"))
+    with cm:
         tlora.make_lora_train_step(cfg, ttrain.MeshConfig(**mesh),
                                    _to_port(jbase), tlora.LoraConfig())
 

@@ -6,8 +6,9 @@ uninterrupted run would have seen), and a background thread that stages
 the next batch while the current step runs.
 
 The order is the reference's numpy permutation, so both packages read the
-same batches byte for byte. One process reads the whole global batch (the
-port trains on one device), so ``host_rows`` is the whole batch.
+same batches byte for byte. On a mesh every rank computes the same global
+order but reads only its rows (``host_rows``: its coordinate over the
+batch axes), and the step's batch is the DTensor of those rows.
 """
 
 from __future__ import annotations
@@ -59,20 +60,38 @@ class TokenDataset:
         return np.asarray(self.tokens[gather], dtype=np.int32)
 
 
-def host_rows(batch_size: int) -> slice:
-    """This process's contiguous row range of the global batch: the whole
-    batch, for the one process the port runs (the per-host cut comes with
-    ROADMAP queue 1 item 11)."""
-    return slice(0, batch_size)
+def host_rows(batch_size: int, process_index: int | None = None,
+              process_count: int | None = None) -> slice:
+    """This process's contiguous row range of the global batch. The
+    defaults are the rank's data-parallel coordinate on the mesh
+    ``sharding.build_mesh`` made last and the data-parallel degree (0 of 1
+    without one), so ranks that differ only along ``tensor`` read the same
+    rows. The batch must divide evenly."""
+    from tpu_bootstrap_torch.workload import sharding
+
+    p, n = sharding.dp_coordinate(sharding.current_mesh())
+    p = p if process_index is None else process_index
+    n = n if process_count is None else process_count
+    if batch_size % n != 0:
+        raise ValueError(f"batch size {batch_size} must divide over {n} hosts")
+    per = batch_size // n
+    return slice(p * per, (p + 1) * per)
 
 
-def make_batch_fn(cfg: DataConfig, seq_len: int, batch_size: int, device):
-    """step -> (batch_size, seq_len) int64 token tensor on ``device``."""
+def make_batch_fn(cfg: DataConfig, seq_len: int, batch_size: int, device,
+                  mesh=None):
+    """step -> (batch_size, seq_len) int64 token tensor on ``device``; on
+    ``mesh``, the rank reads only its rows and the batch is their DTensor
+    (Shard(0) over the batch axes)."""
+    from tpu_bootstrap_torch.workload import sharding
+
     ds = TokenDataset(cfg, seq_len)
+    rows = host_rows(batch_size, *sharding.dp_coordinate(mesh))
 
     def get(step: int) -> torch.Tensor:
-        local = ds.batch(step, batch_size, rows=host_rows(batch_size))
-        return torch.from_numpy(local).to(device=device, dtype=torch.long)
+        local = torch.from_numpy(ds.batch(step, batch_size, rows=rows)).to(
+            device=device, dtype=torch.long)
+        return local if mesh is None else sharding.place_rows(local, mesh)
 
     return get
 

@@ -10,20 +10,27 @@ teacher's forward runs under ``torch.no_grad()`` (the reference's
 only. Both forwards are ``model.forward`` with the dense attention core,
 as in the reference.
 
-The step is eager PyTorch on one device and updates the student in
-place; a mesh of more than one device raises ``NotImplementedError``
-naming ROADMAP queue 1 item 11.
+The step is eager PyTorch and updates the student in place. On a mesh
+the student and the teacher (captured or passed) are placed by
+``sharding.param_shardings`` and gathered for each step's compute, each
+rank distils on its rows of the batch, and the student's gradients are
+summed over the batch axes onto its shards (``train.descend``); seq, pipe
+or expert above 1 raise ``NotImplementedError`` naming ROADMAP queue 1
+item 11.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_bootstrap_torch.workload import sharding
 from tpu_bootstrap_torch.workload.model import ModelConfig, Params, forward
 from tpu_bootstrap_torch.workload.train import (
     AdamW,
     descend,
-    require_one_device,
+    local_rows,
+    place_state,
+    resolve_mesh,
     tree_leaves,
 )
 
@@ -61,8 +68,11 @@ def make_distill_step(student_cfg: ModelConfig, teacher_params: Params,
     no warm-up. ``teacher_as_arg`` False: step(student, opt_state, tokens)
     with the teacher closed over; True: step(student, teacher, opt_state,
     tokens). Either returns (student, opt_state, loss), the student
-    updated in place. ``mesh`` is a ``train.MeshConfig``. Student and
-    teacher must share a vocabulary; depth and widths are free."""
+    updated in place. ``mesh`` is a built mesh (``sharding.build_mesh``)
+    or a ``MeshConfig`` (built when it spans several devices); on a mesh a
+    student or teacher not placed yet is placed by ``param_shardings``
+    (use the returned student). Student and teacher must share a
+    vocabulary; depth and widths are free."""
     if student_cfg.vocab_size != teacher_cfg.vocab_size:
         raise ValueError(
             f"student and teacher must share a vocab: "
@@ -75,18 +85,33 @@ def make_distill_step(student_cfg: ModelConfig, teacher_params: Params,
         raise ValueError(
             "MoE students are not supported (the distillation loss "
             "carries no load-balancing aux); use a dense student_cfg")
-    require_one_device(mesh)
+    if isinstance(mesh, sharding.MeshConfig):
+        mesh = resolve_mesh(mesh)
+    else:
+        mesh = resolve_mesh(sharding.mesh_config(mesh), mesh)
     opt = AdamW(lambda count: learning_rate, weight_decay, clip=0.0)
 
+    def placed(tree, opt_state=None):
+        if mesh is None:
+            return tree
+        return place_state(tree, sharding.param_shardings(mesh, tree),
+                           opt_state)
+
     def update(student, teacher, opt_state, tokens):
+        if mesh is not None:
+            student = placed(student, opt_state)
+            teacher = placed(teacher)
+            tokens = local_rows(tokens, mesh)
         loss_value = descend(opt, opt_state, tree_leaves(student),
-                             lambda: distill_loss(
-                                 student, teacher, tokens, student_cfg,
-                                 teacher_cfg, temperature, hard_weight))
+                             lambda view: distill_loss(
+                                 view(student), view(teacher), tokens,
+                                 student_cfg, teacher_cfg, temperature,
+                                 hard_weight), mesh)
         return student, opt_state, loss_value
 
     if teacher_as_arg:
         return update, opt
+    teacher_params = placed(teacher_params)
 
     def step(student, opt_state, tokens):
         return update(student, teacher_params, opt_state, tokens)

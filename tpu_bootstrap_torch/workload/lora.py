@@ -17,9 +17,12 @@ so the adapted model starts equal to the base. ``merge_lora`` folds the
 adapters in for serving (``decode.generate`` or ``quant.quantize_params``
 on the result).
 
-The port trains on one device: a mesh with a pipe axis raises the
-reference's ``ValueError``, and any other mesh of more than one device
-raises ``NotImplementedError`` naming ROADMAP queue 1 item 11.
+On a mesh the frozen base is placed by ``sharding.param_shardings``
+before the step captures it (plain, int8 or int4 leaves) and gathered for
+each step's compute; the adapters are replicated, and their gradients are
+summed over the batch axes as training's are (``train.descend``). A mesh
+with a pipe axis raises the reference's ``ValueError``; seq or expert
+above 1 raise ``NotImplementedError`` naming ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tpu_bootstrap_torch.workload import quant
+from tpu_bootstrap_torch.workload import quant, sharding
 from tpu_bootstrap_torch.workload.model import (
     Params,
     loss_from_inputs,
@@ -38,8 +41,11 @@ from tpu_bootstrap_torch.workload.model import (
 )
 from tpu_bootstrap_torch.workload.train import (
     descend,
+    local_rows,
     make_optimizer,
-    require_one_device,
+    mesh_attention,
+    place_state,
+    resolve_mesh,
     tree_leaves,
 )
 
@@ -158,37 +164,51 @@ def _strip_decode_copies(base: Params) -> Params:
 def make_lora_train_step(cfg, mesh, base_params: Params, lcfg: LoraConfig,
                          attn_fn=None):
     """Returns (step(lora, opt_state, tokens) -> (lora, opt_state, loss),
-    optimizer). ``cfg`` is a ``train.TrainConfig``, ``mesh`` a
-    ``train.MeshConfig``. The base is closed over frozen, without its
+    optimizer). ``cfg`` is a ``train.TrainConfig``; ``mesh`` a built mesh
+    (``sharding.build_mesh``), or a ``MeshConfig`` (built when it spans
+    several devices). The base is closed over frozen, without its
     decode-only copies; the optimizer (``train.make_optimizer(cfg)``)
     state exists only for the adapters, which the step updates in place
-    and returns. ``cfg.remat`` recomputes the loss's activations in the
-    backward (``torch.utils.checkpoint``)."""
-    if mesh.pipe > 1:
+    and returns (on a mesh, adapters and moments not placed yet are
+    replicated first: use the returned tree). ``cfg.remat`` recomputes the
+    loss's activations in the backward (``torch.utils.checkpoint``)."""
+    mesh_cfg = (mesh if isinstance(mesh, sharding.MeshConfig)
+                else sharding.mesh_config(mesh))
+    if mesh_cfg.pipe > 1:
         raise ValueError(
             "LoRA does not compose with pipeline meshes (adapters would "
             "need the stacked per-stage layout); use the GSPMD axes "
             "(data/fsdp/expert/seq/tensor)")
-    require_one_device(mesh)
+    mesh = resolve_mesh(mesh_cfg, None if isinstance(
+        mesh, sharding.MeshConfig) else mesh)
     base = _strip_decode_copies(base_params)
     opt = make_optimizer(cfg)
+    if mesh is not None:
+        # The frozen base committed to its shardings before the closure
+        # captures it (the reference's residency rule, QLoRA's point).
+        base = place_state(base, sharding.param_shardings(mesh, base))
+        attn_fn = mesh_attention(mesh, attn_fn, cfg.model)
 
-    def loss(lora, inputs, targets):
-        eff = apply_lora(base, lora, lcfg)
+    def loss(lora, eff_base, inputs, targets):
+        eff = apply_lora(eff_base, lora, lcfg)
         return loss_from_inputs(eff, inputs, targets, cfg.model,
                                 attn_fn=attn_fn)
 
     if cfg.remat:
         plain = loss
 
-        def loss(lora, inputs, targets):
-            return checkpoint(plain, lora, inputs, targets,
+        def loss(lora, eff_base, inputs, targets):
+            return checkpoint(plain, lora, eff_base, inputs, targets,
                               use_reentrant=False)
 
     def step(lora, opt_state, tokens):
+        if mesh is not None:
+            lora = place_state(lora, sharding.replicated(mesh), opt_state)
+            tokens = local_rows(tokens, mesh)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         loss_value = descend(opt, opt_state, tree_leaves(lora),
-                             lambda: loss(lora, inputs, targets))
+                             lambda view: loss(view(lora), view(base),
+                                               inputs, targets), mesh)
         return lora, opt_state, loss_value
 
     return step, opt

@@ -266,16 +266,19 @@ def _mlp(block: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def hidden_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                    attn_fn=None) -> tuple:
+                    attn_fn=None, batch_mean=None) -> tuple:
     """tokens (batch, seq) -> (final-normed hidden states (batch, seq,
     embed), aux): the model up to the head. ``aux`` is the mean MoE
-    load-balancing loss over blocks, 0 for the dense model."""
+    load-balancing loss over blocks, 0 for the dense model; on a mesh
+    ``batch_mean`` takes its routing statistics over the whole batch
+    (``moe._route``)."""
     x = params["embed"][tokens].to(cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
         x = x + _attention(block, x, cfg, attn_fn)
         if cfg.num_experts > 0:
-            out, aux_b = moe_mlp(block, _rms_norm(x, block["mlp_norm"]), cfg)
+            out, aux_b = moe_mlp(block, _rms_norm(x, block["mlp_norm"]), cfg,
+                                 batch_mean=batch_mean)
             x = x + out
             aux = aux + aux_b / len(params["blocks"])
         else:
@@ -298,9 +301,9 @@ def head_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                     attn_fn=None) -> tuple:
+                     attn_fn=None, batch_mean=None) -> tuple:
     """tokens (batch, seq) -> (logits (batch, seq, vocab) f32, aux)."""
-    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn)
+    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn, batch_mean)
     return head_logits(x, params["embed"]), aux
 
 
@@ -312,7 +315,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_from_inputs(params: Params, inputs: torch.Tensor,
                      targets: torch.Tensor, cfg: ModelConfig,
-                     attn_fn=None) -> torch.Tensor:
+                     attn_fn=None, batch_mean=None) -> torch.Tensor:
     """Mean cross-entropy of ``targets`` under the model run on
     ``inputs``, plus ``moe_aux_coef`` times the MoE aux loss when the
     model has experts. ``cfg.vocab_chunk > 0`` streams the head over vocab
@@ -321,10 +324,11 @@ def loss_from_inputs(params: Params, inputs: torch.Tensor,
     if cfg.vocab_chunk > 0:
         from tpu_bootstrap_torch.workload.xent import chunked_mean_xent
 
-        x, aux = hidden_with_aux(params, inputs, cfg, attn_fn)
+        x, aux = hidden_with_aux(params, inputs, cfg, attn_fn, batch_mean)
         loss = chunked_mean_xent(x, params["embed"], targets, cfg.vocab_chunk)
     else:
-        logits, aux = forward_with_aux(params, inputs, cfg, attn_fn)
+        logits, aux = forward_with_aux(params, inputs, cfg, attn_fn,
+                                       batch_mean)
         logprobs = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logprobs, -1, targets[..., None].long())[..., 0]
         loss = nll.mean()

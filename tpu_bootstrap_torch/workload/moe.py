@@ -49,9 +49,11 @@ def _expert_linear(x: torch.Tensor, w, dtype, tag: str = "") -> torch.Tensor:
     return torch.einsum("ebck,ekn->ebcn", x, w.to(dtype))
 
 
-def _route(block: dict, h: torch.Tensor, cfg) -> tuple:
+def _route(block: dict, h: torch.Tensor, cfg, batch_mean=None) -> tuple:
     """Router and slot assignment: (dispatch (B, S, E, C), combine
-    (B, S, E, C), aux scalar), per batch row."""
+    (B, S, E, C), aux scalar), per batch row. The aux loss's fractions and
+    probabilities are means over the whole batch: on a mesh, where h holds
+    a rank's rows, ``batch_mean`` averages them over the ranks."""
     n_exp, k = cfg.num_experts, cfg.expert_top_k
     if not 1 <= k <= n_exp:
         raise ValueError(
@@ -84,19 +86,22 @@ def _route(block: dict, h: torch.Tensor, cfg) -> tuple:
     top1 = mask[:, :, 0]  # (B, S, E)
     frac = top1.mean(dim=(0, 1))  # fraction routed to each expert
     prob = gates.mean(dim=(0, 1))  # mean router probability per expert
+    if batch_mean is not None:
+        frac, prob = batch_mean(frac), batch_mean(prob)
     aux = n_exp * (frac * prob).sum()
     return dispatch, combine, aux
 
 
-def moe_mlp(block: dict, h: torch.Tensor, cfg) -> tuple:
+def moe_mlp(block: dict, h: torch.Tensor, cfg, batch_mean=None) -> tuple:
     """Top-k MoE FFN over pre-normalized activations h (B, S, M): block
     holds ``router`` (M, E), ``w_up`` (E, M, F) and ``w_down`` (E, F, M).
     Returns (out (B, S, M), aux f32 scalar)."""
-    return moe_mlp_manual(block, h, cfg)
+    return moe_mlp_manual(block, h, cfg, batch_mean=batch_mean)
 
 
 def moe_mlp_manual(block: dict, h: torch.Tensor, cfg,
-                   axis_name: str = "expert", n_expert: int = 1) -> tuple:
+                   axis_name: str = "expert", n_expert: int = 1,
+                   batch_mean=None) -> tuple:
     """``moe_mlp`` with the reference's expert-parallel signature. One
     device holds every expert (``n_expert=1``); the all-to-all pair over
     an expert mesh axis is not ported."""
@@ -106,7 +111,7 @@ def moe_mlp_manual(block: dict, h: torch.Tensor, cfg,
             f"{axis_name!r}) is not ported yet (ROADMAP queue 1 item 11: "
             "multi-device)")
     dtype = cfg.compute_dtype
-    dispatch, combine, aux = _route(block, h, cfg)
+    dispatch, combine, aux = _route(block, h, cfg, batch_mean)
     expert_in = torch.einsum("bsec,bsm->ebcm", dispatch.to(dtype), h)
     # jax.nn.gelu's default is the tanh approximation.
     hidden = F.gelu(_expert_linear(expert_in, block["w_up"], dtype,

@@ -1,0 +1,546 @@
+"""Mesh and sharding rules for training, the counterpart of
+``tpu_bootstrap/workload/sharding.py``.
+
+The mesh has the reference's seven axes, slowest network outermost:
+``dcn`` (data parallelism across slices), ``pipe``, ``data``, ``fsdp``
+(data parallelism with parameters sharded along it, ZeRO-3), ``expert``,
+``seq`` and ``tensor``. One process drives one device, so a mesh of n
+devices is a process group of n ranks (NCCL on the card, gloo on the
+CPU), and ``build_mesh`` lays the ranks out in rank order: with a
+slice-major process space (``train.bootstrap_from_env``) whole slices fill
+the ``dcn`` rows.
+
+Parameters keep the reference's layout leaf by leaf (``param_specs``, the
+reference's ``PartitionSpec`` as a tuple of axis names), placed as
+DTensors (``param_shardings``, ``shard_params``): one placement a mesh
+dimension, ``Shard(d)`` on every axis the spec names for tensor dim d.
+The batch is ``Shard(0)`` over ``BATCH_AXES``.
+
+The train step computes on each rank's local tensors inside
+``torch.distributed.tensor.experimental.local_map`` regions with explicit
+collectives (``gather``, ``batch_sum``), not through DTensor's operator
+dispatch: DTensor's sharding propagation enumerates placements over every
+mesh dimension, and on the seven-axis mesh one matmul of 8 gloo ranks did
+not finish in 40 s on the CPU. A step gathers every parameter over the
+axes that shard it (the ZeRO-3 all-gather), runs the model on the rank's
+batch rows, and reduces each gradient over the batch axes back to the
+parameter's own shard, so no partial gradient reaches the optimizer.
+
+``seq > 1`` (ring attention), ``pipe > 1`` and ``expert > 1`` raise
+``NotImplementedError`` naming ROADMAP queue 1 item 11
+(``require_ported``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import torch
+import torch.distributed as dist
+
+from tpu_bootstrap_torch.workload import quant
+from tpu_bootstrap_torch.workload.model import ModelConfig, Params
+
+AXES = ("dcn", "pipe", "data", "fsdp", "expert", "seq", "tensor")
+BATCH_AXES = ("dcn", "data", "fsdp", "expert")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    dcn: int = 1  # slices (multislice data parallelism)
+    pipe: int = 1  # pipeline stages
+    data: int = 1
+    fsdp: int = 1
+    expert: int = 1  # expert parallelism (MoE); a data axis elsewhere
+    seq: int = 1
+    tensor: int = 1
+
+    @property
+    def size(self) -> int:
+        return (self.dcn * self.pipe * self.data * self.fsdp * self.expert
+                * self.seq * self.tensor)
+
+    @staticmethod
+    def for_device_count(n: int) -> "MeshConfig":
+        """The reference's default factorization: ``tensor`` up to 4, then
+        ``fsdp`` up to 8, the rest to ``data`` (power-of-2 factors only;
+        pipe, seq, expert and dcn are never defaulted)."""
+
+        def pow2(m: int, cap: int) -> int:
+            f = 1
+            while f < cap and m % (f * 2) == 0:
+                f *= 2
+            return f
+
+        tensor = pow2(n, 4)
+        rest = n // tensor
+        fsdp = pow2(rest, 8)
+        return MeshConfig(data=rest // fsdp, fsdp=fsdp, tensor=tensor)
+
+
+def require_ported(cfg: MeshConfig) -> None:
+    """The axes whose compute is not ported yet raise here."""
+    for axis, what in (("seq", "sequence parallelism (ring attention)"),
+                       ("pipe", "pipeline parallelism"),
+                       ("expert", "expert parallelism")):
+        if getattr(cfg, axis) > 1:
+            raise NotImplementedError(
+                f"{what} ({axis}={getattr(cfg, axis)} in {cfg}) is not "
+                "ported yet (ROADMAP queue 1 item 11: multi-device)")
+
+
+_MESH = None  # the mesh build_mesh made last: host_rows' default
+
+
+def build_mesh(cfg: MeshConfig, device_type: str | None = None):
+    """The process group's ranks as a DeviceMesh over the seven axes, in
+    rank order. ``device_type`` None is the card (NCCL); "cpu" is gloo.
+    Without a process group a size-1 ``cfg`` is the plain one-device path
+    (None), and a larger one raises; a world of another size raises too."""
+    global _MESH
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != cfg.size or (cfg.size > 1 and not dist.is_initialized()):
+        raise ValueError(f"mesh needs {cfg.size} devices, have {world}")
+    if not dist.is_initialized():
+        return None
+    device_type = device_type or "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device_type='cpu' for a gloo mesh "
+            "on the host")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _MESH = init_device_mesh(
+        device_type, tuple(getattr(cfg, a) for a in AXES),
+        mesh_dim_names=AXES)
+    return _MESH
+
+
+def current_mesh():
+    """The mesh ``build_mesh`` made last in this process, or None."""
+    return _MESH
+
+
+def degenerate_mesh(mesh) -> bool:
+    """True for None only, the plain one-device path: a DeviceMesh, even
+    of one device, is explicit placement, which is the point of it."""
+    return mesh is None
+
+
+def mesh_config(mesh) -> MeshConfig:
+    """The extents of a built mesh (all 1 for None)."""
+    if mesh is None:
+        return MeshConfig()
+    return MeshConfig(**{a: mesh.size(AXES.index(a)) for a in AXES})
+
+
+def _spec_for(path: str, ndim: int) -> tuple:
+    if path.endswith("embed"):
+        return ("fsdp", "tensor")
+    if path.endswith(("wq", "wk", "wv")):
+        return ("fsdp", "tensor", None)
+    if path.endswith("wo"):
+        return ("tensor", None, "fsdp")
+    if path.endswith("router"):
+        return ("fsdp", None)
+    if path.endswith(("w_up", "w_gate")):
+        return (("expert", "fsdp", "tensor") if ndim == 3
+                else ("fsdp", "tensor"))
+    if path.endswith("w_down"):
+        return (("expert", "tensor", "fsdp") if ndim == 3
+                else ("tensor", "fsdp"))
+    return (None,) * ndim  # norms: replicated
+
+
+def _fit(spec: tuple, shape, cfg: MeshConfig) -> tuple:
+    """Drop the mesh axes a dimension cannot tile evenly (MQA's single KV
+    head against tensor > 1): replicating such a dimension is correct."""
+    return tuple(None if name is None or dim % getattr(cfg, name) else name
+                 for dim, name in zip(shape, spec))
+
+
+def param_specs(mesh_cfg: MeshConfig, params: Params):
+    """The reference's PartitionSpec of every leaf as a tuple of axis names
+    (None: not sharded), from the config's extents alone. Quantized leaves
+    give the same dataclass with the spec of ``q`` and ``s`` in their
+    place; a stacked ``blocks`` dict (the pipeline layout) puts ``pipe``
+    on the leading layer axis."""
+    stacked = isinstance(params, dict) and isinstance(params.get("blocks"),
+                                                      dict)
+
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, path) for v in tree]
+        if quant.is_quantized(tree):
+            # The packed data's contraction dim over fsdp (and E over
+            # expert); int8's per-column scales replicate, int4's group
+            # scales shard like the contraction dim, expert scales over E.
+            qspec = (("expert", "fsdp", None) if tree.q.ndim == 3
+                     else ("fsdp", None))
+            if tree.s.ndim == 3:
+                sspec = ("expert", None, None)
+            elif tree.s.ndim == 2:
+                sspec = ("fsdp", None)
+            else:
+                sspec = (None,)
+            return dataclasses.replace(
+                tree, q=_fit(qspec, tree.q.shape, mesh_cfg),
+                s=_fit(sspec, tree.s.shape, mesh_cfg))
+        if stacked and path.startswith("/blocks"):
+            spec = ("pipe", *_spec_for(path, tree.ndim - 1))
+        else:
+            spec = _spec_for(path, tree.ndim)
+        return _fit(spec, tree.shape, mesh_cfg)
+
+    return walk(params)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's placement: the mesh and one placement a mesh dimension."""
+    mesh: object
+    placements: tuple
+
+
+def placements(spec: tuple) -> tuple:
+    """A spec (axis name or None per tensor dim) as one placement per mesh
+    dimension: Shard(d) on each axis the spec names for dim d."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(AXES)
+    for d, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                out[AXES.index(name)] = Shard(d)
+    return tuple(out)
+
+
+def param_shardings(mesh, params: Params):
+    """``param_specs`` on ``mesh``'s extents, as a ``Sharding`` a leaf (a
+    quantized leaf: its dataclass with the ``q`` and ``s`` shardings)."""
+    specs = param_specs(mesh_config(mesh), params)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if quant.is_quantized(tree):
+            return dataclasses.replace(
+                tree, q=Sharding(mesh, placements(tree.q)),
+                s=Sharding(mesh, placements(tree.s)))
+        return Sharding(mesh, placements(tree))
+
+    return walk(specs)
+
+
+def batch_shardings(mesh):
+    """Token rows over every data-parallel axis (dcn and expert included);
+    None on a degenerate mesh."""
+    if degenerate_mesh(mesh):
+        return None
+    return Sharding(mesh, placements((BATCH_AXES, None)))
+
+
+def replicated(mesh) -> Sharding:
+    from torch.distributed.tensor import Replicate
+
+    return Sharding(mesh, (Replicate(),) * len(AXES))
+
+
+def _distribute(t: torch.Tensor, sh: Sharding):
+    """``distribute_tensor`` from this rank's copy of the whole tensor
+    (every rank holds the same one: a seeded init or a loaded file), so
+    nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, sh.mesh, list(sh.placements),
+                             src_data_rank=None)
+
+
+def shard_params(params: Params, shardings) -> Params:
+    """Each leaf placed by its sharding (quantized leaves: ``q`` and
+    ``s``); a None sharding leaves the leaf as it is."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, shardings[k]) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [shard_params(v, s) for v, s in zip(params, shardings)]
+    if shardings is None:
+        return params
+    if quant.is_quantized(params):
+        return dataclasses.replace(params,
+                                   q=_distribute(params.q, shardings.q),
+                                   s=_distribute(params.s, shardings.s))
+    return _distribute(params, shardings)
+
+
+# -- the local side of a mesh step -----------------------------------------
+
+
+def is_placed(t) -> bool:
+    """A DTensor, or a quantized leaf whose data is one."""
+    from torch.distributed.tensor import DTensor
+
+    if quant.is_quantized(t):
+        t = t.q
+    return isinstance(t, DTensor)
+
+
+def local(t) -> torch.Tensor:
+    """The tensor this rank holds of a DTensor (its storage, not a copy);
+    a plain tensor as it is."""
+    if not is_placed(t):
+        return t
+    with torch.no_grad():
+        return t.to_local()
+
+
+def like(dt, local_tensor: torch.Tensor):
+    """``local_tensor`` as a DTensor placed as ``dt`` is."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local_tensor, dt.device_mesh, dt.placements,
+                              run_check=False, shape=dt.shape,
+                              stride=dt.stride())
+
+
+def place_rows(rows: torch.Tensor, mesh):
+    """This rank's rows of a batch as the batch's DTensor (Shard(0) over
+    BATCH_AXES)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(rows, mesh, batch_shardings(mesh).placements,
+                              run_check=False)
+
+
+def _group(mesh, axis: str):
+    return mesh.get_group(AXES.index(axis))
+
+
+def _size(mesh, axis: str) -> int:
+    return mesh.size(AXES.index(axis))
+
+
+def dp_coordinate(mesh) -> tuple:
+    """(this rank's index over BATCH_AXES, flattened with dcn outermost,
+    the data-parallel degree): which rows of the global batch it holds."""
+    if mesh is None:
+        return 0, 1
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for axis in BATCH_AXES:
+        n = _size(mesh, axis)
+        index = index * n + coord[AXES.index(axis)]
+        count *= n
+    return index, count
+
+
+def _sharded_axes(placements_) -> list:
+    """(axis, tensor dim) of every mesh axis that shards the tensor, mesh
+    order."""
+    return [(AXES[i], p.dim) for i, p in enumerate(placements_)
+            if p.is_shard()]
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = _size(mesh, axis)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=_group(mesh, axis))
+    return torch.cat(parts, dim=dim)
+
+
+def _own_part(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = _size(mesh, axis)
+    if n == 1:
+        return x
+    return x.chunk(n, dim=dim)[mesh.get_coordinate()[AXES.index(axis)]]
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for axis in axes:
+        if _size(mesh, axis) > 1:
+            x = x.contiguous()
+            dist.all_reduce(x, group=_group(mesh, axis))
+    return x
+
+
+def full(t) -> torch.Tensor:
+    """A DTensor gathered to the whole tensor on every rank (no autograd);
+    a plain tensor as it is."""
+    if not is_placed(t):
+        return t
+    x = local(t)
+    # Inner mesh axes first: the outer axis's chunks hold them whole.
+    for axis, dim in reversed(_sharded_axes(t.placements)):
+        x = _all_gather(x, t.device_mesh, axis, dim)
+    return x
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: this rank's shard gathered over every axis that shards it.
+    Backward: the gradient of the whole tensor, which holds this rank's
+    batch rows' part only, summed over the batch axes and cut back to the
+    rank's shard. The other axes (tensor) compute the same gradient on
+    every rank, so they are cut, not summed."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements_):
+        ctx.mesh, ctx.axes = mesh, _sharded_axes(placements_)
+        for axis, dim in reversed(ctx.axes):
+            x = _all_gather(x, mesh, axis, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _sum_over(g.clone(), ctx.mesh, BATCH_AXES)
+        for axis, dim in ctx.axes:
+            g = _own_part(g, ctx.mesh, axis, dim)
+        return g.contiguous(), None, None
+
+
+def gather(t, grad_leaf: torch.Tensor | None = None) -> torch.Tensor:
+    """The whole tensor of DTensor ``t`` for this step's compute. With
+    ``grad_leaf`` (``local(t)``, set to require grad) the gather is
+    differentiable as ``_Gather`` says; without, it is a plain gather.
+    Quantized leaves gather ``q`` and ``s``."""
+    if quant.is_quantized(t):
+        return dataclasses.replace(t, q=full(t.q), s=full(t.s))
+    if not is_placed(t):
+        return t
+    if grad_leaf is None:
+        return full(t)
+    if t.device_mesh.size() == 1:
+        return grad_leaf
+    return _Gather.apply(grad_leaf, t.device_mesh, t.placements)
+
+
+def gather_tree(tree, grads: dict | None = None):
+    """``gather`` over a params tree; ``grads`` maps id(DTensor leaf) to
+    the local leaf its gradient is taken with respect to."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, grads) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_tree(v, grads) for v in tree]
+    return gather(tree, (grads or {}).get(id(tree)))
+
+
+class _BatchSum(torch.autograd.Function):
+    """Sum over the batch axes, forward and backward: the gradient of a
+    sum taken on every rank is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _sum_over(x.clone(), mesh, BATCH_AXES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.clone(), ctx.mesh, BATCH_AXES), None
+
+
+def batch_mean(mesh):
+    """x -> the mean of x over the ranks of the batch axes, differentiable
+    (the MoE aux loss's global means), or None where there is one rank."""
+    n = dp_coordinate(mesh)[1]
+    if n == 1:
+        return None
+    return lambda x: _BatchSum.apply(x, mesh) / n
+
+
+def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over the batch axes (no autograd)."""
+    return _sum_over(x.detach().clone(), mesh, BATCH_AXES)
+
+
+def grad_sq_norm(grads: list, leaves: list) -> torch.Tensor:
+    """The squared global norm of gradients held as local shards of the
+    DTensor ``leaves``: each rank counts its shard once over the ranks that
+    hold a copy of it, and the world sums."""
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    mesh = None
+    for g, p in zip(grads, leaves):
+        mesh = p.device_mesh
+        copies = mesh.size()
+        for axis, _ in _sharded_axes(p.placements):
+            copies //= _size(mesh, axis)
+        total = total + g.float().square().sum() / copies
+    if mesh is not None and mesh.size() > 1:
+        dist.all_reduce(total)
+    return total
+
+
+def attention_region(mesh, core, num_heads: int, kv_heads: int):
+    """The attention core run under ``local_map`` over (BATCH_AXES, None,
+    "tensor", None), the counterpart of the reference's shard_map: each
+    rank runs ``core`` (K3/K4 for flash) on its batch rows and its share
+    of the heads. q/k/v come in as the rank's rows with every head; a KV
+    head count the tensor axis does not divide is expanded to the query
+    heads first (the reference's repeat_kv rule). The output's heads are
+    gathered back. With tensor 1 the region holds every head."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from tpu_bootstrap_torch.workload.model import repeat_kv
+
+    t = _size(mesh, "tensor")
+    heads = placements((BATCH_AXES, None, "tensor", None))
+    # One output: its placements as a list (a tuple would read as one
+    # placement list an output).
+    region = local_map(core, out_placements=list(heads),
+                       in_placements=(list(heads),) * 3, device_mesh=mesh)
+
+    def attn(q, k, v):
+        if t > 1:
+            if kv_heads % t:
+                k, v = repeat_kv(k, num_heads), repeat_kv(v, num_heads)
+            q, k, v = (_Split.apply(x, mesh) for x in (q, k, v))
+        args = [DTensor.from_local(x, mesh, heads, run_check=False)
+                for x in (q, k, v)]
+        out = region(*args).to_local()
+        return _HeadGather.apply(out, mesh) if t > 1 else out
+
+    return attn
+
+
+class _Split(torch.autograd.Function):
+    """This rank's heads (dim 2) over ``tensor``; backward gathers the
+    heads' gradients, which every tensor rank then holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _own_part(x, mesh, "tensor", 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, "tensor", 2), None
+
+
+class _HeadGather(torch.autograd.Function):
+    """Every head gathered over ``tensor``; backward keeps this rank's
+    heads of a gradient every tensor rank holds alike."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_gather(x, mesh, "tensor", 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_part(g, ctx.mesh, "tensor", 2).contiguous(), None
+
+
+__all__ = [
+    "BATCH_AXES",
+    "MeshConfig",
+    "build_mesh",
+    "degenerate_mesh",
+    "param_shardings",
+    "batch_shardings",
+    "replicated",
+    "shard_params",
+    "ModelConfig",
+]

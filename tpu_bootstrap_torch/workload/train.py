@@ -1,5 +1,4 @@
-"""Single-device training, the counterpart of
-``tpu_bootstrap/workload/train.py``.
+"""Training, the counterpart of ``tpu_bootstrap/workload/train.py``.
 
 A step is eager PyTorch: the loss (``model.loss_from_inputs``, through
 kernels K3/K4 with ``attention="flash"``), its gradients, and an AdamW
@@ -10,11 +9,18 @@ back; the port updates them IN PLACE (no second copy of the train state)
 and returns them too, so callers written against the functional form keep
 working.
 
-The port trains on one device. A mesh of more than one device (data,
-fsdp, tensor, expert, dcn, pipe, seq and so the ring) raises
-``NotImplementedError`` naming ROADMAP queue 1 item 11. ``worker_main``
-also dispatches ``WORKLOAD_MODE=serve`` to
-``serving.serve_demo_from_env`` and starts the metrics server on
+On a mesh (``sharding.build_mesh``: one rank a device, the dcn, data,
+fsdp and tensor axes) params and optimizer moments are DTensors placed
+by ``sharding.param_shardings``, each rank reads its rows of the batch,
+and a step computes on local tensors: the params gathered over the axes
+that shard them, the attention core under ``local_map`` on the rank's
+rows and heads (K3/K4 for flash), the gradients summed over the batch
+axes back onto each param's shard before the global clip norm and the
+update (``descend``). A mesh with seq, pipe or expert above 1 raises
+``NotImplementedError`` naming ROADMAP queue 1 item 11.
+``worker_main`` joins the process group from the JobSet's env
+(``bootstrap_from_env``) or torchrun's, dispatches ``WORKLOAD_MODE=serve``
+to ``serving.serve_demo_from_env`` and starts the metrics server on
 ``WORKLOAD_METRICS_PORT``.
 """
 
@@ -29,51 +35,21 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpu_bootstrap_torch import telemetry
+from tpu_bootstrap_torch.workload import sharding
 from tpu_bootstrap_torch.workload.flash_attention import make_flash_attn_fn
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
+    dense_attn_core,
     flops_model,
     init_params,
     loss_from_inputs,
     resolve_device,
 )
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """The reference's mesh axes (``sharding.MeshConfig``); the port runs
-    the one-device mesh only."""
-    dcn: int = 1
-    pipe: int = 1
-    data: int = 1
-    fsdp: int = 1
-    expert: int = 1
-    seq: int = 1
-    tensor: int = 1
-
-    @property
-    def size(self) -> int:
-        return (self.dcn * self.pipe * self.data * self.fsdp * self.expert
-                * self.seq * self.tensor)
-
-    @staticmethod
-    def for_device_count(n: int) -> "MeshConfig":
-        """The reference's default factorization: ``tensor`` up to 4, then
-        ``fsdp`` up to 8, the rest to ``data`` (power-of-2 factors)."""
-
-        def pow2(m: int, cap: int) -> int:
-            f = 1
-            while f < cap and m % (f * 2) == 0:
-                f *= 2
-            return f
-
-        tensor = pow2(n, 4)
-        rest = n // tensor
-        fsdp = pow2(rest, 8)
-        return MeshConfig(data=rest // fsdp, fsdp=fsdp, tensor=tensor)
+from tpu_bootstrap_torch.workload.sharding import MeshConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +68,31 @@ class TrainConfig:
     remat: bool = False  # recompute the loss's activations in the backward
     attention: str = "dense"  # "dense" (einsums) or "flash" (K3/K4)
     attention_block: int = 512  # validated only: the kernels pick tiles
+    # Microbatches per step when mesh.pipe > 1 (0 = 2x the stage count).
+    num_microbatches: int = 0
+    # "gpipe" or "1f1b"; the pipelined step is not ported yet (item 11).
+    pipeline_schedule: str = "gpipe"
 
 
-def require_one_device(mesh: MeshConfig) -> None:
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"a {mesh.size}-device mesh ({mesh}) is not ported yet "
-            "(ROADMAP queue 1 item 11: multi-device)")
+def mesh_device(mesh) -> torch.device:
+    """The device a mesh's rank computes on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def resolve_mesh(mesh_cfg: MeshConfig, mesh=None, device=None):
+    """The mesh a train entry runs on: ``mesh`` when given, else
+    ``build_mesh(mesh_cfg)`` on ``device``'s type (None: the card) when the
+    config spans more than one device, else None (the plain path). The
+    axes not ported yet raise first."""
+    sharding.require_ported(mesh_cfg)
+    if mesh is None and mesh_cfg.size > 1:
+        mesh = sharding.build_mesh(
+            mesh_cfg, None if device is None else torch.device(device).type)
+    if mesh is not None:
+        sharding.require_ported(sharding.mesh_config(mesh))
+    return mesh
 
 
 def make_schedule(cfg: TrainConfig):
@@ -135,7 +129,8 @@ class AdamW:
     ``clip_by_global_norm(clip)`` when clip > 0 (scale by clip / norm only
     when norm >= clip; no epsilon on the norm). The state is
     ``{"count", "mu", "nu"}`` over the param leaves in ``tree_leaves``
-    order; ``update`` advances it in place and returns the updates."""
+    order, each moment placed as its param is (a DTensor on a mesh);
+    ``update`` advances it in place and returns the updates."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -145,14 +140,23 @@ class AdamW:
         self.clip = clip
 
     def init(self, params) -> dict:
-        leaves = tree_leaves(params)
-        return {"count": 0,
-                "mu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
-                "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves]}
+        def zeros(p):
+            z = torch.zeros_like(sharding.local(p), dtype=torch.float32)
+            return sharding.like(p, z) if sharding.is_placed(p) else z
 
-    def update(self, grads: list, state: dict, params: list) -> list:
+        leaves = tree_leaves(params)
+        return {"count": 0, "mu": [zeros(p) for p in leaves],
+                "nu": [zeros(p) for p in leaves]}
+
+    def update(self, grads: list, state: dict, params: list,
+               sq_norm: torch.Tensor | None = None) -> list:
+        """``grads`` and ``params`` are the tensors a rank holds (a mesh
+        step's local shards); ``sq_norm`` is the squared global norm of the
+        gradients where they are shards of it."""
         if self.clip > 0:
-            g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            if sq_norm is None:
+                sq_norm = sum(g.float().square().sum() for g in grads)
+            g_norm = torch.sqrt(sq_norm)
             keep = g_norm < self.clip
             grads = [torch.where(keep, g, g / g_norm * self.clip)
                      for g in grads]
@@ -162,6 +166,7 @@ class AdamW:
         bc2 = 1 - np.float32(self.b2) ** count
         updates = []
         for g, mu, nu, p in zip(grads, state["mu"], state["nu"], params):
+            mu, nu = sharding.local(mu), sharding.local(nu)
             mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
             nu.mul_(self.b2).add_(g.square(), alpha=1 - self.b2)
             u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + self.eps)
@@ -184,30 +189,112 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def init_train_state(cfg: TrainConfig, seed: int = 0, device=None) -> tuple:
-    """(params, optimizer state) on ``device`` (None: the card)."""
-    require_one_device(cfg.mesh)
-    params = init_params(cfg.model, seed=seed, device=device)
+def init_train_state(cfg: TrainConfig, seed: int = 0, device=None,
+                     mesh=None) -> tuple:
+    """(params, optimizer state) on ``device`` (None: the card), or on
+    ``mesh`` (built from ``cfg.mesh`` when that spans several devices):
+    every rank draws the same init and keeps its shards."""
+    mesh = resolve_mesh(cfg.mesh, mesh, device)
+    if mesh is None:
+        params = init_params(cfg.model, seed=seed, device=device)
+    else:
+        params = init_params(cfg.model, seed=seed, device=mesh_device(mesh))
+        params = sharding.shard_params(
+            params, sharding.param_shardings(mesh, params))
     return params, make_optimizer(cfg).init(params)
 
 
-def make_train_step(cfg: TrainConfig):
+def place_state(tree, shardings, opt_state: dict | None = None):
+    """``tree`` (and its optimizer state's moments) with every leaf not
+    placed yet distributed by ``shardings``: a tree of them
+    (``param_shardings``) or one for every leaf (``replicated``); a moment
+    goes as its leaf. Placed leaves stay as they are. Returns the tree; the
+    moments are replaced in ``opt_state``."""
+    n = len(tree_leaves(tree))
+    per_leaf = ([shardings] * n if isinstance(shardings, sharding.Sharding)
+                else tree_leaves(shardings))
+    it = iter(per_leaf)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        sh = next(it)
+        return t if sharding.is_placed(t) else sharding.shard_params(t, sh)
+
+    tree = walk(tree)
+    for key in ("mu", "nu") if opt_state is not None else ():
+        opt_state[key] = [m if sharding.is_placed(m)
+                          else sharding.shard_params(m, sh)
+                          for m, sh in zip(opt_state[key], per_leaf)]
+    return tree
+
+
+def _heads_rule(cfg: TrainConfig, mesh) -> None:
+    t = sharding.mesh_config(mesh).tensor
+    if cfg.attention == "flash" and cfg.model.num_heads % t != 0:
+        raise ValueError(
+            f"attention={cfg.attention!r} with sequence/flash shard_map "
+            f"shards the heads axis over the tensor mesh axis: num_heads "
+            f"({cfg.model.num_heads}) must be divisible by tensor "
+            f"({t}). Pick a mesh (WORKLOAD_MESH / "
+            f"TrainConfig.mesh) whose tensor extent divides num_heads, or "
+            f"use attention='dense'.")
+
+
+def mesh_attention(mesh, attn, cfg: ModelConfig):
+    """The attention hook of a mesh step: ``attn`` (or the dense core) in
+    ``sharding.attention_region``, split over the tensor axis by heads
+    where it divides them (a dense core replicated over tensor
+    otherwise)."""
+    core = attn or dense_attn_core
+    if cfg.num_heads % sharding.mesh_config(mesh).tensor != 0:
+        return core
+    return sharding.attention_region(mesh, core, cfg.num_heads,
+                                     cfg.kv_heads)
+
+
+def local_rows(tokens, mesh) -> torch.Tensor:
+    """This rank's rows of a token batch: a DTensor's local rows (it must
+    be Shard(0) over BATCH_AXES), or the rank's slice of a whole batch."""
+    if sharding.is_placed(tokens):
+        want = sharding.batch_shardings(mesh).placements
+        if tuple(tokens.placements) != tuple(want):
+            raise ValueError(f"tokens placed {tokens.placements}, want "
+                             f"{want}")
+        return sharding.local(tokens)
+    from tpu_bootstrap_torch.workload.data import host_rows
+
+    return tokens[host_rows(tokens.shape[0],
+                            *sharding.dp_coordinate(mesh))]
+
+
+def make_train_step(cfg: TrainConfig, mesh=None):
     """Returns step(params, opt_state, tokens) -> (params, opt_state,
     loss): the loss of ``tokens`` (batch, max_seq_len) shifted by one, its
     gradients, and the optimizer update applied to params in place.
     ``remat`` recomputes the whole loss's activations in the backward
     (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint(loss)``."""
+    ``jax.checkpoint(loss)``. On a mesh (given, or built from
+    ``cfg.mesh``) params are placed by ``init_train_state``, ``tokens``
+    is the whole batch or a DTensor of it, and the loss is the whole
+    batch's."""
     if cfg.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
-    require_one_device(cfg.mesh)
+    mesh = resolve_mesh(cfg.mesh, mesh)
     opt = make_optimizer(cfg)
     attn = (make_flash_attn_fn(block_size=cfg.attention_block)
             if cfg.attention == "flash" else None)
+    batch_mean = None
+    if mesh is not None:
+        _heads_rule(cfg, mesh)
+        attn = mesh_attention(mesh, attn, cfg.model)
+        batch_mean = sharding.batch_mean(mesh)
 
     def loss(params, inputs, targets):
         return loss_from_inputs(params, inputs, targets, cfg.model,
-                                attn_fn=attn)
+                                attn_fn=attn, batch_mean=batch_mean)
 
     if cfg.remat:
         plain = loss
@@ -217,37 +304,64 @@ def make_train_step(cfg: TrainConfig):
                               use_reentrant=False)
 
     def step(params, opt_state, tokens):
+        if mesh is not None:
+            tokens = local_rows(tokens, mesh)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         loss_value = descend(opt, opt_state, tree_leaves(params),
-                             lambda: loss(params, inputs, targets))
+                             lambda view: loss(view(params), inputs,
+                                               targets), mesh)
         return params, opt_state, loss_value
 
     return step
 
 
-def descend(opt: AdamW, opt_state: dict, leaves: list, loss) -> torch.Tensor:
-    """One optimizer step on ``leaves`` in place: ``loss()`` with grad
+def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
+            mesh=None) -> torch.Tensor:
+    """One optimizer step on ``leaves`` in place: ``loss(view)`` with grad
     enabled on them, its gradients with respect to them alone, and
-    ``opt``'s update added to each. Returns the (pre-update) loss,
-    detached."""
+    ``opt``'s update added to each. ``view(tree)`` is the tree to compute
+    on: the tree itself, or on a mesh its leaves gathered
+    (``sharding.gather_tree``, differentiable in the ``leaves``). On a
+    mesh ``loss`` is the rank's rows' mean: each rank descends on its share
+    of the batch's mean, the gradients come back summed over the batch
+    axes onto each leaf's shard, and the clip norm is the global one.
+    Returns the batch's (pre-update) loss, detached."""
+    if mesh is None:
+        held, view = leaves, lambda tree: tree
+    else:
+        held = [sharding.local(p) for p in leaves]
+        grads_of = {id(p): t for p, t in zip(leaves, held)}
+
+        def view(tree):
+            return sharding.gather_tree(tree, grads_of)
     with torch.enable_grad():
-        for p in leaves:
+        for p in held:
             p.requires_grad_(True)
-        loss_value = loss()
-        grads = torch.autograd.grad(loss_value, leaves)
+        loss_value = loss(view)
+        if mesh is not None:
+            loss_value = loss_value / sharding.dp_coordinate(mesh)[1]
+        grads = torch.autograd.grad(loss_value, held)
+    sq_norm = None
+    if mesh is not None and opt.clip > 0:
+        sq_norm = sharding.grad_sq_norm(list(grads), leaves)
     with torch.no_grad():
-        for p, u in zip(leaves, opt.update(list(grads), opt_state, leaves)):
+        for p, u in zip(held, opt.update(list(grads), opt_state, held,
+                                         sq_norm)):
             p.requires_grad_(False)
             p.add_(u)
-    return loss_value.detach()
+    loss_value = loss_value.detach()
+    return loss_value if mesh is None else sharding.batch_sum(loss_value,
+                                                              mesh)
 
 
 def global_batch_size(cfg: TrainConfig) -> int:
-    """Rows of a step's token batch: 2 per data-parallel slot (the
-    reference's rule; the pipelined microbatch factor comes with ROADMAP
-    queue 1 item 11)."""
+    """Rows of a step's token batch: 2 per data-parallel slot, times the
+    microbatch count when pipelined (the reference's rule)."""
     m = cfg.mesh
-    return max(2 * m.dcn * m.data * m.fsdp * m.expert, 2)
+    batch = max(2 * m.dcn * m.data * m.fsdp * m.expert, 2)
+    if m.pipe > 1:
+        batch *= cfg.num_microbatches or 2 * m.pipe
+    return batch
 
 
 def synthetic_batch(cfg: TrainConfig, step_index: int,
@@ -264,21 +378,24 @@ def synthetic_batch(cfg: TrainConfig, step_index: int,
 def train_loop(cfg: TrainConfig, steps: int, *,
                checkpoint_dir: str | None = None, save_every: int = 10,
                seed: int = 0, profile_dir: str | None = None,
-               log_every: int = 0, device=None) -> list:
+               log_every: int = 0, device=None, mesh=None) -> list:
     """Run (or resume) training to ``steps`` total steps on ``device``
-    (None: the card); returns the losses of the steps run by this call.
+    (None: the card), or on ``mesh`` (built from ``cfg.mesh`` on
+    ``device``'s type when that spans several devices); returns the
+    losses of the steps run by this call.
 
     With ``checkpoint_dir``, the latest checkpoint there is restored and
     training continues from it (the JobSet restart path), and a checkpoint
     is saved every ``save_every`` steps and at the last. ``profile_dir``
     records steps start+1..start+3 with ``torch.profiler`` into
-    ``profile_dir/trace.json`` (Chrome trace). ``log_every > 0`` prints
-    loss and tokens/s every that many steps. Each step is a ``train.step``
-    span and sets the reference's ``workload_*`` gauges."""
+    ``profile_dir/trace.json`` (Chrome trace; on a mesh every rank writes
+    ``trace-<rank>.json``). ``log_every > 0`` prints loss and tokens/s
+    every that many steps. Each step is a ``train.step`` span and sets
+    the reference's ``workload_*`` gauges."""
     if save_every < 1:
         raise ValueError(f"save_every must be >= 1, got {save_every}")
-    require_one_device(cfg.mesh)
-    device = resolve_device(device)
+    mesh = resolve_mesh(cfg.mesh, mesh, device)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh)
     reg = telemetry.metrics()
     mgr = latest = None
     if checkpoint_dir is not None:
@@ -292,13 +409,13 @@ def train_loop(cfg: TrainConfig, steps: int, *,
         reg.inc("workload_restarts_total")
         reg.set_gauge("workload_resumed_from_step", latest)
         t_restore = time.monotonic()
-        params, opt_state = ckpt.restore(mgr, latest, device)
+        params, opt_state = ckpt.restore(mgr, latest, device, mesh=mesh)
         reg.observe("workload_checkpoint_restore_ms",
                     (time.monotonic() - t_restore) * 1e3)
         start = latest
     else:
-        params, opt_state = init_train_state(cfg, seed, device)
-    step_fn = make_train_step(cfg)
+        params, opt_state = init_train_state(cfg, seed, device, mesh=mesh)
+    step_fn = make_train_step(cfg, mesh)
 
     losses: list = []
     tokens_per_step = global_batch_size(cfg) * (cfg.model.max_seq_len - 1)
@@ -307,6 +424,7 @@ def train_loop(cfg: TrainConfig, steps: int, *,
     t_loop = t_log = time.monotonic()
     last_logged, busy_s = start, 0.0
     prof = None
+    trace = "trace.json" if mesh is None else f"trace-{dist.get_rank()}.json"
 
     def close_trace():
         nonlocal prof
@@ -314,7 +432,7 @@ def train_loop(cfg: TrainConfig, steps: int, *,
             torch.cuda.synchronize(device)
         prof.stop()
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+        prof.export_chrome_trace(str(Path(profile_dir) / trace))
         prof = None
 
     def run_step(i, tokens):
@@ -367,17 +485,101 @@ def train_loop(cfg: TrainConfig, steps: int, *,
                                                            prefetched)
 
             batch_fn = make_batch_fn(cfg.data, cfg.model.max_seq_len,
-                                     global_batch_size(cfg), device)
+                                     global_batch_size(cfg), device,
+                                     mesh=mesh)
             for i, tokens in prefetched(batch_fn, start, steps):
                 run_step(i, tokens)
         else:
             for i in range(start, steps):
-                run_step(i, synthetic_batch(cfg, i, seed).to(device))
+                tokens = synthetic_batch(cfg, i, seed)
+                if mesh is None:
+                    run_step(i, tokens.to(device))
+                else:  # only this rank's rows go to its device
+                    run_step(i, sharding.place_rows(
+                        local_rows(tokens, mesh).to(device), mesh))
     finally:
         # A step that raises still leaves its partial trace behind.
         if prof is not None:
             close_trace()
     return losses
+
+
+def run_demo(num_devices: int | None = None, steps: int = 2, seed: int = 0,
+             device=None) -> list:
+    """A few steps of the default model over the process group's world
+    (one device without one), on the ``for_device_count`` mesh: the
+    function a JobSet worker ends in. ``device`` None is the card."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    cfg = TrainConfig(mesh=MeshConfig.for_device_count(num_devices or world))
+    mesh = resolve_mesh(cfg.mesh, None, device)
+    params, opt_state = init_train_state(cfg, seed, device, mesh=mesh)
+    train_step = make_train_step(cfg, mesh)
+    m = cfg.mesh
+    gen = torch.Generator()
+    gen.manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.model.vocab_size,
+                           (max(m.dcn * m.data * m.fsdp * m.expert, 2),
+                            cfg.model.max_seq_len), generator=gen)
+    tokens = tokens.to(resolve_device(device) if mesh is None
+                       else mesh_device(mesh))
+    losses = []
+    for _ in range(steps):
+        params, opt_state, loss_value = train_step(params, opt_state, tokens)
+        losses.append(float(loss_value))
+    return losses
+
+
+def bootstrap_from_env(environ=None) -> dict | None:
+    """Multi-host rendezvous parameters from the env the controller's
+    emitted JobSet injects, the reference's dict for dict:
+    TPUBC_COORDINATOR_ADDRESS (worker 0's address and port),
+    TPUBC_NUM_HOSTS (hosts a slice), TPUBC_NUM_SLICES (slices, absent 1),
+    TPUBC_SLICE_ID (this pod's slice) and JOB_COMPLETION_INDEX (this host
+    within its slice). The process space is slices x hosts, slice-major,
+    so ``build_mesh`` puts whole slices in ``dcn`` rows. Returns
+    {coordinator_address, num_processes, process_id}, or None outside a
+    JobSet."""
+    env = os.environ if environ is None else environ
+    addr = env.get("TPUBC_COORDINATOR_ADDRESS")
+    if not addr:
+        return None
+    hosts = int(env.get("TPUBC_NUM_HOSTS", "1"))
+    slices = int(env.get("TPUBC_NUM_SLICES", "1"))
+    slice_id = int(env.get("TPUBC_SLICE_ID", "0"))
+    host_id = int(env.get("JOB_COMPLETION_INDEX", "0"))
+    return {
+        "coordinator_address": addr,
+        "num_processes": hosts * slices,
+        "process_id": slice_id * hosts + host_id,
+    }
+
+
+def rendezvous(environ=None) -> bool:
+    """Join the process group a multi-process run needs, on the card
+    ``cuda:{LOCAL_RANK or 0}`` with NCCL: from the JobSet's env
+    (``bootstrap_from_env``, ``tcp://`` to the coordinator) or torchrun's
+    (``WORLD_SIZE`` > 1, ``env://``). Returns whether it joined one.
+    ``MEGASCALE_COORDINATOR_ADDRESS`` (the TPU's multislice discovery) has
+    no counterpart and raises."""
+    env = os.environ if environ is None else environ
+    boot = bootstrap_from_env(env)
+    if boot is not None and boot["num_processes"] > 1:
+        kw = dict(init_method=f"tcp://{boot['coordinator_address']}",
+                  world_size=boot["num_processes"], rank=boot["process_id"])
+    elif int(env.get("WORLD_SIZE", "1")) > 1:
+        kw = dict(init_method="env://")
+    elif env.get("MEGASCALE_COORDINATOR_ADDRESS"):
+        raise NotImplementedError(
+            "MEGASCALE_COORDINATOR_ADDRESS is the TPU's multislice "
+            "discovery and has no counterpart on the card: set "
+            "TPUBC_COORDINATOR_ADDRESS (with TPUBC_NUM_HOSTS, "
+            "TPUBC_NUM_SLICES, TPUBC_SLICE_ID, JOB_COMPLETION_INDEX)")
+    else:
+        return False
+    resolve_device(None)  # the card, or the CPU's error
+    torch.cuda.set_device(int(env.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl", **kw)
+    return True
 
 
 def _parse_env_terms(value: str, valid: set, env_name: str):
@@ -481,17 +683,13 @@ def worker_main() -> None:
     (> 0, worker 0) serves the metrics registry
     (``telemetry.start_metrics_server``); WORKLOAD_MODE=serve runs
     ``serving.serve_demo_from_env`` instead of training (the synthetic
-    demo, or the HTTP ingress on WORKLOAD_SERVE_PORT). Not ported yet,
-    raising NotImplementedError: multi-host rendezvous and meshes over
-    several devices (item 11)."""
+    demo, or the HTTP ingress on WORKLOAD_SERVE_PORT). A multi-process
+    run joins its process group first (``rendezvous``: the JobSet's
+    TPUBC_* env or torchrun's), WORKLOAD_MESH is parsed against its world
+    size, and WORKLOAD_MICROBATCHES / WORKLOAD_SCHEDULE fill the
+    pipeline fields (a pipe axis still raises, item 11)."""
     env = os.environ
-    processes = (int(env.get("TPUBC_NUM_HOSTS", "1"))
-                 * int(env.get("TPUBC_NUM_SLICES", "1")))
-    if (env.get("TPUBC_COORDINATOR_ADDRESS") and processes > 1) or env.get(
-            "MEGASCALE_COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP queue 1 item "
-            "11: multi-device)")
+    rendezvous(env)
     # Worker 0's metrics endpoint: /metrics, /metrics.json, /healthz,
     # /statusz and /traces.json for the controller's workload scrape.
     metrics_port = int(env.get("WORKLOAD_METRICS_PORT", "0"))
@@ -519,7 +717,9 @@ def worker_main() -> None:
     total_env = env.get("WORKLOAD_TOTAL_STEPS")
     cfg = TrainConfig(
         model=parse_model_env(env.get("WORKLOAD_MODEL", "")),
-        mesh=parse_mesh_env(env.get("WORKLOAD_MESH", ""), 1),
+        mesh=parse_mesh_env(env.get("WORKLOAD_MESH", ""),
+                            dist.get_world_size() if dist.is_initialized()
+                            else 1),
         data=data,
         warmup_steps=int(env.get("WORKLOAD_WARMUP_STEPS", "0")),
         total_steps=steps if total_env is None else int(total_env),
@@ -527,6 +727,8 @@ def worker_main() -> None:
         attention=env.get("WORKLOAD_ATTENTION", "dense"),
         attention_block=int(env.get("WORKLOAD_ATTENTION_BLOCK", "512")),
         remat=env.get("WORKLOAD_REMAT", "").lower() in ("1", "true"),
+        pipeline_schedule=env.get("WORKLOAD_SCHEDULE", "gpipe"),
+        num_microbatches=int(env.get("WORKLOAD_MICROBATCHES", "0")),
     )
     with telemetry.span("workload.train", steps=steps,
                         mode=cfg.attention):
