@@ -5,8 +5,10 @@
     torchrun --nproc-per-node 4 chip_smoke.py --mesh-cards
 
 The second form (several cards) runs only phase_mesh_cards: the train
-phase's model on meshes whose collectives cross cards, held to one card's
-plain steps. Without arguments the script needs one card.
+phase's model on meshes whose collectives cross cards (fsdp x tensor, dcn
+x data, the flash ring on seq=4, and expert x seq on the decode model's
+8-expert stack at the train widths), held to one card's plain steps.
+Without arguments the script needs one card.
 
 Phases, in order; each prints one JSON line and any failure exits non-zero:
 
@@ -210,7 +212,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               drafted round; K1 launched as the lookup's verify chunks and
               the draft's steps imply, K2 on the plain run's decode steps;
               tokens/s of each and the serve_spec_* phase times.
-18. serve_resident -- the reference's other engines on serve's model and
+18. serve_resident -- the reference's other engines on serve's model (at
+              CUT_MODEL's 4 layers, serving its own oracle and its own
+              kernel-route streams at that depth) and
               32 requests (batch 8), every stream held to the solo oracle
               up to near-ties: the resident engine (serve(resident=True))
               on the int8 KV cache TIMED_RUNS times (tokens/s median and
@@ -280,11 +284,23 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               restored bitwise on the plain device and with the same
               placements on the mesh; train_loop(cfg, 2, mesh=mesh); ms a
               step on each path and the NCCL init time.
-25. train_long -- the reference's long-context configuration (seq 8192,
+25. ring   -- ring attention's flash local body (queue 1 item 11b) on
+              K3/K4 at train_long's shape (B=2, S=8192, H=16, D=64, bf16,
+              causal) in 4 sequence shards, every shard's body in one
+              process in lockstep (ring_attention.ring_on_one_device):
+              out, dq, dk and dv against one whole-sequence K3/K4 call
+              (RING_OUT_TOL, RING_GRAD_TOL), the controls (the diagonal
+              block non-causal, one earlier shard's fold dropped, the last
+              shard's first fold weighted 1.05 times) outside;
+              K3, dq and dk/dv each launched 10 times (n(n+1)/2) in the
+              counted run; the f32 route and the dense core at S=1024
+              against the plain versions; the ring's forward and forward +
+              backward timed beside the whole call's, SDPA's and the bound.
+26. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
-26. quality -- fine-tuning and evaluation on a trained model
+27. quality -- fine-tuning and evaluation on a trained model
               (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
               1024, batch 8, flash, bf16) for 300 steps on
               quality.markov_batch's chain over 4096 tokens; K1 and K6 at
@@ -354,7 +370,7 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
 DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_faults",
-             "sampling", "generate_int8kv")
+             "sampling", "generate_int8kv", "serve_resident")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -4700,69 +4716,442 @@ def phase_train_mesh(torch, kernels, device) -> dict:
     return out
 
 
+# The ring phase (queue 1 item 11b): ring attention's flash local body on
+# K3/K4 at train_long's widths and length, B=2, S=8192, H=Hk=16, D=64, bf16,
+# causal, in RING_SHARDS sequence shards of 2048. One card has no seq group,
+# so ring_attention.ring_on_one_device runs every shard's body in one
+# process, in lockstep: shard i at forward hop s holds the original KV shard
+# (i-s-1) mod n, as the P2P ring would hand it (tests/test_torch_ring_
+# attention.py holds the two bit for bit on gloo ranks). The schedule: a
+# shard i runs i+1 K3 blocks (its diagonal causal, the earlier shards not),
+# i+1 dq blocks and n-i dk/dv blocks, n(n+1)/2 = 10 of each at n = 4.
+RING_CASE = ("ring", 2, 8192, 16, 16, 64, "bfloat16", True, False)
+RING_SMALL = ("ring_small", 2, 1024, 16, 16, 64, "float32", True, False)
+RING_SHARDS = 4
+# The ring against one whole-sequence K3/K4 call on the same inputs, out
+# elementwise as |got - want| <= rtol |want| + atol. bf16: rtol 2^-7, one
+# bf16 ulp of the value (ulp(x) <= 2^-7 |x|): the two sides round their
+# f32 results apart and may land an ulp apart; atol 2^-10 for the values
+# near 0, where the ring's extra rounding of each block's out to bf16
+# (2^-9 of a block's out, which may be larger than the merged value)
+# outweighs the relative term. On an NVIDIA H100 80GB HBM3 (700.00 W) the
+# ring read 0.64 of this limit (2^-9 where |out| = 0.28 in shard 1, at
+# most 2^-10 in shards 2 and 3), and a 5% overweight of shard 3's fold of
+# shard 0 (the ``late`` control) 2.9 of it, the other controls 100 or
+# more; the former limit, (2^-6, 2^-6), about the size of a median |out|
+# in the late shards (0.013-0.02), read that overweight 0.19. dq, dk, dv:
+# both sides are the tensor-core kernels', each within FLASH_TOL (max |got
+# - want| / max |want|) of the exact f32 values (k4 read at most 0.0078
+# on the card), so twice that: the ring only splits the f32 sums into
+# blocks and rounds each block's gradients to bf16 once more. f32 and the
+# dense core at S=1024 against the plain versions: the order of f32 sums,
+# k3's and k4's f32 limits.
+RING_OUT_TOL = {"bfloat16": (2 ** -7, 2 ** -10), "float32": (1e-5, 1e-5)}
+RING_GRAD_TOL = {"bfloat16": 2 * FLASH_TOL["bfloat16"],
+                 "float32": FLASH_TOL["float32"]}
+RING_PREDICTED_S = (2, 8)
+LATE_WEIGHT = 1.05  # the ``late`` control's weight on shard n-1's first fold
+
+
+def _ring_check(torch, got_out, got_grads, want_out, want_grads,
+                dtype: str) -> dict:
+    """The ring's out and gradients against a whole-sequence result."""
+    out = {"out_tol_ratio": _tol_ratio(torch, got_out, want_out,
+                                       RING_OUT_TOL[dtype]),
+           "max_abs_err": (got_out.float() - want_out.float()).abs().max()
+           .item()}
+    if got_grads is not None:
+        out["grad_rel_err"] = {
+            name: _rel_err(torch, g, w) for name, g, w in
+            zip(("dq", "dk", "dv"), got_grads, want_grads)}
+    out["close"] = (out["out_tol_ratio"] <= 1 and bool(
+        torch.isfinite(got_out.float()).all()) and all(
+        e <= RING_GRAD_TOL[dtype] for e in out.get("grad_rel_err",
+                                                    {}).values()))
+    return out
+
+
+def _ring_run(torch, ring, shards, ws, attention: str) -> tuple:
+    """(out, (dq, dk, dv)) of the ring over the shards, whole along S."""
+    outs, grads = ring.ring_on_one_device(*shards, ws, attention)
+    cat = lambda ts: torch.cat(ts, dim=1)  # noqa: E731
+    return cat(outs), (None if grads is None else tuple(map(cat, grads)))
+
+
+def _whole(torch, fa, q, k, v, w, causal: bool = True) -> tuple:
+    """One whole-sequence call: K3's (out, lse), then K4's dq and dk/dv on
+    delta = rowsum(w * out) (fa's dispatch: the kernels on the card)."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._fwd(q, k, v, scale, causal)
+    delta = (w.float() * out.float()).sum(-1).contiguous()
+    return out, (fa._dq(q, k, v, w, lse, delta, scale, causal),
+                 *fa._dkv(q, k, v, w, lse, delta, scale, causal))
+
+
+class _Forced:
+    """A control: fa's dispatch with the diagonal run non-causal
+    (``causal``), the first non-causal K3 block's fold dropped (``drop``:
+    its lse at -1e30, so logaddexp gives it no weight), or the last one's,
+    shard n-1's fold of shard 0, weighted LATE_WEIGHT times too much
+    (``late``: its lse raised by log LATE_WEIGHT)."""
+
+    def __init__(self, fa, mode: str, n: int = RING_SHARDS):
+        self.fa, self.mode, self.n, self.saved = fa, mode, n, None
+
+    def __enter__(self):
+        fa, plain = self.fa, (self.fa._fwd, self.fa._dq, self.fa._dkv)
+        self.saved, folds = plain, []
+        last = self.n * (self.n - 1) // 2
+
+        def fwd(q, k, v, scale, causal):
+            if self.mode == "causal":
+                return plain[0](q, k, v, scale, False)
+            out, lse = plain[0](q, k, v, scale, causal)
+            if not causal:
+                folds.append(True)
+                if self.mode == "drop" and len(folds) == 1:
+                    lse = lse.new_full(lse.shape, -1e30)
+                elif self.mode == "late" and len(folds) == last:
+                    lse = lse + math.log(LATE_WEIGHT)
+            return out, lse
+
+        fa._fwd = fwd
+        if self.mode == "causal":
+            fa._dq = lambda *a: plain[1](*a[:-1], False)
+            fa._dkv = lambda *a: plain[2](*a[:-1], False)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._fwd, self.fa._dq, self.fa._dkv = self.saved
+
+
+def phase_ring(torch, fa, kernels, device, case=RING_CASE, small=RING_SMALL,
+               n: int = RING_SHARDS, timer=None) -> dict:
+    """ring_attention.ring_on_one_device (the flash local body) on the
+    card: ``case``'s q, k, v and a cotangent w of out cut into ``n``
+    sequence shards; out, dq, dk and dv against one whole-sequence K3/K4
+    call within RING_OUT_TOL / RING_GRAD_TOL, and three controls outside
+    (the diagonal non-causal: out and every gradient; the first earlier
+    fold dropped, and shard n-1's first fold weighted LATE_WEIGHT times
+    too much: out);
+    K3, K4's dq and its dk/dv each launched n(n+1)/2 times in the counted
+    run (counts set to 0 just before); the f32 route and the dense core at
+    ``small``'s shape against the plain versions. Timed: the ring forward
+    and forward + backward beside the whole-sequence call's, SDPA's
+    (forward and backward on the whole sequence) and the bound of the
+    same work."""
+    from tpu_bootstrap_torch.workload import ring_attention as ring
+
+    def shards_of(*ts):
+        return [[t.chunk(n, dim=1)[i].contiguous() for i in range(n)]
+                for t in ts]
+
+    q, k, v, w, _ = _flash_inputs(torch, device, case, seed=70)
+    whole_out, whole_grads = _whole(torch, fa, q, k, v, w)
+    qs, ks, vs, ws = shards_of(q, k, v, w)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, grads = _ring_run(torch, ring, (qs, ks, vs), ws, "flash")
+    torch.cuda.synchronize()
+    launches = {k_: kernels.LAUNCHES[k_] for k_ in FLASH_KERNELS}
+    want = n * (n + 1) // 2
+    dtype = case[6]
+    rows = {"bf16": _ring_check(torch, out, grads, whole_out, whole_grads,
+                                dtype)}
+    del out, grads
+    controls = {}
+    for mode in ("causal", "drop", "late"):
+        with _Forced(fa, mode, n):
+            c_out, c_grads = _ring_run(torch, ring, (qs, ks, vs),
+                                       ws if mode == "causal" else None,
+                                       "flash")
+        controls[mode] = _ring_check(torch, c_out, c_grads, whole_out,
+                                     whole_grads, dtype)
+        del c_out, c_grads
+    controls_ok = (all(controls[m]["out_tol_ratio"] > 1
+                       for m in ("causal", "drop", "late"))
+                   and all(e > RING_GRAD_TOL[dtype] for e in
+                           controls["causal"]["grad_rel_err"].values()))
+    # The f32 route and the dense core against the plain versions.
+    sq, sk, sv, sw, _ = _flash_inputs(torch, device, small, seed=71)
+    scale = sq.shape[-1] ** -0.5
+    p_out, p_lse = fa.attention_plain(sq, sk, sv, scale, True)
+    p_delta = (sw.float() * p_out.float()).sum(-1)
+    p_grads = fa.attention_bwd_plain(sq, sk, sv, sw, p_lse, p_delta, scale,
+                                     True)
+    small_shards = shards_of(sq, sk, sv, sw)
+    small_launches = {}
+    for attention in ("flash", "dense"):
+        kernels.reset_launches()
+        s_out, s_grads = _ring_run(torch, ring, small_shards[:3],
+                                   small_shards[3], attention)
+        torch.cuda.synchronize()
+        small_launches[attention] = {k_: kernels.LAUNCHES[k_]
+                                     for k_ in FLASH_KERNELS}
+        rows[f"f32_{attention}"] = _ring_check(torch, s_out, s_grads, p_out,
+                                               p_grads, small[6])
+        del s_out, s_grads
+    del p_out, p_lse, p_grads, small_shards
+    # Times: the ring against the whole call, SDPA and the bound.
+    timer = timer or Timer(torch, device, reps=10)
+    e = q.element_size()
+    _, b, s, h, _, d, _, causal, _ = case
+    fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * e + 4 * b * s * h
+    all_bytes = fwd_bytes + (2 * q.numel() + k.numel() + v.numel()) * e
+    times = {
+        "ring_fwd_ms": timer(lambda: ring.ring_on_one_device(
+            qs, ks, vs, None, "flash")),
+        "ring_ms": timer(lambda: ring.ring_on_one_device(
+            qs, ks, vs, ws, "flash")),
+        "whole_fwd_ms": timer(lambda: fa._fwd(q, k, v, d ** -0.5, True)),
+        "whole_ms": timer(lambda: _whole(torch, fa, q, k, v, w))}
+    qt, kt, vt = [t.requires_grad_(True) for t in _sdpa_layout(torch, q, k,
+                                                                v)]
+    wt = w.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        ot = sdpa(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(ot, (qt, kt, vt), wt)
+
+    times["library_ms"] = timer(library)
+    times["bound_fwd_ms"], _ = _flash_bound(case, 2, fwd_bytes)
+    times["bound_ms"], times["bound_by"] = _flash_bound(case, 7, all_bytes)
+    del qt, kt, vt, wt, timer
+    schedule_ok = (all(launches[k_] == want for k_ in FLASH_KERNELS)
+                   and all(small_launches["flash"][k_] == want
+                           for k_ in FLASH_KERNELS)
+                   and not any(small_launches["dense"].values()))
+    result = {"phase": "ring", "predicted_s": list(RING_PREDICTED_S),
+              "B": b, "S": s, "H": h, "D": d, "dtype": dtype, "shards": n,
+              "launches": launches, "launches_want": want,
+              "small_launches": small_launches, "rows": rows,
+              "controls": controls, "out_tol": RING_OUT_TOL,
+              "grad_tol": RING_GRAD_TOL, **times,
+              "max_abs_err": rows["bf16"]["max_abs_err"]}
+    emit(result)
+    del q, k, v, w, whole_out, whole_grads, qs, ks, vs, ws
+    torch.cuda.empty_cache()
+    if not (all(r["close"] for r in rows.values()) and controls_ok
+            and schedule_ok):
+        raise SystemExit(f"ring failed: rows={rows} controls={controls} "
+                         f"launches={launches} small={small_launches}")
+    return result
+
+
 # Several cards (``torchrun --nproc-per-node 4 chip_smoke.py
 # --mesh-cards``): the train phase's model and batch on meshes whose
-# collectives cross cards, each held to the plain path on one card.
-MESH_CARDS = (dict(fsdp=2, tensor=2), dict(dcn=2, data=2))
+# collectives cross cards, each held to the plain path on one card, MESH_STEPS
+# steps from the same init: (mesh extents, model keys beside TRAIN_MODEL's,
+# compute dtype). A mesh with seq > 1 takes max_seq_len seq + 1, so that the
+# shifted 1024 positions cut into the seq shards; the last case is the
+# decode model's 8-expert top-2 stack at the train widths, its experts over
+# ``expert`` and its rows over seq.
+#
+# Routing is discontinuous: a token whose second and third gates nearly tie
+# takes the other expert under float noise, and every later token of its
+# row may then keep other slots. Once the two paths route one token apart
+# they compute different functions, and the updates carry the difference
+# into every layer's router. So an MoE case records its routing on both
+# paths (_watch_routes) and is held to FLASH_DENSE_TOL at every step up to
+# and including the first that routes a token apart on some rank; there
+# every token routed apart first must have had a plain selection margin
+# (top-k gate less the next) under FLIP_MARGIN, and the later steps are
+# reported. On four NVIDIA H100 80GB HBM3 (700.00 W), over six steps: f32,
+# the first loss bitwise, the second 4.9e-5 off with 2 tokens of one rank
+# flipped at margins <= 7.0e-7 (11 more kept other slots), then 410 to
+# 3,923 flips a step and gaps to 1.6e-3; bf16, 457-561 flips a rank in the
+# first forward (margins to 9.1e-3, the ring's block roundings) and gaps
+# from 5.5e-4 to 1.8e-2. So the MoE case computes in f32. FLIP_MARGIN is
+# ten times the f32 first flips' margin: a flip above it means the paths
+# routed on different numbers, not on f32 noise.
+FLIP_MARGIN = 1e-5
+MESH_CARDS = ((dict(fsdp=2, tensor=2), {}, "bfloat16"),
+              (dict(dcn=2, data=2), {}, "bfloat16"),
+              (dict(seq=4), {}, "bfloat16"),
+              (dict(expert=2, seq=2), MOE_MODEL, "float32"))
+
+
+@contextlib.contextmanager
+def _watch_routes(torch, found: list):
+    """Record every MoE layer's routing while the steps run, one entry a
+    call of moe._route: each token's chosen (top_k) and kept experts
+    (B, S, E) as uint8, its selection margin (its top_k-th gate less the next: near 0, float noise
+    can hand the token another expert), the least order margin (largest
+    gate less the second) and the kept slots."""
+    from tpu_bootstrap_torch.workload import moe
+
+    route = moe._route
+
+    def watched(block, h, cfg, batch_mean=None):
+        dispatch, combine, aux = route(block, h, cfg, batch_mean)
+        with torch.no_grad():
+            gates = torch.softmax(torch.einsum(
+                "bsm,me->bse", h.float(), block["router"].float()), -1)
+            k = cfg.expert_top_k
+            top = gates.topk(min(k + 1, cfg.num_experts), dim=-1).values
+            kept = dispatch.sum(dim=-1)
+            chosen = torch.zeros_like(gates, dtype=torch.uint8).scatter_(
+                -1, gates.topk(k, dim=-1).indices, 1)
+            found.append({
+                "kept": kept.to(torch.uint8), "chosen": chosen,
+                "sel": (top[..., k - 1] - top[..., k] if k < top.shape[-1]
+                        else top[..., k - 1]),
+                "order": (top[..., 0] - top[..., 1]).min().item(),
+                "slots": int(kept.sum().item())})
+        return dispatch, combine, aux
+
+    moe._route = watched
+    try:
+        yield found
+    finally:
+        moe._route = route
+
+
+def _route_flips(plain: list, meshed: list, rows: slice,
+                 layers: int) -> list:
+    """Step by step, the mesh's routing of this rank's rows against the
+    plain path's routing of the same rows (both recorded by _watch_routes),
+    summed over the layers: the tokens whose chosen experts differ
+    (``flips``), the tokens that chose alike but kept other experts
+    (``drops``: a flip earlier in the row moved their slots past
+    capacity), and the largest plain selection margin among the flips of
+    tokens routed alike in every earlier layer of the step (``flip_margin``:
+    a later layer's h carries the earlier difference); the least plain
+    selection and order margins over the rows and each path's kept
+    slots."""
+    steps = []
+    for t in range(len(plain) // layers):
+        step = {"flips": 0, "drops": 0, "flip_margin": None,
+                "least_margin": None, "order_margin": None,
+                "slots": {"plain": 0, "mesh": 0}}
+        before = None  # tokens routed differently in an earlier layer
+        for p, m in zip(plain[t * layers:(t + 1) * layers],
+                        meshed[t * layers:(t + 1) * layers]):
+            sel = p["sel"][rows]
+            flip = (p["chosen"][rows] != m["chosen"]).any(dim=-1)
+            differ = (p["kept"][rows] != m["kept"]).any(dim=-1) | flip
+            step["flips"] += int(flip.sum().item())
+            step["drops"] += int((differ & ~flip).sum().item())
+            new = flip if before is None else flip & ~before
+            if new.any():
+                step["flip_margin"] = max(step["flip_margin"] or 0.0,
+                                          sel[new].max().item())
+            before = differ if before is None else before | differ
+            step["least_margin"] = min(step["least_margin"] or 1.0,
+                                       sel.min().item())
+            step["order_margin"] = min(step["order_margin"] or 1.0,
+                                       p["order"])
+            step["slots"]["plain"] += int(p["kept"][rows].sum().item())
+            step["slots"]["mesh"] += m["slots"]
+        steps.append(step)
+    return steps
 
 
 def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
-                     seq: int = 1024, batch: int = 8) -> dict:
-    """On every rank of the process group: MESH_STEPS plain steps of the
-    whole batch on this rank's card, then MESH_STEPS steps on each mesh
-    of MESH_CARDS from the same init (each rank its rows and shards), the
-    launch counts over the timed steps. Each mesh loss must be equal on
-    every rank and within FLASH_DENSE_TOL of the plain path's step for
-    step, and K3/K4 must launch num_layers times a step on every rank.
-    Rank 0 gets every rank's record."""
+                     seq: int = 1024, batch: int = 8,
+                     cards=MESH_CARDS) -> dict:
+    """On every rank of the process group, for each case of ``cards``:
+    MESH_STEPS steps of the whole batch on this rank's card (once a model),
+    then as many steps on the case's mesh from the same init (each rank
+    its rows, positions and shards), the launch counts over the timed
+    steps. Each mesh loss must be equal on every rank and within
+    FLASH_DENSE_TOL of the plain path's step for step (an MoE case's up to
+    the first step that routes a token apart, whose first flips must lie
+    under FLIP_MARGIN: _watch_routes, _route_flips), and K3/K4 must launch
+    as the schedule says on every rank: num_layers times a step, and on a
+    ring of n the shard i's (i+1) K3 and dq blocks and (n-i) dk/dv blocks
+    a layer. Rank 0 gets every rank's record."""
     import dataclasses
 
     import torch.distributed as dist
 
     from tpu_bootstrap_torch.workload import model, sharding, train
+    from tpu_bootstrap_torch.workload.data import host_rows
 
-    cfg0 = train.TrainConfig(model=model.ModelConfig(
-        **model_kw, max_seq_len=seq, compute_dtype=torch.bfloat16),
-        attention="flash")
-    layers = cfg0.model.num_layers
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    tokens = torch.randint(0, cfg0.model.vocab_size, (batch, seq),
-                           generator=gen).to(device)
-    params, opt_state = train.init_train_state(cfg0, seed=0, device=device)
-    plain = _timed_steps(torch, kernels, train.make_train_step(cfg0),
-                         params, opt_state, tokens)
-    del params, opt_state
-    mine = {"rank": dist.get_rank(), "plain": plain, "meshes": []}
-    for extents in MESH_CARDS:
+    plains, runs = {}, []
+    for extents, extra, dtype in cards:
+        more = 1 if extents.get("seq", 1) > 1 else 0
+        cfg0 = train.TrainConfig(model=model.ModelConfig(
+            **model_kw, **extra, max_seq_len=seq + more,
+            compute_dtype=getattr(torch, dtype)), attention="flash")
+        moe_case = cfg0.model.num_experts > 1
+        key = (tuple(sorted(extra.items())), more, dtype)
+        if key not in plains:
+            gen = torch.Generator()
+            gen.manual_seed(1)
+            tokens = torch.randint(0, cfg0.model.vocab_size,
+                                   (batch, seq + more),
+                                   generator=gen).to(device)
+            params, opt_state = train.init_train_state(cfg0, seed=0,
+                                                       device=device)
+            with _watch_routes(torch, []) as routes:
+                plain = _timed_steps(torch, kernels,
+                                     train.make_train_step(cfg0), params,
+                                     opt_state, tokens)
+            plains[key] = (tokens, plain, routes)
+            del params, opt_state
+            torch.cuda.empty_cache()
+        tokens, plain, plain_routes = plains[key]
         cfg = dataclasses.replace(cfg0, mesh=sharding.MeshConfig(**extents))
         mesh = sharding.build_mesh(cfg.mesh, device.type)
         params, opt_state = train.init_train_state(cfg, seed=0, mesh=mesh)
-        run = _timed_steps(torch, kernels, train.make_train_step(cfg, mesh),
-                           params, opt_state, tokens)
-        run.update(extents=extents, dp=sharding.dp_coordinate(mesh),
+        with _watch_routes(torch, []) as routes:
+            run = _timed_steps(torch, kernels,
+                               train.make_train_step(cfg, mesh), params,
+                               opt_state, tokens)
+        run.update(extents=extents, extra=extra, dtype=dtype, plain=plain,
+                   dp=sharding.dp_coordinate(mesh),
+                   seq_index=mesh.get_coordinate()[
+                       sharding.AXES.index("seq")],
                    local_wq=list(sharding.local(
                        params["blocks"][0]["wq"]).shape))
-        mine["meshes"].append(run)
-        del params, opt_state
+        if moe_case:
+            run["routes"] = _route_flips(
+                plain_routes, routes,
+                host_rows(batch, *sharding.dp_coordinate(mesh)),
+                cfg.model.num_layers)
+        runs.append(run)
+        del params, opt_state, routes
         torch.cuda.empty_cache()
+    mine = {"rank": dist.get_rank(), "meshes": runs}
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, mine)
     failed = []
-    for i, extents in enumerate(MESH_CARDS):
-        runs = [r["meshes"][i] for r in everyone]
-        if any(r["losses"] != runs[0]["losses"] for r in runs):
+    layers = model_kw["num_layers"]
+    for i, (extents, *_) in enumerate(cards):
+        ranks = [r["meshes"][i] for r in everyone]
+        plain = ranks[0]["plain"]
+        if any(r["losses"] != ranks[0]["losses"] for r in ranks):
             failed.append(f"{extents}: losses differ across ranks")
-        gaps = [abs(a - b) for a, b in zip(runs[0]["losses"],
+        gaps = [abs(a - b) for a, b in zip(ranks[0]["losses"],
                                            plain["losses"])]
-        runs[0]["max_gap_to_plain"] = max(gaps)
-        if max(gaps) > FLASH_DENSE_TOL:
-            failed.append(f"{extents}: gaps {gaps} to the plain path")
-        for r in runs:
+        held = len(gaps)
+        if "routes" in ranks[0]:
+            apart = [t for t in range(held) if any(
+                r["routes"][t]["flips"] or r["routes"][t]["drops"]
+                for r in ranks)]
+            if apart:
+                held = apart[0] + 1
+                first = [r["routes"][apart[0]] for r in ranks]
+                margin = max(f["flip_margin"] or 0.0 for f in first)
+                if not any(f["flips"] for f in first) or margin > FLIP_MARGIN:
+                    failed.append(f"{extents}: step {held} routed apart at "
+                                  f"margin {margin} (limit {FLIP_MARGIN})")
+        ranks[0]["max_gap_to_plain"] = max(gaps)
+        ranks[0]["held_steps"] = held
+        if max(gaps[:held]) > FLASH_DENSE_TOL:
+            failed.append(f"{extents}: gaps {gaps[:held]} to the plain path")
+        n = extents.get("seq", 1)
+        for r in ranks:
+            j = r["seq_index"]
+            want = {"flash_fwd": j + 1, "flash_dq": j + 1,
+                    "flash_dkv": n - j}
             per = {k: r["launches"][k] / (MESH_STEPS - 1)
                    for k in FLASH_KERNELS}
-            if any(v != layers for v in per.values()):
-                failed.append(f"{extents}: launches {per}")
+            if any(per[k] != layers * want[k] for k in per):
+                failed.append(f"{extents}: launches {per}, want {layers} x "
+                              f"{want}")
     out = {"phase": "mesh_cards", "world": dist.get_world_size(),
            "flash_dense_tol": FLASH_DENSE_TOL, "ranks": everyone,
            "failed": failed}
@@ -5286,10 +5675,13 @@ def main() -> int:
         # serve_overcommit ran; serve_ingress, serve_spec and
         # serve_resident, serve's streams (and serve_ingress and
         # serve_resident its oracle).
+        # A phase cut in depth serves and takes its own oracle at that
+        # depth.
         extra = ()
         if name == "serve_host_tier":
             extra = (out["serve_overcommit"]["tight"],)
-        elif name in ("serve_ingress", "serve_spec", "serve_resident"):
+        elif (name in ("serve_ingress", "serve_spec", "serve_resident")
+              and name not in DEPTH_CUT):
             extra = (out["serve"],)
         kw = {"model_kw": CUT_MODEL} if name in DEPTH_CUT else {}
         out[name] = run(name, phase, torch, kernels, device, *extra, **kw)
@@ -5298,6 +5690,7 @@ def main() -> int:
     out["train"] = run("train", phase_train, torch, kernels, device)
     out["train_mesh"] = run("train_mesh", phase_train_mesh, torch, kernels,
                             device)
+    out["ring"] = run("ring", phase_ring, torch, fa, kernels, device)
     run("train_long", phase_train_long, torch, kernels, device)
     out["quality"] = run("quality", phase_quality, torch, kernels, device)
     emit({"phase_seconds": seconds})
@@ -5420,7 +5813,8 @@ def kernel_lines(out: dict) -> list:
          "replaces": f"{ref}:110",
          "launches": train_launches["flash_fwd"],
          "launches_by_path": quality_launches(out, "flash_fwd")
-         | {"train_mesh": out["train_mesh"]["launches"]["flash_fwd"]},
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_fwd"],
+            "ring": out["ring"]["launches"]["flash_fwd"]},
          "max_abs_err": k3["max_abs_err"],
          "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
@@ -5433,7 +5827,8 @@ def kernel_lines(out: dict) -> list:
          "replaces": f"{ref}:233",
          "launches": train_launches["flash_dq"],
          "launches_by_path": quality_launches(out, "flash_dq")
-         | {"train_mesh": out["train_mesh"]["launches"]["flash_dq"]},
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_dq"],
+            "ring": out["ring"]["launches"]["flash_dq"]},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dq_ms"], "plain_ms": k4_main["dq_plain_ms"],
          "bound_ms": k4_main["dq_bound_ms"],
@@ -5444,7 +5839,8 @@ def kernel_lines(out: dict) -> list:
          "replaces": f"{ref}:267",
          "launches": train_launches["flash_dkv"],
          "launches_by_path": quality_launches(out, "flash_dkv")
-         | {"train_mesh": out["train_mesh"]["launches"]["flash_dkv"]},
+         | {"train_mesh": out["train_mesh"]["launches"]["flash_dkv"],
+            "ring": out["ring"]["launches"]["flash_dkv"]},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dkv_ms"], "plain_ms": k4_main["dkv_plain_ms"],
          "bound_ms": k4_main["dkv_bound_ms"],

@@ -268,6 +268,7 @@ def test_rejects_bad_configs(jteacher, teacher):
 
 
 @pytest.mark.parametrize("mesh", [dict(data=2), dict(fsdp=2), dict(tensor=2),
+                                  dict(seq=2), dict(expert=2),
                                   dict(data=2, fsdp=2, tensor=2)])
 @pytest.mark.parametrize("teacher_as_arg", [False, True])
 def test_multi_device_mesh_raises_item_11(teacher, mesh, teacher_as_arg):

@@ -21,8 +21,9 @@ relative and the adapters after every step to 1e-4 absolute (1% of one
 step, lr = 1e-2): later steps divide each moment by the square root of a
 sum over steps, which carries a gradient's relative difference into the
 update.
-The three tests of the reference that need its 8-device mesh wait for
-ROADMAP queue 1 item 11; here such a mesh raises naming it."""
+The three tests of the reference that need its 8-device mesh run on gloo
+ranks (tests/test_torch_mesh_finetune.py); here such a mesh refuses
+without a process group of its size."""
 
 import dataclasses
 
@@ -487,16 +488,13 @@ def test_rejects_bad_configs(jbase):
                                   dict(seq=2), dict(expert=2), dict(dcn=2),
                                   dict(data=2, fsdp=2, tensor=2)])
 def test_multi_device_mesh_raises_item_11(jbase, mesh):
-    """A mesh over the axes not ported yet (seq, expert) raises naming
-    item 11; any other mesh of several devices needs a process group of
-    that size, which this process has not, and refuses rather than train
-    on one device. The sharded LoRA tests run on gloo ranks
-    (tests/test_torch_mesh_finetune.py)."""
+    """A mesh of several devices (seq and expert included, ported since
+    item 11b) needs a process group of that size, which this process has
+    not, and refuses rather than train on one device. The sharded LoRA
+    tests run on gloo ranks (tests/test_torch_mesh_finetune.py, and on a
+    seq mesh tests/test_torch_mesh_parallel.py)."""
     cfg = ttrain.TrainConfig(model=TMODEL)
-    cm = (pytest.raises(NotImplementedError, match="item 11")
-          if "seq" in mesh or "expert" in mesh
-          else pytest.raises(ValueError, match="mesh needs"))
-    with cm:
+    with pytest.raises(ValueError, match="mesh needs"):
         tlora.make_lora_train_step(cfg, ttrain.MeshConfig(**mesh),
                                    _to_port(jbase), tlora.LoraConfig())
 

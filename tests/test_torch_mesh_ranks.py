@@ -1,9 +1,11 @@
 """The rank programs of the port's spawned gloo worlds, and the spawner.
 
-``tests/test_torch_mesh_train.py`` and ``tests/test_torch_mesh_finetune.py``
-compute the JAX reference's values in their own process, write the inputs
-(params carried over by ``bridge.params_from_numpy``, tokens) to
-``inputs.pt`` in a temporary directory, and start a world of gloo ranks:
+``tests/test_torch_mesh_train.py``, ``tests/test_torch_mesh_finetune.py``,
+``tests/test_torch_ring_attention.py`` and
+``tests/test_torch_mesh_parallel.py`` compute the JAX reference's values
+in their own process, write the inputs (params carried over by
+``bridge.params_from_numpy``, tokens) to ``inputs.pt`` in a temporary
+directory, and start a world of gloo ranks:
 
     python tests/test_torch_mesh_ranks.py <program> <rank> <world> <dir>
 
@@ -340,8 +342,168 @@ def dtensor_matmul(inp: dict) -> dict:
     return {"einsum_s": time.perf_counter() - t0}
 
 
+def _mesh_of(cache: dict, extents: dict):
+    """build_mesh of ``extents`` on gloo, built once per world."""
+    from tpu_bootstrap_torch.workload import sharding
+
+    key = tuple(sorted(extents.items()))
+    if key not in cache:
+        cache[key] = sharding.build_mesh(sharding.MeshConfig(**extents),
+                                         "cpu")
+    return cache[key]
+
+
+def ring(inp: dict) -> dict:
+    """tests/test_torch_ring_attention.py: each case's ring on this rank's
+    shards (the sequence over seq, heads over tensor with ``heads``), its
+    output and, with ``grad``, the gradients of sum(out^2); ``model``
+    cases the rank's share of the loss. ``lockstep`` cases also run
+    ring_attention.ring_on_one_device on every shard, on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_bootstrap_torch.workload import model, ring_attention, sharding
+
+    meshes, out = {}, {}
+    for name, case in inp["cases"].items():
+        mesh = _mesh_of(meshes, case["mesh"])
+        coord = mesh.get_coordinate()
+        n = case["mesh"]["seq"]
+        seq_i = coord[sharding.AXES.index("seq")]
+
+        def part(x, heads=case.get("heads")):
+            x = sharding.seq_part(x, mesh)
+            if heads:
+                x = sharding._own_part(x, mesh, "tensor", 2)
+            return x.contiguous()
+
+        ring = ring_attention.make_ring_attention(
+            mesh, batch_axes=(), head_axis="tensor" if case.get("heads")
+            else None, attention=case["attention"],
+            block_size=case.get("block_size", 512))
+        if "model" in case:
+            cfg = model.ModelConfig(**case["model"])
+            tokens = case["tokens"]
+            inputs, targets = (part(t) for t in (tokens[:, :-1],
+                                                  tokens[:, 1:]))
+            loss = model.loss_from_inputs(
+                case["params"], inputs, targets, cfg, attn_fn=ring,
+                positions=sharding.seq_positions(inputs.shape[1], mesh,
+                                                 "cpu"))
+            out[name] = {"loss_share": float(sharding.grad_sum(loss, mesh)
+                                             / sharding.grad_degree(mesh))}
+            continue
+        q, k, v = (part(case[x]).requires_grad_(case.get("grad", False))
+                   for x in "qkv")
+        o = ring(q, k, v)
+        rec = {"seq": seq_i, "tensor": coord[sharding.AXES.index("tensor")],
+               "out": o.detach()}
+        if case.get("grad"):
+            rec["grads"] = torch.autograd.grad(o, (q, k, v), 2 * o)
+        if case.get("lockstep") and dist.get_rank() == 0:
+            shards = [list(case[x].chunk(n, dim=1)) for x in "qkv"]
+            outs, _ = ring_attention.ring_on_one_device(
+                *shards, None, case["attention"])
+            rec["lockstep"] = ring_attention.ring_on_one_device(
+                *shards, [2 * o_i for o_i in outs], case["attention"])
+        out[name] = rec
+    return out
+
+
+def _train_losses(case: dict, meshes: dict, probe=None) -> list:
+    """``case["steps"]`` steps of train.make_train_step on the case's mesh
+    from its params, the whole batch each step."""
+    from tpu_bootstrap_torch.workload import model, sharding, train
+
+    cfg = train.TrainConfig(
+        model=model.ModelConfig(**case["model"]),
+        mesh=sharding.MeshConfig(**case["mesh"]),
+        learning_rate=case.get("lr", 3e-4),
+        attention=case.get("attention", "dense"),
+        attention_block=case.get("block", 512),
+        remat=case.get("remat", False))
+    mesh = _mesh_of(meshes, case["mesh"])
+    params = sharding.shard_params(
+        _fresh(case["params"]),
+        sharding.param_shardings(mesh, case["params"]))
+    opt_state = train.make_optimizer(cfg).init(params)
+    step = train.make_train_step(cfg, mesh)
+    losses = []
+    for i in range(case["steps"]):
+        if probe is not None and i == 0:
+            probe["local_w_up"] = tuple(sharding.local(
+                params["blocks"][0]["w_up"]).shape)
+            probe["gathers"] = []
+            plain = sharding._all_gather
+
+            def counted(x, mesh_, axis, dim):
+                probe["gathers"].append(axis)
+                return plain(x, mesh_, axis, dim)
+
+            sharding._all_gather = counted
+            try:
+                params, opt_state, loss = step(params, opt_state,
+                                               case["tokens"])
+            finally:
+                sharding._all_gather = plain
+        else:
+            params, opt_state, loss = step(params, opt_state,
+                                           case["tokens"])
+        losses.append(float(loss))
+    return losses
+
+
+def mesh_parallel(inp: dict) -> dict:
+    """tests/test_torch_mesh_parallel.py: train steps on seq, expert and
+    expert x seq meshes, a seq mesh's refusal, LoRA on a seq mesh and
+    distillation from an MoE teacher on an expert x seq mesh."""
+    from tpu_bootstrap_torch.workload import (distill, lora, model, sharding,
+                                              train)
+
+    meshes, out = {}, {}
+    for name, case in inp["train"].items():
+        probe = {} if name == inp["probe"] else None
+        out[("train", name)] = _train_losses(case, meshes, probe)
+        if probe is not None:
+            out["probe"] = probe
+    bad = inp["seq_error"]
+    cfg = train.TrainConfig(model=model.ModelConfig(**bad["model"]),
+                            mesh=sharding.MeshConfig(**bad["mesh"]))
+    try:
+        train.make_train_step(cfg, _mesh_of(meshes, bad["mesh"]))
+        out["seq_error"] = None
+    except ValueError as e:
+        out["seq_error"] = str(e)
+    case = inp["lora"]
+    tcfg = train.TrainConfig(model=model.ModelConfig(**case["model"]),
+                             learning_rate=case["lr"])
+    step, opt = lora.make_lora_train_step(
+        tcfg, _mesh_of(meshes, case["mesh"]), case["base"],
+        lora.LoraConfig(**case["lcfg"]))
+    adapters = _fresh(case["adapters"])
+    opt_state = opt.init(adapters)
+    out["lora"] = []
+    for _ in range(case["steps"]):
+        adapters, opt_state, loss = step(adapters, opt_state,
+                                         case["tokens"])
+        out["lora"].append(float(loss))
+    case = inp["distill"]
+    step, opt = distill.make_distill_step(
+        model.ModelConfig(**case["student_model"]), case["teacher"],
+        model.ModelConfig(**case["teacher_model"]),
+        _mesh_of(meshes, case["mesh"]), learning_rate=case["lr"])
+    student = _fresh(case["student"])
+    opt_state = opt.init(student)
+    out["distill"] = []
+    for tokens in case["tokens"]:
+        student, opt_state, loss = step(student, opt_state, tokens)
+        out["distill"].append(float(loss))
+    return out
+
+
 PROGRAMS = {"mesh_train": mesh_train, "mesh_finetune": mesh_finetune,
-            "file_resume": file_resume, "dtensor_matmul": dtensor_matmul}
+            "file_resume": file_resume, "dtensor_matmul": dtensor_matmul,
+            "ring": ring, "mesh_parallel": mesh_parallel}
 
 
 def dtensor_probe(timeout: float = 40.0) -> dict:

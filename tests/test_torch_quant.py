@@ -145,7 +145,9 @@ def test_not_ported_weight_formats_raise():
     """Every weight format is ported now: a MoE block quantizes (its
     projections int8, no fused wqkv, the router float), a float weight
     handed to the quantized dispatch is refused by type, and expert
-    parallelism over several devices still raises naming its item."""
+    parallelism over several devices without the expert axis's process
+    group raises (it runs on gloo ranks,
+    tests/test_torch_mesh_parallel.py)."""
     from tpu_bootstrap_torch.workload import moe as tmoe
 
     rng = np.random.default_rng(8)
@@ -163,5 +165,5 @@ def test_not_ported_weight_formats_raise():
     with pytest.raises(TypeError, match="Tensor"):
         tquant.quantized_expert_matmul(torch.zeros(3, 1, 8), block["w_up"])
     cfg = tmodel.ModelConfig(num_experts=3, embed_dim=8, mlp_dim=6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(ValueError, match="process group of 'expert'"):
         tmoe.moe_mlp_manual(block, torch.zeros(1, 2, 8), cfg, n_expert=2)

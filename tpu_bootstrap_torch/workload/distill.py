@@ -13,10 +13,12 @@ as in the reference.
 The step is eager PyTorch and updates the student in place. On a mesh
 the student and the teacher (captured or passed) are placed by
 ``sharding.param_shardings`` and gathered for each step's compute, each
-rank distils on its rows of the batch, and the student's gradients are
-summed over the batch axes onto its shards (``train.descend``); seq, pipe
-or expert above 1 raise ``NotImplementedError`` naming ROADMAP queue 1
-item 11.
+rank distils on its rows of the batch (whole rows on every ``seq`` rank,
+as the reference's step cuts the batch only), and the student's gradients
+are summed over ``sharding.GRAD_AXES`` onto its shards
+(``train.descend``). The frozen teacher is gathered whole, an MoE
+teacher's experts included. A mesh with pipe above 1 raises
+``NotImplementedError`` naming ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -104,9 +106,9 @@ def make_distill_step(student_cfg: ModelConfig, teacher_params: Params,
             tokens = local_rows(tokens, mesh)
         loss_value = descend(opt, opt_state, tree_leaves(student),
                              lambda view: distill_loss(
-                                 view(student), view(teacher), tokens,
-                                 student_cfg, teacher_cfg, temperature,
-                                 hard_weight), mesh)
+                                 view(student), sharding.gather_tree(teacher),
+                                 tokens, student_cfg, teacher_cfg,
+                                 temperature, hard_weight), mesh)
         return student, opt_state, loss_value
 
     if teacher_as_arg:

@@ -112,13 +112,22 @@ def _fwd(q, k, v, sm_scale, causal):
     return attention_plain(q, k, v, sm_scale, causal)
 
 
-def _bwd(q, k, v, dout, lse, delta, sm_scale, causal):
+def _dq(q, k, v, dout, lse, delta, sm_scale, causal):
     if q.is_cuda:
-        dq = kernels.flash_dq(q, k, v, dout, lse, delta, sm_scale, causal)
-        dk, dv = kernels.flash_dkv(q, k, v, dout, lse, delta, sm_scale,
-                                   causal)
-        return dq, dk, dv
-    return attention_bwd_plain(q, k, v, dout, lse, delta, sm_scale, causal)
+        return kernels.flash_dq(q, k, v, dout, lse, delta, sm_scale, causal)
+    return attention_dq_plain(q, k, v, dout, lse, delta, sm_scale, causal)
+
+
+def _dkv(q, k, v, dout, lse, delta, sm_scale, causal):
+    if q.is_cuda:
+        return kernels.flash_dkv(q, k, v, dout, lse, delta, sm_scale,
+                                 causal)
+    return attention_dkv_plain(q, k, v, dout, lse, delta, sm_scale, causal)
+
+
+def _bwd(q, k, v, dout, lse, delta, sm_scale, causal):
+    return (_dq(q, k, v, dout, lse, delta, sm_scale, causal),
+            *_dkv(q, k, v, dout, lse, delta, sm_scale, causal))
 
 
 class _Flash(torch.autograd.Function):

@@ -20,9 +20,11 @@ on the result).
 On a mesh the frozen base is placed by ``sharding.param_shardings``
 before the step captures it (plain, int8 or int4 leaves) and gathered for
 each step's compute; the adapters are replicated, and their gradients are
-summed over the batch axes as training's are (``train.descend``). A mesh
-with a pipe axis raises the reference's ``ValueError``; seq or expert
-above 1 raise ``NotImplementedError`` naming ROADMAP queue 1 item 11.
+summed over ``sharding.GRAD_AXES`` as training's are (``train.descend``).
+As in the reference, whose step cuts the batch only, every ``seq`` rank
+runs its rows whole; an MoE base keeps each rank's E/n experts and runs
+the expert all-to-all (``sharding.moe_layer``). A mesh with a pipe axis
+raises the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -183,16 +185,18 @@ def make_lora_train_step(cfg, mesh, base_params: Params, lcfg: LoraConfig,
         mesh, sharding.MeshConfig) else mesh)
     base = _strip_decode_copies(base_params)
     opt = make_optimizer(cfg)
+    moe_fn = None
     if mesh is not None:
         # The frozen base committed to its shardings before the closure
         # captures it (the reference's residency rule, QLoRA's point).
         base = place_state(base, sharding.param_shardings(mesh, base))
         attn_fn = mesh_attention(mesh, attn_fn, cfg.model)
+        moe_fn = sharding.moe_layer(mesh)
 
     def loss(lora, eff_base, inputs, targets):
         eff = apply_lora(eff_base, lora, lcfg)
         return loss_from_inputs(eff, inputs, targets, cfg.model,
-                                attn_fn=attn_fn)
+                                attn_fn=attn_fn, moe_fn=moe_fn)
 
     if cfg.remat:
         plain = loss

@@ -14,9 +14,11 @@ cast back before the value product.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -193,6 +195,21 @@ def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, num_heads // kv_heads, dim=-2)
 
 
+@functools.lru_cache(maxsize=None)
+def _sqrt_head_dim(head_dim: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """sqrt(head_dim) in f32 rounded to ``dtype``, bit for bit the
+    reference's ``jnp.sqrt(jnp.asarray(head_dim, jnp.float32))
+    .astype(dtype)``, as a 0-dim tensor on ``device``. Made once per head
+    dim, dtype and device, so a call copies nothing to the device. A
+    device tensor and not a Python float: CUDA turns a division by a host
+    scalar into a multiply by its reciprocal, which can round differently
+    from the reference's division."""
+    root = torch.tensor(float(np.sqrt(np.float32(head_dim))),
+                        dtype=torch.float32)
+    return root.to(dtype).to(device)
+
+
 def dense_attn_core(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal softmax attention on (batch, seq, heads, head_dim)."""
@@ -200,8 +217,8 @@ def dense_attn_core(q: torch.Tensor, k: torch.Tensor,
     dtype = q.dtype
     k = repeat_kv(k, num_heads)
     v = repeat_kv(v, num_heads)
-    scale = torch.sqrt(torch.tensor(head_dim, dtype=torch.float32)).to(dtype)
-    scores = torch.einsum("bshd,bthd->bhst", q, k) / scale.to(q.device)
+    scores = (torch.einsum("bshd,bthd->bhst", q, k)
+              / _sqrt_head_dim(head_dim, dtype, q.device))
     causal = torch.tril(torch.ones(seq, seq, dtype=torch.bool,
                                    device=q.device))
     scores = scores.masked_fill(~causal, -1e30)
@@ -266,19 +283,22 @@ def _mlp(block: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def hidden_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                    attn_fn=None, batch_mean=None) -> tuple:
+                    attn_fn=None, moe_fn=None,
+                    positions: torch.Tensor | None = None) -> tuple:
     """tokens (batch, seq) -> (final-normed hidden states (batch, seq,
     embed), aux): the model up to the head. ``aux`` is the mean MoE
-    load-balancing loss over blocks, 0 for the dense model; on a mesh
-    ``batch_mean`` takes its routing statistics over the whole batch
-    (``moe._route``)."""
+    load-balancing loss over blocks, 0 for the dense model.
+    ``moe_fn(block, h, cfg) -> (out, aux)`` replaces ``moe.moe_mlp`` when
+    given (a mesh step's layer, ``sharding.moe_layer``); ``positions`` are
+    the tokens' global positions when they are a sequence shard (default
+    arange(seq))."""
     x = params["embed"][tokens].to(cfg.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params["blocks"]:
-        x = x + _attention(block, x, cfg, attn_fn)
+        x = x + _attention(block, x, cfg, attn_fn, positions)
         if cfg.num_experts > 0:
-            out, aux_b = moe_mlp(block, _rms_norm(x, block["mlp_norm"]), cfg,
-                                 batch_mean=batch_mean)
+            out, aux_b = (moe_fn or moe_mlp)(
+                block, _rms_norm(x, block["mlp_norm"]), cfg)
             x = x + out
             aux = aux + aux_b / len(params["blocks"])
         else:
@@ -301,9 +321,9 @@ def head_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 def forward_with_aux(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                     attn_fn=None, batch_mean=None) -> tuple:
+                     attn_fn=None, moe_fn=None, positions=None) -> tuple:
     """tokens (batch, seq) -> (logits (batch, seq, vocab) f32, aux)."""
-    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn, batch_mean)
+    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn, moe_fn, positions)
     return head_logits(x, params["embed"]), aux
 
 
@@ -315,20 +335,23 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_from_inputs(params: Params, inputs: torch.Tensor,
                      targets: torch.Tensor, cfg: ModelConfig,
-                     attn_fn=None, batch_mean=None) -> torch.Tensor:
+                     attn_fn=None, moe_fn=None,
+                     positions=None) -> torch.Tensor:
     """Mean cross-entropy of ``targets`` under the model run on
     ``inputs``, plus ``moe_aux_coef`` times the MoE aux loss when the
     model has experts. ``cfg.vocab_chunk > 0`` streams the head over vocab
     chunks (``xent.py``) without materializing the (batch, seq, vocab)
-    logits."""
+    logits. ``moe_fn`` and ``positions`` as ``hidden_with_aux`` takes
+    them."""
     if cfg.vocab_chunk > 0:
         from tpu_bootstrap_torch.workload.xent import chunked_mean_xent
 
-        x, aux = hidden_with_aux(params, inputs, cfg, attn_fn, batch_mean)
+        x, aux = hidden_with_aux(params, inputs, cfg, attn_fn, moe_fn,
+                                 positions)
         loss = chunked_mean_xent(x, params["embed"], targets, cfg.vocab_chunk)
     else:
-        logits, aux = forward_with_aux(params, inputs, cfg, attn_fn,
-                                       batch_mean)
+        logits, aux = forward_with_aux(params, inputs, cfg, attn_fn, moe_fn,
+                                       positions)
         logprobs = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logprobs, -1, targets[..., None].long())[..., 0]
         loss = nll.mean()

@@ -19,6 +19,12 @@ on the card, float stacks an einsum. Capacity competition is per batch
 row and depends on the sequence length, so a sequence routed in one
 chunk and the same sequence routed in pieces may keep different tokens:
 MoE serving is held to the reference's own ``serve``, not to ``generate``.
+
+Expert parallelism (``moe_mlp_manual`` with ``n_expert`` > 1): each rank
+of the ``expert`` group holds E/n experts' stacks and routes its own rows
+with the replicated router; an all-to-all hands every rank its experts'
+slots of every member's rows, (E, b, C, M) -> (E/n, n b, C, M), and the
+inverse brings the outputs home. Each is the other's backward.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_bootstrap_torch.workload import quant
@@ -92,32 +99,73 @@ def _route(block: dict, h: torch.Tensor, cfg, batch_mean=None) -> tuple:
     return dispatch, combine, aux
 
 
-def moe_mlp(block: dict, h: torch.Tensor, cfg, batch_mean=None) -> tuple:
+def moe_mlp(block: dict, h: torch.Tensor, cfg) -> tuple:
     """Top-k MoE FFN over pre-normalized activations h (B, S, M): block
     holds ``router`` (M, E), ``w_up`` (E, M, F) and ``w_down`` (E, F, M).
     Returns (out (B, S, M), aux f32 scalar)."""
-    return moe_mlp_manual(block, h, cfg, batch_mean=batch_mean)
+    return moe_mlp_manual(block, h, cfg)
+
+
+def _all_to_all(x: torch.Tensor, group, split: int,
+                concat: int) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all``: x cut in n chunks on
+    ``split``, chunk j sent to member j, the chunks received concatenated
+    on ``concat`` in member order."""
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=split)).contiguous()
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    return torch.cat(got.unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_all_to_all``; its backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _all_to_all(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_to_all(g, ctx.group, ctx.concat, ctx.split)
+        return g, None, None, None
 
 
 def moe_mlp_manual(block: dict, h: torch.Tensor, cfg,
                    axis_name: str = "expert", n_expert: int = 1,
-                   batch_mean=None) -> tuple:
-    """``moe_mlp`` with the reference's expert-parallel signature. One
-    device holds every expert (``n_expert=1``); the all-to-all pair over
-    an expert mesh axis is not ported."""
-    if n_expert > 1:
-        raise NotImplementedError(
-            f"expert parallelism over {n_expert} devices (axis "
-            f"{axis_name!r}) is not ported yet (ROADMAP queue 1 item 11: "
-            "multi-device)")
+                   batch_mean=None, group=None) -> tuple:
+    """``moe_mlp`` with the reference's expert-parallel signature: the
+    same per-row routing on the local rows, and with ``n_expert`` > 1 the
+    all-to-all pair over ``group``, the process group of ``axis_name``
+    (``sharding.moe_layer`` passes the mesh's). ``block``'s
+    ``w_up``/``w_down`` then hold this rank's E/n experts; the router is
+    replicated."""
     dtype = cfg.compute_dtype
     dispatch, combine, aux = _route(block, h, cfg, batch_mean)
     expert_in = torch.einsum("bsec,bsm->ebcm", dispatch.to(dtype), h)
+    if n_expert > 1:
+        if group is None:
+            raise ValueError(
+                f"expert parallelism over {n_expert} ranks needs the "
+                f"process group of {axis_name!r} (group)")
+        held = (block["w_up"].q if quant.is_quantized(block["w_up"])
+                else block["w_up"]).shape[0]
+        if held * n_expert != cfg.num_experts:
+            raise ValueError(
+                f"expert stacks hold {held} experts on each of {n_expert} "
+                f"ranks of {axis_name!r}, want {cfg.num_experts} in all")
+        # (E, b, C, M) -> (E/n, b*n, C, M): each member keeps its own
+        # experts' slots for every member's rows.
+        expert_in = _AllToAll.apply(expert_in, group, 0, 1)
     # jax.nn.gelu's default is the tanh approximation.
     hidden = F.gelu(_expert_linear(expert_in, block["w_up"], dtype,
                                    tag="moe_up"), approximate="tanh")
     expert_out = _expert_linear(hidden, block["w_down"], dtype,
                                 tag="moe_down")
+    if n_expert > 1:
+        # Inverse: (E/n, b*n, C, M) -> (E, b, C, M), rows home again.
+        expert_out = _AllToAll.apply(expert_out, group, 1, 0)
     out = torch.einsum("bsec,ebcm->bsm", combine.to(dtype), expert_out)
     return out, aux
 

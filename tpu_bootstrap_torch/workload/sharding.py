@@ -26,22 +26,37 @@ axes that shard it (the ZeRO-3 all-gather), runs the model on the rank's
 batch rows, and reduces each gradient over the batch axes back to the
 parameter's own shard, so no partial gradient reaches the optimizer.
 
-``seq > 1`` (ring attention), ``pipe > 1`` and ``expert > 1`` raise
-``NotImplementedError`` naming ROADMAP queue 1 item 11
+``seq`` splits a train step's sequence: each rank holds one shard of its
+rows' positions, attention runs the ring (``ring_attention``) and the MoE
+layer sees whole rows (``moe_layer``: gathered over ``seq`` and cut back).
+LoRA and distillation, whose reference steps cut the batch only, run whole
+rows on every ``seq`` rank. Either way params are replicated over ``seq``,
+so a gradient sums over ``GRAD_AXES`` (the batch axes and ``seq``) and the
+loss is divided by their degree. ``expert`` is a batch axis that also
+shards the MoE expert stacks: a step keeps a rank's E/n experts (the
+gathers skip ``expert``), and the layer exchanges slots by an all-to-all
+pair over the ``expert`` group (``moe.moe_mlp_manual``), so those stacks'
+gradients arrive whole and sum over the other axes only. ``pipe > 1``
+raises ``NotImplementedError`` naming ROADMAP queue 1 item 11
 (``require_ported``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
 import torch
 import torch.distributed as dist
 
-from tpu_bootstrap_torch.workload import quant
+from tpu_bootstrap_torch.workload import moe, quant
 from tpu_bootstrap_torch.workload.model import ModelConfig, Params
 
 AXES = ("dcn", "pipe", "data", "fsdp", "expert", "seq", "tensor")
 BATCH_AXES = ("dcn", "data", "fsdp", "expert")
+# Params are replicated over these and each rank computes a share of a
+# step's loss on them: gradients and the loss sum over them.
+GRAD_AXES = BATCH_AXES + ("seq",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,14 +93,11 @@ class MeshConfig:
 
 
 def require_ported(cfg: MeshConfig) -> None:
-    """The axes whose compute is not ported yet raise here."""
-    for axis, what in (("seq", "sequence parallelism (ring attention)"),
-                       ("pipe", "pipeline parallelism"),
-                       ("expert", "expert parallelism")):
-        if getattr(cfg, axis) > 1:
-            raise NotImplementedError(
-                f"{what} ({axis}={getattr(cfg, axis)} in {cfg}) is not "
-                "ported yet (ROADMAP queue 1 item 11: multi-device)")
+    """The axes whose compute is not ported yet raise here: ``pipe``."""
+    if cfg.pipe > 1:
+        raise NotImplementedError(
+            f"pipeline parallelism (pipe={cfg.pipe} in {cfg}) is not "
+            "ported yet (ROADMAP queue 1 item 11: multi-device)")
 
 
 _MESH = None  # the mesh build_mesh made last: host_rows' default
@@ -336,11 +348,11 @@ def dp_coordinate(mesh) -> tuple:
     return index, count
 
 
-def _sharded_axes(placements_) -> list:
+def _sharded_axes(placements_, experts: bool = True) -> list:
     """(axis, tensor dim) of every mesh axis that shards the tensor, mesh
-    order."""
+    order; ``experts`` False leaves ``expert`` out."""
     return [(AXES[i], p.dim) for i, p in enumerate(placements_)
-            if p.is_shard()]
+            if p.is_shard() and (experts or AXES[i] != "expert")]
 
 
 def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -367,64 +379,74 @@ def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x
 
 
-def full(t) -> torch.Tensor:
-    """A DTensor gathered to the whole tensor on every rank (no autograd);
-    a plain tensor as it is."""
+def full(t, experts: bool = True) -> torch.Tensor:
+    """A DTensor gathered to the whole tensor on every rank (no autograd),
+    or with ``experts`` False to its ``expert`` shard; a plain tensor as it
+    is."""
     if not is_placed(t):
         return t
     x = local(t)
     # Inner mesh axes first: the outer axis's chunks hold them whole.
-    for axis, dim in reversed(_sharded_axes(t.placements)):
+    for axis, dim in reversed(_sharded_axes(t.placements, experts)):
         x = _all_gather(x, t.device_mesh, axis, dim)
     return x
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: this rank's shard gathered over every axis that shards it.
-    Backward: the gradient of the whole tensor, which holds this rank's
-    batch rows' part only, summed over the batch axes and cut back to the
-    rank's shard. The other axes (tensor) compute the same gradient on
-    every rank, so they are cut, not summed."""
+    """Forward: this rank's shard gathered over ``axes``. Backward: the
+    gradient of the gathered tensor, which holds this rank's share of the
+    loss only, summed over ``sums`` (the axes whose ranks hold other
+    shares) and cut back to the rank's shard. The other axes (tensor)
+    compute the same gradient on every rank, so they are cut, not
+    summed."""
 
     @staticmethod
-    def forward(ctx, x, mesh, placements_):
-        ctx.mesh, ctx.axes = mesh, _sharded_axes(placements_)
-        for axis, dim in reversed(ctx.axes):
+    def forward(ctx, x, mesh, axes, sums):
+        ctx.mesh, ctx.axes, ctx.sums = mesh, axes, sums
+        for axis, dim in reversed(axes):
             x = _all_gather(x, mesh, axis, dim)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        g = _sum_over(g.clone(), ctx.mesh, BATCH_AXES)
+        g = _sum_over(g.clone(), ctx.mesh, ctx.sums)
         for axis, dim in ctx.axes:
             g = _own_part(g, ctx.mesh, axis, dim)
-        return g.contiguous(), None, None
+        return g.contiguous(), None, None, None
 
 
-def gather(t, grad_leaf: torch.Tensor | None = None) -> torch.Tensor:
+def gather(t, grad_leaf: torch.Tensor | None = None,
+           experts: bool = True) -> torch.Tensor:
     """The whole tensor of DTensor ``t`` for this step's compute. With
     ``grad_leaf`` (``local(t)``, set to require grad) the gather is
     differentiable as ``_Gather`` says; without, it is a plain gather.
-    Quantized leaves gather ``q`` and ``s``."""
+    ``experts`` False keeps an expert stack's ``expert`` shard (the rank's
+    E/n experts): its gradient arrives whole through the MoE layer's
+    all-to-all, so it sums over the other GRAD_AXES only. Quantized leaves
+    gather ``q`` and ``s``."""
     if quant.is_quantized(t):
-        return dataclasses.replace(t, q=full(t.q), s=full(t.s))
+        return dataclasses.replace(t, q=full(t.q, experts),
+                                   s=full(t.s, experts))
     if not is_placed(t):
         return t
     if grad_leaf is None:
-        return full(t)
+        return full(t, experts)
     if t.device_mesh.size() == 1:
         return grad_leaf
-    return _Gather.apply(grad_leaf, t.device_mesh, t.placements)
+    axes = _sharded_axes(t.placements, experts)
+    kept = {a for a, _ in _sharded_axes(t.placements)} - {a for a, _ in axes}
+    sums = tuple(a for a in GRAD_AXES if a not in kept)
+    return _Gather.apply(grad_leaf, t.device_mesh, axes, sums)
 
 
-def gather_tree(tree, grads: dict | None = None):
+def gather_tree(tree, grads: dict | None = None, experts: bool = True):
     """``gather`` over a params tree; ``grads`` maps id(DTensor leaf) to
     the local leaf its gradient is taken with respect to."""
     if isinstance(tree, dict):
-        return {k: gather_tree(v, grads) for k, v in tree.items()}
+        return {k: gather_tree(v, grads, experts) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [gather_tree(v, grads) for v in tree]
-    return gather(tree, (grads or {}).get(id(tree)))
+        return [gather_tree(v, grads, experts) for v in tree]
+    return gather(tree, (grads or {}).get(id(tree)), experts)
 
 
 class _BatchSum(torch.autograd.Function):
@@ -450,9 +472,17 @@ def batch_mean(mesh):
     return lambda x: _BatchSum.apply(x, mesh) / n
 
 
-def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """x summed over the batch axes (no autograd)."""
-    return _sum_over(x.detach().clone(), mesh, BATCH_AXES)
+def grad_degree(mesh) -> int:
+    """How many ranks share a step's loss: the product of GRAD_AXES."""
+    if mesh is None:
+        return 1
+    return math.prod(_size(mesh, axis) for axis in GRAD_AXES)
+
+
+def grad_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over GRAD_AXES (no autograd): the step's loss from the
+    ranks' shares."""
+    return _sum_over(x.detach().clone(), mesh, GRAD_AXES)
 
 
 def grad_sq_norm(grads: list, leaves: list) -> torch.Tensor:
@@ -472,21 +502,26 @@ def grad_sq_norm(grads: list, leaves: list) -> torch.Tensor:
     return total
 
 
-def attention_region(mesh, core, num_heads: int, kv_heads: int):
+def attention_region(mesh, core, num_heads: int, kv_heads: int,
+                     seq: bool = False):
     """The attention core run under ``local_map`` over (BATCH_AXES, None,
-    "tensor", None), the counterpart of the reference's shard_map: each
-    rank runs ``core`` (K3/K4 for flash) on its batch rows and its share
-    of the heads. q/k/v come in as the rank's rows with every head; a KV
-    head count the tensor axis does not divide is expanded to the query
-    heads first (the reference's repeat_kv rule). The output's heads are
-    gathered back. With tensor 1 the region holds every head."""
+    "tensor", None), or (BATCH_AXES, "seq", "tensor", None) where ``seq``
+    says the step splits the sequence (the reference's ring spec), the
+    counterpart of the reference's shard_map: each rank runs ``core``
+    (K3/K4 for flash, the ring under ``seq``) on its batch rows, its
+    positions and its share of the heads. q/k/v come in as the rank's
+    rows with every head; a KV head count the tensor axis does not divide
+    is expanded to the query heads first (the reference's repeat_kv rule).
+    The output's heads are gathered back. With tensor 1 the region holds
+    every head."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
 
     from tpu_bootstrap_torch.workload.model import repeat_kv
 
     t = _size(mesh, "tensor")
-    heads = placements((BATCH_AXES, None, "tensor", None))
+    heads = placements((BATCH_AXES, "seq" if seq else None, "tensor",
+                        None))
     # One output: its placements as a list (a tuple would read as one
     # placement list an output).
     region = local_map(core, out_placements=list(heads),
@@ -531,6 +566,60 @@ class _HeadGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _own_part(g, ctx.mesh, "tensor", 2).contiguous(), None
+
+
+class _SeqGather(torch.autograd.Function):
+    """Whole rows gathered over ``seq`` on dim 1; backward sums the rows'
+    gradients over ``seq`` (each rank's share of the loss) and keeps this
+    rank's positions."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_gather(x, mesh, "seq", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _sum_over(g.clone(), ctx.mesh, ("seq",))
+        return _own_part(g, ctx.mesh, "seq", 1).contiguous(), None
+
+
+def seq_part(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's shard of x's dim 1 (positions) over ``seq``."""
+    return _own_part(x, mesh, "seq", 1)
+
+
+def seq_positions(length: int, mesh, device) -> torch.Tensor:
+    """The global positions of this rank's ``length`` positions."""
+    start = length * mesh.get_coordinate()[AXES.index("seq")]
+    return torch.arange(start, start + length, device=device)
+
+
+def moe_layer(mesh, seq: bool = False):
+    """The MoE layer of a mesh step, (block, h, cfg) -> (out, aux):
+    ``moe.moe_mlp_manual`` with the aux's routing means over the batch
+    (``batch_mean``), over the ``expert`` group's all-to-all pair where
+    the config's stacks shard over ``expert`` (``_fit`` keeps it when
+    ``expert`` divides num_experts; otherwise the stacks are whole and
+    ``expert`` is only more batch). With ``seq`` (a step that splits the
+    sequence) h is gathered to whole rows first, so routing and capacity
+    are the reference's, and the output cut back to the rank's positions:
+    every ``seq`` rank computes the same aux, which enters the loss once
+    through the division by ``grad_degree``."""
+    n_ep = _size(mesh, "expert")
+    group = _group(mesh, "expert") if n_ep > 1 else None
+    mean = batch_mean(mesh)
+    seq = seq and _size(mesh, "seq") > 1
+
+    def layer(block, h, cfg):
+        n = n_ep if cfg.num_experts % n_ep == 0 else 1
+        if seq:
+            h = _SeqGather.apply(h, mesh)
+        out, aux = moe.moe_mlp_manual(block, h, cfg, n_expert=n,
+                                      batch_mean=mean, group=group)
+        return (seq_part(out, mesh) if seq else out), aux
+
+    return layer
 
 
 __all__ = [

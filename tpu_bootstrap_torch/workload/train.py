@@ -10,13 +10,16 @@ and returns them too, so callers written against the functional form keep
 working.
 
 On a mesh (``sharding.build_mesh``: one rank a device, the dcn, data,
-fsdp and tensor axes) params and optimizer moments are DTensors placed
-by ``sharding.param_shardings``, each rank reads its rows of the batch,
-and a step computes on local tensors: the params gathered over the axes
-that shard them, the attention core under ``local_map`` on the rank's
-rows and heads (K3/K4 for flash), the gradients summed over the batch
-axes back onto each param's shard before the global clip norm and the
-update (``descend``). A mesh with seq, pipe or expert above 1 raises
+fsdp, expert, seq and tensor axes) params and optimizer moments are
+DTensors placed by ``sharding.param_shardings``, each rank reads its rows
+of the batch, and a step computes on local tensors: the params gathered
+over the axes that shard them (an expert stack keeps its ``expert``
+shard), the attention core under ``local_map`` on the rank's rows and
+heads (K3/K4 for flash), with ``seq`` > 1 on the rank's sequence shard
+through the ring (``ring_attention``), the MoE layer over the expert
+all-to-all (``sharding.moe_layer``), and the gradients summed over
+``sharding.GRAD_AXES`` back onto each param's shard before the global clip
+norm and the update (``descend``). A mesh with pipe above 1 raises
 ``NotImplementedError`` naming ROADMAP queue 1 item 11.
 ``worker_main`` joins the process group from the JobSet's env
 (``bootstrap_from_env``) or torchrun's, dispatches ``WORKLOAD_MODE=serve``
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_bootstrap_torch import telemetry
 from tpu_bootstrap_torch.workload import sharding
 from tpu_bootstrap_torch.workload.flash_attention import make_flash_attn_fn
+from tpu_bootstrap_torch.workload.ring_attention import make_ring_attention
 from tpu_bootstrap_torch.workload.model import (
     ModelConfig,
     dense_attn_core,
@@ -231,9 +235,21 @@ def place_state(tree, shardings, opt_state: dict | None = None):
     return tree
 
 
+def _seq_rule(cfg: TrainConfig, seq: int) -> None:
+    shifted = cfg.model.max_seq_len - 1
+    if shifted % seq != 0:
+        raise ValueError(
+            f"sequence parallelism needs (max_seq_len - 1) divisible by the "
+            f"seq mesh axis: max_seq_len={cfg.model.max_seq_len} shifts to "
+            f"{shifted}, seq={seq} (loss_fn drops one token; "
+            f"pick max_seq_len = k*seq + 1)")
+
+
 def _heads_rule(cfg: TrainConfig, mesh) -> None:
-    t = sharding.mesh_config(mesh).tensor
-    if cfg.attention == "flash" and cfg.model.num_heads % t != 0:
+    mcfg = sharding.mesh_config(mesh)
+    t = mcfg.tensor
+    if ((cfg.attention == "flash" or mcfg.seq > 1)
+            and cfg.model.num_heads % t != 0):
         raise ValueError(
             f"attention={cfg.attention!r} with sequence/flash shard_map "
             f"shards the heads axis over the tensor mesh axis: num_heads "
@@ -243,16 +259,17 @@ def _heads_rule(cfg: TrainConfig, mesh) -> None:
             f"use attention='dense'.")
 
 
-def mesh_attention(mesh, attn, cfg: ModelConfig):
+def mesh_attention(mesh, attn, cfg: ModelConfig, seq: bool = False):
     """The attention hook of a mesh step: ``attn`` (or the dense core) in
     ``sharding.attention_region``, split over the tensor axis by heads
     where it divides them (a dense core replicated over tensor
-    otherwise)."""
+    otherwise); ``seq`` marks a step that splits the sequence (``attn``
+    the ring)."""
     core = attn or dense_attn_core
     if cfg.num_heads % sharding.mesh_config(mesh).tensor != 0:
         return core
     return sharding.attention_region(mesh, core, cfg.num_heads,
-                                     cfg.kv_heads)
+                                     cfg.kv_heads, seq)
 
 
 def local_rows(tokens, mesh) -> torch.Tensor:
@@ -279,37 +296,52 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     ``jax.checkpoint(loss)``. On a mesh (given, or built from
     ``cfg.mesh``) params are placed by ``init_train_state``, ``tokens``
     is the whole batch or a DTensor of it, and the loss is the whole
-    batch's."""
+    batch's. With ``seq`` > 1 each rank takes its shard of the shifted
+    inputs and targets, at their global positions, and attention runs
+    the ring on ``cfg.attention``'s block core."""
     if cfg.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     mesh = resolve_mesh(cfg.mesh, mesh)
     opt = make_optimizer(cfg)
     attn = (make_flash_attn_fn(block_size=cfg.attention_block)
             if cfg.attention == "flash" else None)
-    batch_mean = None
+    moe_fn = None
+    seq = mesh is not None and sharding.mesh_config(mesh).seq > 1
     if mesh is not None:
+        if seq:
+            _seq_rule(cfg, sharding.mesh_config(mesh).seq)
+            attn = make_ring_attention(mesh, head_axis="tensor",
+                                       attention=cfg.attention,
+                                       block_size=cfg.attention_block)
         _heads_rule(cfg, mesh)
-        attn = mesh_attention(mesh, attn, cfg.model)
-        batch_mean = sharding.batch_mean(mesh)
+        attn = mesh_attention(mesh, attn, cfg.model, seq)
+        moe_fn = sharding.moe_layer(mesh, seq)
 
-    def loss(params, inputs, targets):
+    def loss(params, inputs, targets, positions):
         return loss_from_inputs(params, inputs, targets, cfg.model,
-                                attn_fn=attn, batch_mean=batch_mean)
+                                attn_fn=attn, moe_fn=moe_fn,
+                                positions=positions)
 
     if cfg.remat:
         plain = loss
 
-        def loss(params, inputs, targets):
-            return checkpoint(plain, params, inputs, targets,
+        def loss(params, inputs, targets, positions):
+            return checkpoint(plain, params, inputs, targets, positions,
                               use_reentrant=False)
 
     def step(params, opt_state, tokens):
         if mesh is not None:
             tokens = local_rows(tokens, mesh)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        positions = None
+        if seq:
+            inputs = sharding.seq_part(inputs, mesh)
+            targets = sharding.seq_part(targets, mesh)
+            positions = sharding.seq_positions(inputs.shape[1], mesh,
+                                               inputs.device)
         loss_value = descend(opt, opt_state, tree_leaves(params),
                              lambda view: loss(view(params), inputs,
-                                               targets), mesh)
+                                               targets, positions), mesh)
         return params, opt_state, loss_value
 
     return step
@@ -321,11 +353,14 @@ def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
     enabled on them, its gradients with respect to them alone, and
     ``opt``'s update added to each. ``view(tree)`` is the tree to compute
     on: the tree itself, or on a mesh its leaves gathered
-    (``sharding.gather_tree``, differentiable in the ``leaves``). On a
-    mesh ``loss`` is the rank's rows' mean: each rank descends on its share
-    of the batch's mean, the gradients come back summed over the batch
-    axes onto each leaf's shard, and the clip norm is the global one.
-    Returns the batch's (pre-update) loss, detached."""
+    (``sharding.gather_tree``, differentiable in the ``leaves``; expert
+    stacks keep their ``expert`` shard for ``sharding.moe_layer``). On a
+    mesh ``loss`` is the mean over the rank's rows (and its positions, when
+    the step splits the sequence; whole rows on every ``seq`` rank
+    otherwise): each rank descends on its share, the loss divided by
+    ``sharding.grad_degree``, the gradients come back summed over
+    ``sharding.GRAD_AXES`` onto each leaf's shard, and the clip norm is
+    the global one. Returns the batch's (pre-update) loss, detached."""
     if mesh is None:
         held, view = leaves, lambda tree: tree
     else:
@@ -333,13 +368,13 @@ def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
         grads_of = {id(p): t for p, t in zip(leaves, held)}
 
         def view(tree):
-            return sharding.gather_tree(tree, grads_of)
+            return sharding.gather_tree(tree, grads_of, experts=False)
     with torch.enable_grad():
         for p in held:
             p.requires_grad_(True)
         loss_value = loss(view)
         if mesh is not None:
-            loss_value = loss_value / sharding.dp_coordinate(mesh)[1]
+            loss_value = loss_value / sharding.grad_degree(mesh)
         grads = torch.autograd.grad(loss_value, held)
     sq_norm = None
     if mesh is not None and opt.clip > 0:
@@ -350,8 +385,8 @@ def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
             p.requires_grad_(False)
             p.add_(u)
     loss_value = loss_value.detach()
-    return loss_value if mesh is None else sharding.batch_sum(loss_value,
-                                                              mesh)
+    return loss_value if mesh is None else sharding.grad_sum(loss_value,
+                                                             mesh)
 
 
 def global_batch_size(cfg: TrainConfig) -> int:
