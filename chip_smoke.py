@@ -6,8 +6,9 @@
 
 The second form (several cards) runs only phase_mesh_cards: the train
 phase's model on meshes whose collectives cross cards (fsdp x tensor, dcn
-x data, the flash ring on seq=4, and expert x seq on the decode model's
-8-expert stack at the train widths), held to one card's plain steps.
+x data, the flash ring on seq=4, expert x seq on the decode model's
+8-expert stack at the train widths, GPipe on pipe x data and 1F1B on pipe
+x tensor), held to one card's plain steps.
 Without arguments the script needs one card.
 
 Phases, in order; each prints one JSON line and any failure exits non-zero:
@@ -204,10 +205,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               sampled speculative_generate
               (the bf16 target, its int8 draft, (8, 64) prompts, 64 steps)
               completes.
-17. serve_spec -- the paged engine's greedy speculative rounds, gamma 4:
-              prompt lookup on serve's int8 target and 32 requests (streams
-              held to serve's), then the bf16 target plainly and drafted by
-              its own int8 copy on 16 of them (streams held to the plain
+17. serve_spec -- the paged engine's greedy speculative rounds, gamma 4,
+              at CUT_MODEL's 4 layers (serving its own streams at that
+              depth): prompt lookup on the int8 target and serve's 32
+              requests (streams held to that serve's), then the bf16
+              target plainly and drafted by its own int8 copy on 16 of
+              them (streams held to the plain
               run's); near-ties allowed; more than one token committed a
               drafted round; K1 launched as the lookup's verify chunks and
               the draft's steps imply, K2 on the plain run's decode steps;
@@ -296,11 +299,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               counted run; the f32 route and the dense core at S=1024
               against the plain versions; the ring's forward and forward +
               backward timed beside the whole call's, SDPA's and the bound.
-26. train_long -- the reference's long-context configuration (seq 8192,
+26. pipeline -- the pipeline (queue 1 item 11c): the train phase's model,
+              batch and tokens in 2 stages of 4 layers and 4 microbatches,
+              both stages in one process (pipeline_on_one_device, in
+              lockstep), under GPipe and 1F1B, 3 steps each (the grad
+              function and train.apply_update) against 3 plain steps: each
+              loss within FLASH_DENSE_TOL of the plain step's, the first
+              step's attention-weight gradients within ATTN_GRAD_TOL, a
+              control (every cotangent hop zeroed) outside; K3, dq and
+              dk/dv launched M L = 32 times a GPipe step, 64, 32, 32 a 1F1B
+              step (the recompute), their device time above 0 in a
+              profiled step; 1F1B's active ticks 16 of 20; 1F1B's peak
+              memory above the train state below GPipe's; ms a step and
+              peak memory of each beside the plain step.
+27. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
-27. quality -- fine-tuning and evaluation on a trained model
+28. quality -- fine-tuning and evaluation on a trained model
               (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
               1024, batch 8, flash, bf16) for 300 steps on
               quality.markov_batch's chain over 4096 tokens; K1 and K6 at
@@ -370,7 +386,7 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
 DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_faults",
-             "sampling", "generate_int8kv", "serve_resident")
+             "sampling", "generate_int8kv", "serve_resident", "serve_spec")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -4939,6 +4955,186 @@ def phase_ring(torch, fa, kernels, device, case=RING_CASE, small=RING_SMALL,
     return result
 
 
+# The pipeline phase (queue 1 item 11c): the train phase's model, batch and
+# tokens in PIPE_STAGES stages of 4 layers and PIPE_MICROBATCHES
+# microbatches of 2 rows, every stage in one process
+# (pipeline.pipeline_on_one_device: the stages' generators in lockstep, the
+# hops handed over in memory), under GPipe and 1F1B. A step launches each
+# stage's K3/K4 for every microbatch: GPipe M x L = 32 of K3, dq and dk/dv;
+# 1F1B 2 M L = 64 of K3 (the F turn and the B turn's recompute) and 32 of
+# dq and dk/dv. Predicted for the whole phase (NVIDIA H100 80GB HBM3, 700 W)
+# before its first run on the card: 5-20 s (two inits of TRAIN_MODEL, 3
+# plain and 4 pipelined steps a schedule of 100-250 ms, three first-step
+# gradient passes and a profiled step each).
+PIPE_STAGES = 2
+PIPE_MICROBATCHES = 4
+PIPE_STEPS = 3  # one warm-up and two timed, on each path
+PIPE_PREDICTED_S = (5, 20)
+
+
+@contextlib.contextmanager
+def _zero_cotangents(torch, ring_attention):
+    """The control: every cotangent a stage sends back arrives as zeros,
+    so stage s < P-1 runs its B turns seeded with nothing (the lockstep of
+    pipeline_on_one_device, wrapped)."""
+    plain = ring_attention.lockstep
+
+    def zeroed(body):
+        try:
+            sent = next(body)
+            while True:
+                fwd, bwd = yield sent
+                sent = body.send((fwd, tuple(torch.zeros_like(t)
+                                             for t in bwd)))
+        except StopIteration as done:
+            return done.value
+
+    ring_attention.lockstep = lambda bodies: plain([zeroed(b)
+                                                    for b in bodies])
+    try:
+        yield
+    finally:
+        ring_attention.lockstep = plain
+
+
+def _steps_held(torch, kernels, step, timed: int) -> dict:
+    """``timed`` calls of ``step`` (-> loss) with the launch counts set to
+    0 just before and read just after; ms a step, and the peak memory
+    above what was allocated before (the train state)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step().item() for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    return {"losses": losses, "step_ms": step_s * 1e3,
+            "launches": {k: kernels.LAUNCHES[k] for k in FLASH_KERNELS},
+            "state_bytes": state,
+            "peak_above_state": torch.cuda.max_memory_allocated() - state}
+
+
+def _grad_err(plain: dict, blocks: dict) -> dict:
+    return {n: ((blocks[n].flatten() - plain[n]).norm()
+                / plain[n].norm()).item() for n in ATTN_WEIGHTS}
+
+
+def phase_pipeline(torch, kernels, device, model_kw=TRAIN_MODEL,
+                   seq: int = 1024, batch: int = 8) -> dict:
+    """pipeline_on_one_device under GPipe and 1F1B from the plain path's
+    init and tokens (TRAIN_MODEL, seq 1024, batch 8, bf16, flash, the
+    tokens of _run_train), PIPE_STEPS steps each (the grad function, then
+    train.apply_update) against as many plain steps: every loss within
+    FLASH_DENSE_TOL of the plain step's; the first step's attention-weight
+    gradients within ATTN_GRAD_TOL of the plain path's, and the control
+    (_zero_cotangents) outside; each timed step launching K3/K4 as the
+    schedule implies, their device time above 0 in a profiled step; 1F1B's
+    active ticks 2M P of (2M + 2(P-1)) P; 1F1B's peak memory above the train
+    state below GPipe's. Reported: ms a step and peak memory of each."""
+    from tpu_bootstrap_torch.workload import (model, pipeline,
+                                              ring_attention, train)
+    from tpu_bootstrap_torch.workload.flash_attention import \
+        make_flash_attn_fn
+
+    cfg = train.TrainConfig(model=model.ModelConfig(
+        **model_kw, max_seq_len=seq, compute_dtype=torch.bfloat16),
+        attention="flash", num_microbatches=PIPE_MICROBATCHES)
+    layers, M, P = cfg.model.num_layers, PIPE_MICROBATCHES, PIPE_STAGES
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.model.vocab_size, (batch, seq),
+                           generator=gen, device=device)
+    params, opt_state = train.init_train_state(cfg, seed=0, device=device)
+    _, plain_grads = _attn_grads(torch, model, params, cfg, tokens,
+                                 make_flash_attn_fn(
+                                     block_size=cfg.attention_block))
+    step = train.make_train_step(cfg)
+    losses = [step(params, opt_state, tokens)[2].item()]
+    plain = _steps_held(torch, kernels,
+                        lambda: step(params, opt_state, tokens)[2],
+                        PIPE_STEPS - 1)
+    plain["losses"] = losses + plain["losses"]
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    runs, want = {}, {"gpipe": {"flash_fwd": M * layers,
+                                "flash_dq": M * layers,
+                                "flash_dkv": M * layers},
+                      "1f1b": {"flash_fwd": 2 * M * layers,
+                               "flash_dq": M * layers,
+                               "flash_dkv": M * layers}}
+    for schedule in pipeline.SCHEDULES:
+        params = model.init_params(cfg.model, seed=0, device=device)
+        params = {**params, "blocks": pipeline.stack_block_params(
+            params["blocks"])}
+        opt = train.make_optimizer(cfg)
+        opt_state = opt.init(params)
+        leaves = train.tree_leaves(params)
+
+        def grads_of():
+            return pipeline.pipeline_on_one_device(
+                cfg, params, tokens[:, :-1], tokens[:, 1:], stages=P,
+                schedule=schedule)
+
+        def one_step():
+            loss, grads, _ = grads_of()
+            train.apply_update(opt, opt_state, leaves, leaves,
+                               train.tree_leaves(grads))
+            return loss
+
+        with _zero_cotangents(torch, ring_attention):
+            control = _grad_err(plain_grads, grads_of()[1]["blocks"])
+        loss, grads, stats = grads_of()
+        grad_err = _grad_err(plain_grads, grads["blocks"])
+        train.apply_update(opt, opt_state, leaves, leaves,
+                           train.tree_leaves(grads))
+        del grads
+        run = _steps_held(torch, kernels, one_step, PIPE_STEPS - 1)
+        run["losses"] = [loss.item()] + run["losses"]
+        run.update(
+            stats=stats, attn_grad_err=grad_err,
+            control_attn_grad_err=control,
+            launches_per_step={k: v / (PIPE_STEPS - 1)
+                               for k, v in run["launches"].items()},
+            profile=_profile(torch, one_step, FLASH_TAGS))
+        runs[schedule] = run
+        del params, opt_state, leaves
+        torch.cuda.empty_cache()
+    del plain_grads
+    gaps = {s: [abs(a - b) for a, b in zip(r["losses"], plain["losses"])]
+            for s, r in runs.items()}
+    checks = {
+        "losses": all(max(g) <= FLASH_DENSE_TOL for g in gaps.values())
+        and all(math.isfinite(x) for r in runs.values()
+                for x in r["losses"]),
+        "grads": all(max(r["attn_grad_err"].values()) <= ATTN_GRAD_TOL
+                     for r in runs.values()),
+        "control": all(min(r["control_attn_grad_err"].values())
+                       > ATTN_GRAD_TOL for r in runs.values()),
+        "launches": all(runs[s]["launches_per_step"] == want[s]
+                        for s in runs),
+        "profile": all(r["profile"][k] > 0 for r in runs.values()
+                       for k in FLASH_TAGS),
+        "ticks": runs["1f1b"]["stats"]["active_ticks"] == 2 * M * P
+        and runs["1f1b"]["stats"]["total_ticks"] == (2 * M + 2 * (P - 1))
+        * P,
+        "memory": 0 < runs["1f1b"]["peak_above_state"]
+        < runs["gpipe"]["peak_above_state"]}
+    out = {"phase": "pipeline", "predicted_s": list(PIPE_PREDICTED_S),
+           "stages": P, "microbatches": M, "batch": batch, "seq": seq - 1,
+           "plain": plain, **runs, "loss_gaps": gaps,
+           "flash_dense_tol": FLASH_DENSE_TOL,
+           "attn_grad_tol": ATTN_GRAD_TOL, "launches_want": want,
+           "checks": checks}
+    emit(out)
+    if not all(checks.values()):
+        found = {s: (r["attn_grad_err"], r["launches_per_step"])
+                 for s, r in runs.items()}
+        raise SystemExit(f"pipeline failed: {checks} gaps={gaps} "
+                         f"grads, launches={found}")
+    return out
+
+
 # Several cards (``torchrun --nproc-per-node 4 chip_smoke.py
 # --mesh-cards``): the train phase's model and batch on meshes whose
 # collectives cross cards, each held to the plain path on one card, MESH_STEPS
@@ -4966,10 +5162,15 @@ def phase_ring(torch, fa, kernels, device, case=RING_CASE, small=RING_SMALL,
 # ten times the f32 first flips' margin: a flip above it means the paths
 # routed on different numbers, not on f32 noise.
 FLIP_MARGIN = 1e-5
-MESH_CARDS = ((dict(fsdp=2, tensor=2), {}, "bfloat16"),
-              (dict(dcn=2, data=2), {}, "bfloat16"),
-              (dict(seq=4), {}, "bfloat16"),
-              (dict(expert=2, seq=2), MOE_MODEL, "float32"))
+# The pipeline cases run the schedule named last, M = 2 x pipe = 4
+# microbatches of the batch: a rank launches K3/K4 for its stage's L/P
+# layers on every microbatch (K3 twice under 1F1B: the recompute).
+MESH_CARDS = ((dict(fsdp=2, tensor=2), {}, "bfloat16", "gpipe"),
+              (dict(dcn=2, data=2), {}, "bfloat16", "gpipe"),
+              (dict(seq=4), {}, "bfloat16", "gpipe"),
+              (dict(expert=2, seq=2), MOE_MODEL, "float32", "gpipe"),
+              (dict(pipe=2, data=2), {}, "bfloat16", "gpipe"),
+              (dict(pipe=2, tensor=2), {}, "bfloat16", "1f1b"))
 
 
 @contextlib.contextmanager
@@ -5059,9 +5260,10 @@ def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
     FLASH_DENSE_TOL of the plain path's step for step (an MoE case's up to
     the first step that routes a token apart, whose first flips must lie
     under FLIP_MARGIN: _watch_routes, _route_flips), and K3/K4 must launch
-    as the schedule says on every rank: num_layers times a step, and on a
+    as the schedule says on every rank: num_layers times a step, on a
     ring of n the shard i's (i+1) K3 and dq blocks and (n-i) dk/dv blocks
-    a layer. Rank 0 gets every rank's record."""
+    a layer, and in a pipeline of P stages M L / P of each a step (2 M L /
+    P of K3 under 1F1B). Rank 0 gets every rank's record."""
     import dataclasses
 
     import torch.distributed as dist
@@ -5070,7 +5272,7 @@ def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
     from tpu_bootstrap_torch.workload.data import host_rows
 
     plains, runs = {}, []
-    for extents, extra, dtype in cards:
+    for extents, extra, dtype, schedule in cards:
         more = 1 if extents.get("seq", 1) > 1 else 0
         cfg0 = train.TrainConfig(model=model.ModelConfig(
             **model_kw, **extra, max_seq_len=seq + more,
@@ -5093,7 +5295,8 @@ def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
             del params, opt_state
             torch.cuda.empty_cache()
         tokens, plain, plain_routes = plains[key]
-        cfg = dataclasses.replace(cfg0, mesh=sharding.MeshConfig(**extents))
+        cfg = dataclasses.replace(cfg0, mesh=sharding.MeshConfig(**extents),
+                                  pipeline_schedule=schedule)
         mesh = sharding.build_mesh(cfg.mesh, device.type)
         params, opt_state = train.init_train_state(cfg, seed=0, mesh=mesh)
         with _watch_routes(torch, []) as routes:
@@ -5105,7 +5308,8 @@ def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
                    seq_index=mesh.get_coordinate()[
                        sharding.AXES.index("seq")],
                    local_wq=list(sharding.local(
-                       params["blocks"][0]["wq"]).shape))
+                       params["blocks"]["wq"] if cfg.mesh.pipe > 1
+                       else params["blocks"][0]["wq"]).shape))
         if moe_case:
             run["routes"] = _route_flips(
                 plain_routes, routes,
@@ -5142,15 +5346,21 @@ def phase_mesh_cards(torch, kernels, device, model_kw=TRAIN_MODEL,
         ranks[0]["held_steps"] = held
         if max(gaps[:held]) > FLASH_DENSE_TOL:
             failed.append(f"{extents}: gaps {gaps[:held]} to the plain path")
-        n = extents.get("seq", 1)
+        n, stages = extents.get("seq", 1), extents.get("pipe", 1)
         for r in ranks:
             j = r["seq_index"]
             want = {"flash_fwd": j + 1, "flash_dq": j + 1,
                     "flash_dkv": n - j}
+            if stages > 1:
+                m = 2 * stages  # num_microbatches 0: twice the stages
+                want = {"flash_fwd": m * (2 if cards[i][3] == "1f1b"
+                                          else 1),
+                        "flash_dq": m, "flash_dkv": m}
             per = {k: r["launches"][k] / (MESH_STEPS - 1)
                    for k in FLASH_KERNELS}
-            if any(per[k] != layers * want[k] for k in per):
-                failed.append(f"{extents}: launches {per}, want {layers} x "
+            here = layers // stages
+            if any(per[k] != here * want[k] for k in per):
+                failed.append(f"{extents}: launches {per}, want {here} x "
                               f"{want}")
     out = {"phase": "mesh_cards", "world": dist.get_world_size(),
            "flash_dense_tol": FLASH_DENSE_TOL, "ranks": everyone,
@@ -5691,6 +5901,8 @@ def main() -> int:
     out["train_mesh"] = run("train_mesh", phase_train_mesh, torch, kernels,
                             device)
     out["ring"] = run("ring", phase_ring, torch, fa, kernels, device)
+    out["pipeline"] = run("pipeline", phase_pipeline, torch, kernels,
+                          device)
     run("train_long", phase_train_long, torch, kernels, device)
     out["quality"] = run("quality", phase_quality, torch, kernels, device)
     emit({"phase_seconds": seconds})
@@ -5814,7 +6026,9 @@ def kernel_lines(out: dict) -> list:
          "launches": train_launches["flash_fwd"],
          "launches_by_path": quality_launches(out, "flash_fwd")
          | {"train_mesh": out["train_mesh"]["launches"]["flash_fwd"],
-            "ring": out["ring"]["launches"]["flash_fwd"]},
+            "ring": out["ring"]["launches"]["flash_fwd"],
+            **{f"pipeline_{s}": out["pipeline"][s]["launches"]["flash_fwd"]
+               for s in ("gpipe", "1f1b")}},
          "max_abs_err": k3["max_abs_err"],
          "ms": k3_main["kernel_ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
@@ -5828,7 +6042,9 @@ def kernel_lines(out: dict) -> list:
          "launches": train_launches["flash_dq"],
          "launches_by_path": quality_launches(out, "flash_dq")
          | {"train_mesh": out["train_mesh"]["launches"]["flash_dq"],
-            "ring": out["ring"]["launches"]["flash_dq"]},
+            "ring": out["ring"]["launches"]["flash_dq"],
+            **{f"pipeline_{s}": out["pipeline"][s]["launches"]["flash_dq"]
+               for s in ("gpipe", "1f1b")}},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dq_ms"], "plain_ms": k4_main["dq_plain_ms"],
          "bound_ms": k4_main["dq_bound_ms"],
@@ -5840,7 +6056,9 @@ def kernel_lines(out: dict) -> list:
          "launches": train_launches["flash_dkv"],
          "launches_by_path": quality_launches(out, "flash_dkv")
          | {"train_mesh": out["train_mesh"]["launches"]["flash_dkv"],
-            "ring": out["ring"]["launches"]["flash_dkv"]},
+            "ring": out["ring"]["launches"]["flash_dkv"],
+            **{f"pipeline_{s}": out["pipeline"][s]["launches"]["flash_dkv"]
+               for s in ("gpipe", "1f1b")}},
          "max_abs_err": k4["max_abs_err"],
          "ms": k4_main["dkv_ms"], "plain_ms": k4_main["dkv_plain_ms"],
          "bound_ms": k4_main["dkv_bound_ms"],

@@ -39,7 +39,8 @@ def test_port_modules_cover_the_slice():
                 "workload.train", "workload.graphs", "workload.ingress",
                 "workload.prng", "workload.lora", "workload.distill",
                 "workload.quality", "workload.sharding",
-                "workload.dryrun_mp", "workload.ring_attention"):
+                "workload.dryrun_mp", "workload.ring_attention",
+                "workload.pipeline"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 

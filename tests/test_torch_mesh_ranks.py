@@ -1,8 +1,9 @@
 """The rank programs of the port's spawned gloo worlds, and the spawner.
 
 ``tests/test_torch_mesh_train.py``, ``tests/test_torch_mesh_finetune.py``,
-``tests/test_torch_ring_attention.py`` and
-``tests/test_torch_mesh_parallel.py`` compute the JAX reference's values
+``tests/test_torch_ring_attention.py``, ``tests/test_torch_mesh_parallel.py``,
+``tests/test_torch_pipeline.py`` and ``tests/test_torch_pipeline_1f1b.py``
+compute the JAX reference's values
 in their own process, write the inputs (params carried over by
 ``bridge.params_from_numpy``, tokens) to ``inputs.pt`` in a temporary
 directory, and start a world of gloo ranks:
@@ -501,9 +502,181 @@ def mesh_parallel(inp: dict) -> dict:
     return out
 
 
+def _pipe_cfg(case: dict):
+    from tpu_bootstrap_torch.workload import model, sharding, train
+
+    return train.TrainConfig(
+        model=model.ModelConfig(**case["model"]),
+        mesh=sharding.MeshConfig(**case["mesh"]),
+        learning_rate=case.get("lr", 3e-4),
+        attention=case.get("attention", "dense"),
+        attention_block=case.get("block", 512),
+        remat=case.get("remat", False), num_microbatches=case.get("M", 0),
+        pipeline_schedule=case.get("schedule", "gpipe"),
+        grad_clip_norm=case.get("clip", 0.0))
+
+
+def _stacked(params):
+    from tpu_bootstrap_torch.workload import pipeline
+
+    params = _fresh(params)
+    return {**params, "blocks": pipeline.stack_block_params(
+        params["blocks"])}
+
+
+def _whole(params, grads):
+    """The whole gradient of every leaf from the rank's shards (every
+    rank gathers; a collective)."""
+    from tpu_bootstrap_torch.workload import sharding
+
+    if isinstance(params, dict):
+        return {k: _whole(params[k], grads[k]) for k in params}
+    return sharding.full(sharding.like(params, grads)).clone()
+
+
+def _pipe_case(case: dict, meshes: dict) -> dict:
+    """One case of ``mesh_pipeline``: a pipelined loss (``value``), a
+    grad function's loss, whole gradients and stats (``grad``), train steps
+    (``train``), every stage on rank 0 alone (``one_device``) or a
+    ``ValueError``'s message (``error``)."""
+    import torch.distributed as dist
+
+    from tpu_bootstrap_torch.workload import pipeline, sharding, train
+
+    kind, cfg = case["kind"], _pipe_cfg(case)
+    rank0 = dist.get_rank() == 0
+    if kind == "one_device":
+        if not rank0:
+            return {}
+        tokens = case["tokens"]
+        loss, grads, stats = pipeline.pipeline_on_one_device(
+            cfg, _stacked(case["params"]), tokens[:, :-1], tokens[:, 1:],
+            stages=cfg.mesh.pipe)
+        return {"loss": float(loss), "grads": grads, "stats": stats}
+    mesh = _mesh_of(meshes, case["mesh"])
+    if kind == "error":
+        try:
+            case_call = case["call"]
+            if case_call == "init":
+                train.init_train_state(cfg, seed=0, mesh=mesh)
+            elif case_call == "step":
+                train.make_train_step(cfg, mesh)
+            else:
+                make = {"loss": pipeline.make_pipeline_loss,
+                        "1f1b": pipeline.make_pipeline_1f1b_grad}[case_call]
+                fn = make(cfg, mesh, num_microbatches=case["M"])
+                if "params" in case:
+                    tokens = case["tokens"]
+                    fn(_stacked(case["params"]), tokens[:, :-1],
+                       tokens[:, 1:])
+            return {"error": None}
+        except ValueError as e:
+            return {"error": str(e)}
+    params = _stacked(case["params"])
+    params = sharding.shard_params(params,
+                                   sharding.param_shardings(mesh, params))
+    tokens = case["tokens"]
+    if kind == "train":
+        opt_state = train.make_optimizer(cfg).init(params)
+        step = train.make_train_step(cfg, mesh)
+        losses = []
+        for _ in range(case["steps"]):
+            params, opt_state, loss = step(params, opt_state, tokens)
+            losses.append(float(loss))
+        return {"losses": losses}
+    kw = dict(num_microbatches=case["M"], remat=cfg.remat)
+    if kind == "value":
+        loss = pipeline.make_pipeline_loss(cfg, mesh, **kw)(
+            params, tokens[:, :-1], tokens[:, 1:])
+        return {"loss": float(loss)}
+    make = (pipeline.make_pipeline_1f1b_grad if cfg.pipeline_schedule
+            == "1f1b" else pipeline.make_pipeline_grad)
+    fn = make(cfg, mesh, **kw)
+    loss, grads, stats = fn(params, tokens[:, :-1], tokens[:, 1:])
+    whole = _whole(params, grads)
+    return {"loss": float(loss), "stats": stats,
+            "schedule": getattr(fn, "schedule", None),
+            "grads": whole if rank0 else None}
+
+
+def _worker(env: dict) -> dict:
+    """train.worker_main with ``env`` on this world: the card's two seams
+    stood in (the process group is the world's gloo group, and build_mesh
+    lays its mesh on the CPU); what it printed and the pipeline schedules
+    the steps were built with."""
+    import contextlib
+    import io
+
+    from tpu_bootstrap_torch.workload import pipeline, sharding, train
+
+    made, build, rendezvous = [], sharding.build_mesh, train.rendezvous
+    make = pipeline.make_pipeline_step_grad
+
+    def recorded(cfg, mesh, **kw):
+        made.append((cfg.pipeline_schedule, cfg.num_microbatches))
+        return make(cfg, mesh, **kw)
+
+    saved = dict(os.environ)
+    os.environ.update(env)
+    sharding.build_mesh = lambda cfg, device_type=None: build(cfg, "cpu")
+    train.rendezvous = lambda environ=None: True
+    pipeline.make_pipeline_step_grad = recorded
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            train.worker_main()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        sharding.build_mesh, train.rendezvous = build, rendezvous
+        pipeline.make_pipeline_step_grad = make
+    return {"printed": printed.getvalue(), "made": made}
+
+
+def mesh_pipeline(inp: dict) -> dict:
+    """tests/test_torch_pipeline.py and tests/test_torch_pipeline_1f1b.py:
+    every case in order on this rank (``_pipe_case``), then a resume of
+    train_loop (``resume``), worker_main (``worker``) and distillation
+    (``distill``) where given."""
+    from tpu_bootstrap_torch.workload import distill, model, train
+
+    meshes, out = {}, {}
+    for name, case in inp["cases"].items():
+        out[name] = _pipe_case(case, meshes)
+    if "resume" in inp:
+        case, d = inp["resume"], Path(inp["dir"])
+        cfg = _pipe_cfg(case)
+        run = dict(device="cpu", mesh=_mesh_of(meshes, case["mesh"]))
+        out["resume"] = {
+            "full": train.train_loop(cfg, 4, checkpoint_dir=str(d / "full"),
+                                     save_every=1, **run),
+            "first": train.train_loop(cfg, 2,
+                                      checkpoint_dir=str(d / "part"),
+                                      save_every=1, **run),
+            "resumed": train.train_loop(cfg, 4,
+                                        checkpoint_dir=str(d / "part"),
+                                        save_every=1, **run)}
+    for name, env in inp.get("worker", {}).items():
+        out[("worker", name)] = _worker(env)
+    if "distill" in inp:
+        case = inp["distill"]
+        step, opt = distill.make_distill_step(
+            model.ModelConfig(**case["student_model"]), case["teacher"],
+            model.ModelConfig(**case["teacher_model"]),
+            _mesh_of(meshes, case["mesh"]), learning_rate=case["lr"])
+        student = _fresh(case["student"])
+        opt_state = opt.init(student)
+        out["distill"] = []
+        for tokens in case["tokens"]:
+            student, opt_state, loss = step(student, opt_state, tokens)
+            out["distill"].append(float(loss))
+    return out
+
+
 PROGRAMS = {"mesh_train": mesh_train, "mesh_finetune": mesh_finetune,
             "file_resume": file_resume, "dtensor_matmul": dtensor_matmul,
-            "ring": ring, "mesh_parallel": mesh_parallel}
+            "ring": ring, "mesh_parallel": mesh_parallel,
+            "mesh_pipeline": mesh_pipeline}
 
 
 def dtensor_probe(timeout: float = 40.0) -> dict:

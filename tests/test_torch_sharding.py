@@ -118,10 +118,10 @@ def test_build_mesh_without_a_process_group():
         sharding.build_mesh(sharding.MeshConfig(data=16))
     assert str(got.value).rsplit(",", 1)[0] == \
         str(want.value).rsplit(",", 1)[0]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sharding.require_ported(sharding.MeshConfig(pipe=2))
-    for axis in ("seq", "expert", "data"):  # ported: no raise
-        sharding.require_ported(sharding.MeshConfig(**{axis: 2}))
+    # Every axis is ported: pipe=2 needs its two devices like any other.
+    for axis in ("pipe", "seq", "expert", "data"):
+        with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
+            sharding.build_mesh(sharding.MeshConfig(**{axis: 2}), "cpu")
     assert sharding.batch_shardings(None) is None
     assert sharding.dp_coordinate(None) == (0, 1)
 

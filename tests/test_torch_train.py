@@ -250,14 +250,13 @@ def test_remat_equals_no_remat():
 
 
 def test_unported_options_raise():
-    # A data, seq or expert mesh needs a process group of two ranks (the
-    # mesh tests run on gloo ranks); the pipeline's pipe axis is not
-    # ported yet.
+    # A data, seq, expert or pipe mesh needs a process group of two ranks
+    # (the mesh tests run on gloo ranks).
     for mesh in (ttrain.MeshConfig(data=2), ttrain.MeshConfig(seq=2),
                  ttrain.MeshConfig(expert=2)):
         with pytest.raises(ValueError, match="mesh needs"):
             ttrain.make_train_step(ttrain.TrainConfig(mesh=mesh))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
         ttrain.train_loop(ttrain.TrainConfig(mesh=ttrain.MeshConfig(pipe=2)),
                           1, device="cpu")
     with pytest.raises(ValueError, match="unknown attention"):

@@ -17,8 +17,9 @@ rank distils on its rows of the batch (whole rows on every ``seq`` rank,
 as the reference's step cuts the batch only), and the student's gradients
 are summed over ``sharding.GRAD_AXES`` onto its shards
 (``train.descend``). The frozen teacher is gathered whole, an MoE
-teacher's experts included. A mesh with pipe above 1 raises
-``NotImplementedError`` naming ROADMAP queue 1 item 11.
+teacher's experts included. A ``pipe`` axis is plain replication here, as
+in the reference: the student's blocks are not stacked, so no spec names
+``pipe`` and every pipe rank computes the same step.
 """
 
 from __future__ import annotations

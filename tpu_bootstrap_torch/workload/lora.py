@@ -24,7 +24,8 @@ summed over ``sharding.GRAD_AXES`` as training's are (``train.descend``).
 As in the reference, whose step cuts the batch only, every ``seq`` rank
 runs its rows whole; an MoE base keeps each rank's E/n experts and runs
 the expert all-to-all (``sharding.moe_layer``). A mesh with a pipe axis
-raises the reference's ``ValueError``.
+raises the reference's ``ValueError``: as there, adapters do not take the
+pipeline's stacked layout.
 """
 
 from __future__ import annotations

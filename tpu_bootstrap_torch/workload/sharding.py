@@ -36,9 +36,14 @@ loss is divided by their degree. ``expert`` is a batch axis that also
 shards the MoE expert stacks: a step keeps a rank's E/n experts (the
 gathers skip ``expert``), and the layer exchanges slots by an all-to-all
 pair over the ``expert`` group (``moe.moe_mlp_manual``), so those stacks'
-gradients arrive whole and sum over the other axes only. ``pipe > 1``
-raises ``NotImplementedError`` naming ROADMAP queue 1 item 11
-(``require_ported``).
+gradients arrive whole and sum over the other axes only.
+
+``pipe`` cuts the stacked blocks (the pipeline layout, ``param_specs``)
+by layers: a step runs the schedules of ``pipeline.py``, which gather a
+stage's layers over the other axes (``stage_leaf``, never over ``pipe``)
+and reduce each gradient once a step (``stage_grad``): a block's over
+``GRAD_AXES``, the embedding's and the final norm's over ``pipe`` too,
+whose first and last stages hold their two halves.
 """
 
 from __future__ import annotations
@@ -90,14 +95,6 @@ class MeshConfig:
         rest = n // tensor
         fsdp = pow2(rest, 8)
         return MeshConfig(data=rest // fsdp, fsdp=fsdp, tensor=tensor)
-
-
-def require_ported(cfg: MeshConfig) -> None:
-    """The axes whose compute is not ported yet raise here: ``pipe``."""
-    if cfg.pipe > 1:
-        raise NotImplementedError(
-            f"pipeline parallelism (pipe={cfg.pipe} in {cfg}) is not "
-            "ported yet (ROADMAP queue 1 item 11: multi-device)")
 
 
 _MESH = None  # the mesh build_mesh made last: host_rows' default
@@ -348,11 +345,14 @@ def dp_coordinate(mesh) -> tuple:
     return index, count
 
 
-def _sharded_axes(placements_, experts: bool = True) -> list:
+def _sharded_axes(placements_, experts: bool = True,
+                  pipe: bool = True) -> list:
     """(axis, tensor dim) of every mesh axis that shards the tensor, mesh
-    order; ``experts`` False leaves ``expert`` out."""
+    order; ``experts`` False leaves ``expert`` out, ``pipe`` False
+    ``pipe``."""
     return [(AXES[i], p.dim) for i, p in enumerate(placements_)
-            if p.is_shard() and (experts or AXES[i] != "expert")]
+            if p.is_shard() and (experts or AXES[i] != "expert")
+            and (pipe or AXES[i] != "pipe")]
 
 
 def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -379,15 +379,15 @@ def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x
 
 
-def full(t, experts: bool = True) -> torch.Tensor:
+def full(t, experts: bool = True, pipe: bool = True) -> torch.Tensor:
     """A DTensor gathered to the whole tensor on every rank (no autograd),
-    or with ``experts`` False to its ``expert`` shard; a plain tensor as it
-    is."""
+    or with ``experts`` False to its ``expert`` shard, with ``pipe`` False
+    to its stage's layers; a plain tensor as it is."""
     if not is_placed(t):
         return t
     x = local(t)
     # Inner mesh axes first: the outer axis's chunks hold them whole.
-    for axis, dim in reversed(_sharded_axes(t.placements, experts)):
+    for axis, dim in reversed(_sharded_axes(t.placements, experts, pipe)):
         x = _all_gather(x, t.device_mesh, axis, dim)
     return x
 
@@ -437,6 +437,35 @@ def gather(t, grad_leaf: torch.Tensor | None = None,
     kept = {a for a, _ in _sharded_axes(t.placements)} - {a for a, _ in axes}
     sums = tuple(a for a in GRAD_AXES if a not in kept)
     return _Gather.apply(grad_leaf, t.device_mesh, axes, sums)
+
+
+def stage_leaf(t, experts: bool = True) -> torch.Tensor:
+    """What a pipeline stage computes with of the DTensor ``t``: its
+    layers (``pipe`` stays sharded) gathered over the other axes that
+    shard it, ``expert`` too unless ``experts`` is False; no autograd (the
+    schedules take gradients of this tensor and reduce them once a step,
+    ``stage_grad``). A plain tensor as it is."""
+    return full(t, experts, pipe=False)
+
+
+def stage_grad(g: torch.Tensor, t, experts: bool = True,
+               over_pipe: bool = False) -> torch.Tensor:
+    """The gradient of ``stage_leaf(t, experts)`` this rank found, summed
+    over the ranks that hold other shares of the loss and cut back to the
+    rank's shard of ``t``, as ``_Gather``'s backward: over ``GRAD_AXES``
+    less the axes that stay sharded (``expert`` for an expert stack), and
+    over ``pipe`` with ``over_pipe`` (a leaf every stage holds whole whose
+    gradient only some stages find: the embedding, the final norm)."""
+    if not is_placed(t):
+        return g
+    mesh = t.device_mesh
+    axes = _sharded_axes(t.placements, experts, pipe=False)
+    kept = {a for a, _ in _sharded_axes(t.placements)} - {a for a, _ in axes}
+    sums = tuple(a for a in GRAD_AXES if a not in kept)
+    g = _sum_over(g.clone(), mesh, sums + (("pipe",) if over_pipe else ()))
+    for axis, dim in axes:
+        g = _own_part(g, mesh, axis, dim)
+    return g.contiguous()
 
 
 def gather_tree(tree, grads: dict | None = None, experts: bool = True):

@@ -19,8 +19,11 @@ heads (K3/K4 for flash), with ``seq`` > 1 on the rank's sequence shard
 through the ring (``ring_attention``), the MoE layer over the expert
 all-to-all (``sharding.moe_layer``), and the gradients summed over
 ``sharding.GRAD_AXES`` back onto each param's shard before the global clip
-norm and the update (``descend``). A mesh with pipe above 1 raises
-``NotImplementedError`` naming ROADMAP queue 1 item 11.
+norm and the update (``descend``). With ``pipe`` above 1 the blocks are
+stacked and cut by layers over ``pipe``, and a step runs the
+``pipeline_schedule`` of ``pipeline.py`` (GPipe or 1F1B over
+``num_microbatches``), whose grad function replaces autograd; the
+optimizer half (``apply_update``) is shared.
 ``worker_main`` joins the process group from the JobSet's env
 (``bootstrap_from_env``) or torchrun's, dispatches ``WORKLOAD_MODE=serve``
 to ``serving.serve_demo_from_env`` and starts the metrics server on
@@ -74,7 +77,8 @@ class TrainConfig:
     attention_block: int = 512  # validated only: the kernels pick tiles
     # Microbatches per step when mesh.pipe > 1 (0 = 2x the stage count).
     num_microbatches: int = 0
-    # "gpipe" or "1f1b"; the pipelined step is not ported yet (item 11).
+    # "gpipe" (all forwards, then the backwards) or "1f1b" (PipeDream-flush:
+    # at most pipe stage inputs held a stage); see pipeline.py.
     pipeline_schedule: str = "gpipe"
 
 
@@ -88,14 +92,10 @@ def mesh_device(mesh) -> torch.device:
 def resolve_mesh(mesh_cfg: MeshConfig, mesh=None, device=None):
     """The mesh a train entry runs on: ``mesh`` when given, else
     ``build_mesh(mesh_cfg)`` on ``device``'s type (None: the card) when the
-    config spans more than one device, else None (the plain path). The
-    axes not ported yet raise first."""
-    sharding.require_ported(mesh_cfg)
+    config spans more than one device, else None (the plain path)."""
     if mesh is None and mesh_cfg.size > 1:
         mesh = sharding.build_mesh(
             mesh_cfg, None if device is None else torch.device(device).type)
-    if mesh is not None:
-        sharding.require_ported(sharding.mesh_config(mesh))
     return mesh
 
 
@@ -197,12 +197,21 @@ def init_train_state(cfg: TrainConfig, seed: int = 0, device=None,
                      mesh=None) -> tuple:
     """(params, optimizer state) on ``device`` (None: the card), or on
     ``mesh`` (built from ``cfg.mesh`` when that spans several devices):
-    every rank draws the same init and keeps its shards."""
+    every rank draws the same init and keeps its shards. With
+    ``cfg.mesh.pipe`` > 1 the blocks are stacked (``pipeline``'s layout),
+    each stage keeping its layers."""
     mesh = resolve_mesh(cfg.mesh, mesh, device)
-    if mesh is None:
-        params = init_params(cfg.model, seed=seed, device=device)
-    else:
-        params = init_params(cfg.model, seed=seed, device=mesh_device(mesh))
+    if cfg.mesh.pipe > 1 and cfg.model.num_layers % cfg.mesh.pipe != 0:
+        raise ValueError(
+            f"num_layers ({cfg.model.num_layers}) must divide evenly over "
+            f"pipe stages ({cfg.mesh.pipe})")
+    params = init_params(cfg.model, seed=seed, device=device if mesh is None
+                         else mesh_device(mesh))
+    if cfg.mesh.pipe > 1:
+        from tpu_bootstrap_torch.workload.pipeline import stack_block_params
+
+        params = {**params, "blocks": stack_block_params(params["blocks"])}
+    if mesh is not None:
         params = sharding.shard_params(
             params, sharding.param_shardings(mesh, params))
     return params, make_optimizer(cfg).init(params)
@@ -298,11 +307,30 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     is the whole batch or a DTensor of it, and the loss is the whole
     batch's. With ``seq`` > 1 each rank takes its shard of the shifted
     inputs and targets, at their global positions, and attention runs
-    the ring on ``cfg.attention``'s block core."""
+    the ring on ``cfg.attention``'s block core. With ``pipe`` > 1 the
+    gradients come from the pipeline schedule ``cfg.pipeline_schedule``
+    names (``pipeline.make_pipeline_step_grad``)."""
     if cfg.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     mesh = resolve_mesh(cfg.mesh, mesh)
     opt = make_optimizer(cfg)
+    if mesh is not None and sharding.mesh_config(mesh).pipe > 1:
+        from tpu_bootstrap_torch.workload.pipeline import \
+            make_pipeline_step_grad
+
+        grad_fn = make_pipeline_step_grad(cfg, mesh)
+
+        def pipelined(params, opt_state, tokens):
+            rows = local_rows(tokens, mesh)
+            loss_value, grads, _ = grad_fn(params, rows[:, :-1], rows[:, 1:],
+                                           batch=tokens.shape[0])
+            leaves = tree_leaves(params)
+            apply_update(opt, opt_state, leaves,
+                         [sharding.local(p) for p in leaves],
+                         tree_leaves(grads), mesh)
+            return params, opt_state, loss_value
+
+        return pipelined
     attn = (make_flash_attn_fn(block_size=cfg.attention_block)
             if cfg.attention == "flash" else None)
     moe_fn = None
@@ -376,6 +404,17 @@ def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
         if mesh is not None:
             loss_value = loss_value / sharding.grad_degree(mesh)
         grads = torch.autograd.grad(loss_value, held)
+    apply_update(opt, opt_state, leaves, held, list(grads), mesh)
+    loss_value = loss_value.detach()
+    return loss_value if mesh is None else sharding.grad_sum(loss_value,
+                                                             mesh)
+
+
+def apply_update(opt: AdamW, opt_state: dict, leaves: list, held: list,
+                 grads: list, mesh=None) -> None:
+    """The optimizer half of a step: ``opt``'s update of the tensors
+    ``held`` (each leaf's local storage on a mesh) from ``grads`` of them,
+    added in place, the clip norm the global one over the mesh."""
     sq_norm = None
     if mesh is not None and opt.clip > 0:
         sq_norm = sharding.grad_sq_norm(list(grads), leaves)
@@ -384,9 +423,6 @@ def descend(opt: AdamW, opt_state: dict, leaves: list, loss,
                                          sq_norm)):
             p.requires_grad_(False)
             p.add_(u)
-    loss_value = loss_value.detach()
-    return loss_value if mesh is None else sharding.grad_sum(loss_value,
-                                                             mesh)
 
 
 def global_batch_size(cfg: TrainConfig) -> int:
@@ -721,8 +757,8 @@ def worker_main() -> None:
     demo, or the HTTP ingress on WORKLOAD_SERVE_PORT). A multi-process
     run joins its process group first (``rendezvous``: the JobSet's
     TPUBC_* env or torchrun's), WORKLOAD_MESH is parsed against its world
-    size, and WORKLOAD_MICROBATCHES / WORKLOAD_SCHEDULE fill the
-    pipeline fields (a pipe axis still raises, item 11)."""
+    size, and WORKLOAD_MICROBATCHES / WORKLOAD_SCHEDULE (gpipe|1f1b) set
+    the pipeline of a mesh with a pipe axis."""
     env = os.environ
     rendezvous(env)
     # Worker 0's metrics endpoint: /metrics, /metrics.json, /healthz,
