@@ -114,8 +114,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               evicts).
 12. serve_overcommit -- overcommit admission and preemption on
               bench.py:1060-1190's traffic (block 16, the attractor token
-              as eos): a 24-request burst of 8-token prompts (max_new 64)
-              at batch 24 in a third of its whole footprint, admitted by
+              as eos; CUT_MODEL's 4 layers): a 24-request burst of
+              8-token prompts (max_new 64) at batch 24 in a third of its
+              whole footprint, admitted by
               expected footprint and by refusal (the admit ratio, above
               1), each served after a warm pass (TTFT p99, queue-wait p50,
               preemptions, grown blocks); a tight pool (12 requests, batch
@@ -125,7 +126,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               re-prefilled tokens at the prefill price). Every stream held
               to a roomy refusal serve, and that to solo generate
               (near-ties allowed); K1 and K2 launched as each run's
-              schedule implies.
+              schedule implies. Then the tight pool in f32 (tier off),
+              which must preempt, held to a never-preempted f32 serve at
+              f32's near-tie limit (_tight_f32).
 13. serve_host_tier -- the host tier on bench.py:951-1057's traffic
               (block 16): ten 40-token prompts served, demoted and served
               again (the host hit rate, HOST_HIT_RATE exactly; demoted and
@@ -185,7 +188,26 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               within 120 s, 4 streams equal to the in-process ingress's up
               to near-ties, SIGTERM drains and exits 0; then
               serve_demo_from_env in process prints its serve done line.
-16. sampling -- sampling with threefry parity (prng) on the main path
+16. fleet   -- the fleet front door on the card: two port replicas
+              (ingress.IngressServer, serve's settings with the prefix cache
+              on: int8 weights and KV, block 64, batch 8; CUT_MODEL's 4
+              layers) in this process, the port's fleetz.FleetAggregator
+              over them and the port's router.FleetRouter in front,
+              discovering them through fleetz: (a) prompts warmed on replica
+              A land on A through the router, cached_tokens their full
+              blocks, streams held to the solo oracle up to near-ties; (b)
+              a one-shot router.dispatch fault re-places a request on a
+              survivor: one execution, its stream the oracle's; (c) serve's
+              32 requests through the router: every stream held to the
+              oracle, K1 and K2 launched as the two replicas' schedules
+              imply, tokens/s and client TTFT p50/p99; (d) /fleetz with
+              both replicas healthy, their cache digests and the slo.burn
+              block, /metrics relabeled replica="host:port", a trace id
+              sent through the router (which mints the request's id)
+              stitched in /traces.json; (e) no module of JAX or of the JAX
+              package loaded. The replicas' rounds take turns on one lock
+              (_serialized): one card, one process.
+17. sampling -- sampling with threefry parity (prng) on the main path
               (CUT_MODEL's 4 layers):
               prng on the card bit for bit prng on the CPU (keys, a
               fold_in chain, split, per-row fold_in, bits and uniforms of
@@ -205,7 +227,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               sampled speculative_generate
               (the bf16 target, its int8 draft, (8, 64) prompts, 64 steps)
               completes.
-17. serve_spec -- the paged engine's greedy speculative rounds, gamma 4,
+18. serve_spec -- the paged engine's greedy speculative rounds, gamma 4,
               at CUT_MODEL's 4 layers (serving its own streams at that
               depth): prompt lookup on the int8 target and serve's 32
               requests (streams held to that serve's), then the bf16
@@ -215,7 +237,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               drafted round; K1 launched as the lookup's verify chunks and
               the draft's steps imply, K2 on the plain run's decode steps;
               tokens/s of each and the serve_spec_* phase times.
-18. serve_resident -- the reference's other engines on serve's model (at
+19. serve_resident -- the reference's other engines on serve's model (at
               CUT_MODEL's 4 layers, serving its own oracle and its own
               kernel-route streams at that depth) and
               32 requests (batch 8), every stream held to the solo oracle
@@ -234,7 +256,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the resident engine over 8 requests (committed tokens a
               round, streams held to the resident run's); the resident
               engine in f32 on them, held to the f32 oracle.
-19. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+20. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache (CUT_MODEL's
               4 layers), prompts (8, 64), 64 and 192 steps, with K5 (AUTO)
               and without it (kv_kernel=False); K5 launched exactly
@@ -244,12 +266,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-20. speculative -- bench.py's self-speculation: the bf16 target drafted by
+21. speculative -- bench.py's self-speculation: the bf16 target drafted by
               its own int8 copy, gamma 4, int8 KV caches (the draft's steps
               on K5), prompts (8, 64), 64 steps; streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-21. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+22. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -258,13 +280,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-22. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+23. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-23. train  -- the training slice end to end: make_train_step on the
+24. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -274,7 +296,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-24. train_mesh -- the train phase's model and batch on a one-rank NCCL
+25. train_mesh -- the train phase's model and batch on a one-rank NCCL
               process group and build_mesh(MeshConfig()) over the seven
               axes (the DTensor mesh path at world 1): 6 steps on the mesh
               against 6 plain steps from the same state, each loss within
@@ -287,7 +309,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               restored bitwise on the plain device and with the same
               placements on the mesh; train_loop(cfg, 2, mesh=mesh); ms a
               step on each path and the NCCL init time.
-25. ring   -- ring attention's flash local body (queue 1 item 11b) on
+26. ring   -- ring attention's flash local body (queue 1 item 11b) on
               K3/K4 at train_long's shape (B=2, S=8192, H=16, D=64, bf16,
               causal) in 4 sequence shards, every shard's body in one
               process in lockstep (ring_attention.ring_on_one_device):
@@ -299,7 +321,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               counted run; the f32 route and the dense core at S=1024
               against the plain versions; the ring's forward and forward +
               backward timed beside the whole call's, SDPA's and the bound.
-26. pipeline -- the pipeline (queue 1 item 11c): the train phase's model,
+27. pipeline -- the pipeline (queue 1 item 11c): the train phase's model,
               batch and tokens in 2 stages of 4 layers and 4 microbatches,
               both stages in one process (pipeline_on_one_device, in
               lockstep), under GPipe and 1F1B, 3 steps each (the grad
@@ -312,11 +334,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               profiled step; 1F1B's active ticks 16 of 20; 1F1B's peak
               memory above the train state below GPipe's; ms a step and
               peak memory of each beside the plain step.
-27. train_long -- the reference's long-context configuration (seq 8192,
+28. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
-28. quality -- fine-tuning and evaluation on a trained model
+29. quality -- fine-tuning and evaluation on a trained model
               (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
               1024, batch 8, flash, bf16) for 300 steps on
               quality.markov_batch's chain over 4096 tokens; K1 and K6 at
@@ -385,8 +407,9 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # that every phase fits the script's time limit; the serve, serve_ingress
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
-DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_faults",
-             "sampling", "generate_int8kv", "serve_resident", "serve_spec")
+DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_overcommit",
+             "serve_faults", "fleet", "sampling", "generate_int8kv",
+             "serve_resident", "serve_spec")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -1988,6 +2011,10 @@ def phase_serve_overcommit(torch, kernels, device, model_kw=DECODE_MODEL) -> dic
         OC_TIGHT_BATCH, OC_TIGHT_BLOCKS, eos,
         _solo_streams(decode, params, cfg, tight_reqs, eos), tight_roomy)
     failed += [f"tight:{f}" for f in out["tight"].pop("failed")]
+    out["tight_f32"] = _tight_f32(torch, kernels, decode, serving, params,
+                                  cfg, device, tight_reqs, eos)
+    if not out["tight_f32"]["ok"]:
+        failed.append("tight_f32")
     on = out["tight"]["tier_on"]
     if on["preemptions"] < 1 or on["swap_preempts"] < 1:
         failed.append("tight:no preemption or no swap")
@@ -1997,6 +2024,50 @@ def phase_serve_overcommit(torch, kernels, device, model_kw=DECODE_MODEL) -> dic
     emit(out)
     if failed:
         raise SystemExit(f"serve_overcommit failed: {failed}")
+    return out
+
+
+def _tight_f32(torch, kernels, decode, serving, params, cfg, device, reqs,
+               eos) -> dict:
+    """The tight pool (OC_TIGHT_BATCH, OC_TIGHT_BLOCKS, expected_new 2, host
+    tier off: every preemption recomputes) in f32, which must preempt, held
+    to the same requests served never preempted (a roomy refusal serve in
+    f32) at f32's near-tie limit, and that run to solo generate in f32:
+    at 0.01 a divergence of a resumed stream is a near-tie or a fault."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    never = serving.serve(params, cfg32, reqs, OC_TIGHT_BATCH, paged=True,
+                          kv_quant=True, block_size=OC_BLOCK, eos_id=eos,
+                          overcommit=False, device=device)
+    pool = serving.PagedPool(params, cfg32, OC_TIGHT_BATCH,
+                             block_size=OC_BLOCK, kv_blocks=OC_TIGHT_BLOCKS,
+                             host_blocks=0, eos_id=eos, kv_quant=True,
+                             device=device)
+    sched = serving.Scheduler(pool, overcommit=True, expected_new=2)
+    run = _sched_run(torch, kernels, serving, pool, sched, reqs)
+    limit = NEAR_TIE["float32"]
+    vs_never = _diverged(decode, params, cfg32, reqs, run["done"], never)
+    never_vs_solo = _diverged(decode, params, cfg32, reqs, never,
+                              _solo_streams(decode, params, cfg32, reqs,
+                                            eos))
+    out = {"preemptions": pool.stats["preemptions"],
+           "requeues": sched.stats["requeues"], "wall_s": run["wall_s"],
+           "launches_exact": _path_ok(cfg32, pool, run, OC_TIGHT_BATCH),
+           "near_tie": limit,
+           "vs_never_preempted": {
+               "differ": vs_never,
+               "bad": [d for d in vs_never if d["margin"] >= limit]},
+           "never_vs_solo": {
+               "differ": never_vs_solo,
+               "bad": [d for d in never_vs_solo if d["margin"] >= limit]},
+           "s": time.perf_counter() - t0}
+    out["ok"] = (out["preemptions"] >= 1
+                 and sorted(run["done"]) == sorted(r.rid for r in reqs)
+                 and out["launches_exact"]["ok"]
+                 and not out["vs_never_preempted"]["bad"]
+                 and not out["never_vs_solo"]["bad"])
     return out
 
 
@@ -3272,6 +3343,326 @@ def phase_serve_ingress(torch, kernels, device, serve_out=None,
                           "drain", "entry") if not out[k]["ok"]]
     if failed:
         raise SystemExit(f"serve_ingress failed: {failed}")
+    return out
+
+
+# The fleet phase: two replicas of serve's engine with the prefix cache on
+# (a deployed replica's default), FLEET_WARM prompts of two full blocks and a
+# token warmed on replica A, one request re-placed by a dispatch fault.
+FLEET_REPLICAS = 2
+FLEET_KW = dict(paged=True, kv_quant=True, block_size=64, prefix_cache=True,
+                overcommit=False)
+FLEET_SEED = 2
+FLEET_WARM, FLEET_WARM_LEN, FLEET_WARM_NEW = 4, 129, 8
+FLEET_FAIL_LEN, FLEET_FAIL_NEW = 40, 16
+# One request per decode table width a replica can bucket to (1, 2, 4 and
+# 8 blocks of 64 at max_seq_len 512): each replica captures its decode
+# graphs before any timed traffic.
+FLEET_WIDTH_LENGTHS = (16, 100, 200, 300)
+FLEET_BREAKER_S = 0.05  # a breaker the fault opens reopens for probes soon
+FLEET_STAGGER_S = 0.005  # between the burst's POSTs: the listen backlog
+FLEET_TRACE = "fleet-trace-1"
+FLEET_POLL_S = 0.05
+FLEET_PREDICTED_S = (15, 40)
+
+
+def _serialized(srv, lock) -> None:
+    """``srv``'s rounds take ``lock``: two engines in one process share one
+    card, and a CUDA graph capture on one engine's thread must not meet the
+    other's launches."""
+    step = srv.sched.step
+
+    def locked():
+        with lock:
+            return step()
+
+    srv.sched.step = locked
+
+
+def _served(port: int) -> int:
+    return _http(port, "/healthz")[2]["served"]
+
+
+def _fleet_placement(decode, params, cfg, router, reps, warm,
+                     solo: dict) -> dict:
+    """(a): ``warm`` served on replica A directly, then through the router
+    after a scrape: every request lands on A, each final chunk's
+    cached_tokens is its prompt's full blocks but the last token's
+    (the prefix plan's rule), the streams the oracle's up to near-ties."""
+    a = reps[0]
+    direct = [_http(a.port, "/v1/generate", {"tokens": r.tokens,
+                                             "max_new": r.max_new,
+                                             "stream": False})
+              for r in warm]
+    router.scrape_once()
+    before = [_served(s.port) for s in reps]
+    run = _ingress_traffic(router.port, [{"tokens": r.tokens,
+                                          "max_new": r.max_new}
+                                         for r in warm])
+    after = [_served(s.port) for s in reps]
+    bs = FLEET_KW["block_size"]
+    got = {r.rid: _rec_tokens(rec) for r, rec in zip(warm, run["recs"])}
+    out = {"requests": len(warm),
+           "served_delta": [x - y for x, y in zip(after, before)],
+           "cached_tokens": [_final(rec).get("cached_tokens")
+                             for rec in run["recs"]],
+           "want_cached": [(len(r.tokens) - 1) // bs * bs for r in warm],
+           "vs_solo": _streams_vs(decode, params, cfg, warm, got, solo),
+           "direct_vs_solo": _streams_vs(
+               decode, params, cfg, warm,
+               {r.rid: d[2]["tokens"] for r, d in zip(warm, direct)}, solo)}
+    out["ok"] = (all(d[0] == 200 for d in direct)
+                 and out["served_delta"] == [len(warm), 0]
+                 and out["cached_tokens"] == out["want_cached"]
+                 and all(rec.get("code") == 200 and _final(rec).get("done")
+                         and not _final(rec).get("error")
+                         for rec in run["recs"])
+                 and not out["vs_solo"]["bad"]
+                 and not out["direct_vs_solo"]["bad"])
+    return out
+
+
+def _fleet_failover(decode, faults, params, cfg, router, reps, req,
+                    solo: dict) -> dict:
+    """(b): a one-shot router.dispatch fault kills the first leg before it
+    reaches a replica: the router re-places the request (its minted
+    request id kept) on a survivor; one execution in all, the stream
+    complete and the oracle's up to near-ties."""
+    before = [_served(s.port) for s in reps]
+    fails0 = router.reg.to_json().get("fleet_route_failovers_total", 0)
+    rec: dict = {}
+    faults.install("router.dispatch:1:0")
+    try:
+        _client(router.port, {"tokens": req.tokens, "max_new": req.max_new},
+                rec)
+    finally:
+        faults.install(None)
+    after = [_served(s.port) for s in reps]
+    final = _final(rec)
+    out = {"served_delta": [x - y for x, y in zip(after, before)],
+           "failovers": router.reg.to_json().get(
+               "fleet_route_failovers_total", 0) - fails0,
+           "request_id": final.get("request_id"),
+           "vs_solo": _streams_vs(decode, params, cfg, [req],
+                                  {req.rid: _rec_tokens(rec)}, solo)}
+    out["ok"] = (rec.get("code") == 200 and final.get("done") is True
+                 and not final.get("error")
+                 and sum(out["served_delta"]) == 1 and out["failovers"] == 1
+                 and str(out["request_id"]).startswith("rtr-")
+                 and len(_rec_tokens(rec)) == req.max_new
+                 and not out["vs_solo"]["bad"])
+    # The leg's breaker opened: let it reach its probe and close.
+    time.sleep(4 * FLEET_BREAKER_S)
+    router.scrape_once()
+    return out
+
+
+def _fleet_burst(torch, kernels, decode, params, cfg, router, reps, reqs,
+                 solo: dict) -> dict:
+    """(c): serve's requests through the router, FLEET_STAGGER_S apart, the
+    launch counts set to 0 just before and read just after: each stream
+    complete and the oracle's up to near-ties, K1 and K2 launched as the
+    sum of the two replicas' schedules implies (each from its pool's
+    stats over the burst), tokens/s from the first POST to the last end,
+    client TTFT p50 and p99."""
+    before = [dict(s.pool.stats) for s in reps]
+    served0 = [_served(s.port) for s in reps]
+    fails0 = router.reg.to_json().get("fleet_route_failovers_total", 0)
+    kernels.reset_launches()
+    run = _ingress_traffic(router.port, [{"tokens": r.tokens,
+                                          "max_new": r.max_new}
+                                         for r in reqs],
+                           offsets=[i * FLEET_STAGGER_S
+                                    for i in range(len(reqs))])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    per = [_launches_exact(cfg, _stats_delta(s.pool.stats, b), launches,
+                           PATHS["int8"], INGRESS_BATCH)
+           for s, b in zip(reps, before)]
+    want = {k: sum(e["want"][k] for e in per) for k in per[0]["want"]}
+    got = {r.rid: _rec_tokens(rec) for r, rec in zip(reqs, run["recs"])}
+    out = {"requests": len(reqs), "tokens": run["tokens"],
+           "wall_s": run["wall_s"],
+           "tokens_per_s": run["tokens"] / run["wall_s"],
+           "ttft_ms": run["ttft_ms"], "total_ms": run["total_ms"],
+           "connect_retries": run["connect_retries"],
+           "failovers": router.reg.to_json().get(
+               "fleet_route_failovers_total", 0) - fails0,
+           "served_delta": [_served(s.port) - n
+                            for s, n in zip(reps, served0)],
+           "launches": launches,
+           "launches_exact": {"ok": want == {k: launches[k] for k in want},
+                              "want": want,
+                              "per_replica": [
+                                  {k: e[k] for k in ("want",
+                                                     "decode_steps",
+                                                     "prefill_chunks")}
+                                  for e in per]},
+           "vs_solo": _streams_vs(decode, params, cfg, reqs, got, solo)}
+    out["ok"] = (all(rec.get("code") == 200 and "error" not in rec
+                     and _final(rec).get("done") is True
+                     and not _final(rec).get("error")
+                     and len(_rec_tokens(rec)) == r.max_new
+                     for r, rec in zip(reqs, run["recs"]))
+                 and sum(out["served_delta"]) == len(reqs)
+                 and out["launches_exact"]["ok"]
+                 and all(launches[k] > 0 for k in ("int8_matmul",
+                                                   "paged_attention"))
+                 and not out["vs_solo"]["bad"])
+    return out
+
+
+def _fleet_views(router, agg, reps, req) -> dict:
+    """(d): one request through the router with FLEET_TRACE and no request
+    id (the router mints it), then one aggregator poll: /fleetz with every
+    replica healthy, a non-empty cache digest each and the slo.burn block;
+    /metrics with each replica's replica="host:port" label; /traces.json
+    with FLEET_TRACE's serve.request span; the router's /requestz record
+    of the minted id carrying the same trace id. The replicas share this
+    process's tracer, so each replica's /traces.json holds the other's
+    spans too: the stitched trace lists both, the served counts name the
+    one that ran it."""
+    rec: dict = {}
+    before = [_served(s.port) for s in reps]
+    _client(router.port, {"tokens": req.tokens, "max_new": 4,
+                          "trace_id": FLEET_TRACE}, rec)
+    served_by = [f"127.0.0.1:{s.port}" for s, n in zip(reps, before)
+                 if _served(s.port) > n]
+    minted = _final(rec).get("request_id")
+    time.sleep(FLEET_POLL_S)
+    polled = agg.poll_once()
+    addrs = [f"127.0.0.1:{s.port}" for s in reps]
+    fz = _http(agg.port, "/fleetz")[2]
+    text = _http(agg.port, "/metrics")[2]
+    traces = _http(agg.port, "/traces.json")[2]
+    arrivals = _http(router.port, "/requestz")[2]["requests"]
+    mine = [a for a in arrivals if a["rid"] == minted]
+    trace = traces["traces"].get(FLEET_TRACE, {})
+    names = {sp["name"] for sp in traces["spans"]
+             if sp.get("trace_id") == FLEET_TRACE}
+    out = {"fleet": fz["fleet"],
+           "states": {r: e["state"] for r, e in fz["replicas"].items()},
+           "digest_blocks": {r: e["digest_blocks"]
+                             for r, e in fz["replicas"].items()},
+           "slo_keys": sorted(fz["slo"]),
+           "burn_replicas": sorted(fz["slo"]["burn"]),
+           "labelled": {r: f'replica="{r}"' in text for r in addrs},
+           "request_id": minted, "router_record": mine,
+           "served_by": served_by,
+           "trace": trace, "trace_span_names": sorted(names)}
+    out["polled"] = sorted(polled)
+    out["ok"] = (rec.get("code") == 200 and _final(rec).get("done") is True
+                 and out["polled"] == sorted(addrs)
+                 and fz["fleet"]["replicas"] == len(reps)
+                 and fz["fleet"]["healthy"] == len(reps)
+                 and all(out["digest_blocks"].get(r, 0) > 0
+                         and (fz["replicas"][r]["cache_digest"] or {}).get(
+                             "fps")
+                         for r in addrs)
+                 and {"objectives", "windows_s", "burn"} <= set(fz["slo"])
+                 and out["burn_replicas"] == sorted(addrs)
+                 and all(out["labelled"].values())
+                 and str(minted).startswith("rtr-")
+                 and len(mine) == 1 and mine[0]["trace_id"] == FLEET_TRACE
+                 and _final(rec).get("trace_id") == FLEET_TRACE
+                 and len(served_by) == 1 and trace.get("spans", 0) > 0
+                 and served_by[0] in trace.get("replicas", [])
+                 and "serve.request" in names)
+    return out
+
+
+def phase_fleet(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
+    """The fleet front door on the card: FLEET_REPLICAS port replicas
+    (ingress.IngressServer on serve's model, bf16, int8 weights from seed 0,
+    the int8 paged KV pool, block 64, batch 8, the prefix cache on; rounds
+    serialized, _serialized), the port's FleetAggregator over them and the
+    port's FleetRouter in front, which discovers the replicas from the
+    aggregator's /fleetz. Each replica first serves one request per decode
+    table width alone (its graphs captured). Then (a) placement
+    (_fleet_placement), (b) failover before the first token
+    (_fleet_failover), (c) serve's 32 requests (_fleet_burst), (d) the
+    aggregator's and router's views (_fleet_views) and (e) no JAX module
+    in this process. Every stream is held to the port's solo greedy
+    generate up to near-ties."""
+    import threading
+
+    from tpu_bootstrap_torch.workload import decode, faults, model, quant
+    from tpu_bootstrap_torch.workload import serving
+    from tpu_bootstrap_torch.workload.fleetz import FleetAggregator
+    from tpu_bootstrap_torch.workload.ingress import IngressServer
+    from tpu_bootstrap_torch.workload.router import FleetRouter
+
+    emit({"phase": "fleet", "predicted_s": list(FLEET_PREDICTED_S)})
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    params = quant.quantize_params(model.init_params(cfg, seed=0,
+                                                     device=device))
+    reqs = _serve_requests(serving, cfg.vocab_size, 32, seed=0)
+    rng = np.random.default_rng(FLEET_SEED)
+    warm = [serving.Request(
+        rid=100 + i, tokens=rng.integers(1, cfg.vocab_size,
+                                         FLEET_WARM_LEN).tolist(),
+        max_new=FLEET_WARM_NEW) for i in range(FLEET_WARM)]
+    fail = serving.Request(rid=200, tokens=rng.integers(
+        1, cfg.vocab_size, FLEET_FAIL_LEN).tolist(), max_new=FLEET_FAIL_NEW)
+    t0 = time.perf_counter()
+    solo = _solo_streams(decode, params, cfg, reqs + warm + [fail])
+    out = {"phase": "fleet", "replicas": FLEET_REPLICAS,
+           "model_layers": cfg.num_layers, "solo_s": time.perf_counter() - t0}
+    lock = threading.Lock()
+    reps, agg, router = [], None, None
+    try:
+        for _ in range(FLEET_REPLICAS):
+            srv = IngressServer(params, cfg, port=0, host="127.0.0.1",
+                                batch_size=INGRESS_BATCH, device=device,
+                                **FLEET_KW)
+            _serialized(srv, lock)
+            reps.append(srv.start())
+        t0 = time.perf_counter()
+        widths = [_http(s.port, "/v1/generate",
+                        {"tokens": list(range(1, n + 1)), "max_new": 4,
+                         "stream": False})[0]
+                  for s in reps for n in FLEET_WIDTH_LENGTHS]
+        out["warm_up"] = {"s": time.perf_counter() - t0,
+                          "ok": all(c == 200 for c in widths),
+                          "graphs": [_graphs_of(s.pool) for s in reps]}
+        # Polled on demand (no poll loop: a poll scrapes every replica's
+        # trace buffer); FLEET_POLL_S only makes each call due.
+        agg = FleetAggregator([f"127.0.0.1:{s.port}" for s in reps], port=0,
+                              host="127.0.0.1", poll_s=FLEET_POLL_S)
+        threading.Thread(target=agg.httpd.serve_forever, daemon=True).start()
+        agg.poll_once()
+        router = FleetRouter([], port=0, host="127.0.0.1",
+                             fleetz_addr=f"127.0.0.1:{agg.port}",
+                             scrape_s=3600.0, stale_s=3600.0,
+                             breaker_s=FLEET_BREAKER_S, hedge_s=0.0,
+                             timeout_s=HTTP_S).start()
+        for _ in range(3):  # discovery, then a scrape of what it found
+            router.scrape_once()
+        rz = router.routerz_json()["replicas"]
+        out["discovered"] = sorted(rz)
+        out["placement"] = _fleet_placement(decode, params, cfg, router,
+                                            reps, warm, solo)
+        out["failover"] = _fleet_failover(decode, faults, params, cfg,
+                                          router, reps, fail, solo)
+        out["burst"] = _fleet_burst(torch, kernels, decode, params, cfg,
+                                    router, reps, reqs, solo)
+        out["views"] = _fleet_views(router, agg, reps, reqs[0])
+        out["graphs_after"] = [_graphs_of(s.pool) for s in reps]
+    finally:
+        for x in (router, agg, *reps):
+            if x is not None:
+                x.stop()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tpu_bootstrap"))
+    out["no_jax"] = {"ok": not loaded, "loaded": loaded[:10]}
+    out["discovery"] = {"ok": out["discovered"] == sorted(
+        f"127.0.0.1:{s.port}" for s in reps)}
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    failed = [k for k in ("warm_up", "discovery", "placement", "failover",
+                          "burst", "views", "no_jax") if not out[k]["ok"]]
+    if failed:
+        raise SystemExit(f"fleet failed: {failed}")
     return out
 
 
@@ -5876,6 +6267,7 @@ def main() -> int:
                         ("serve_host_tier", phase_serve_host_tier),
                         ("serve_faults", phase_serve_faults),
                         ("serve_ingress", phase_serve_ingress),
+                        ("fleet", phase_fleet),
                         ("sampling", phase_sampling),
                         ("serve_spec", phase_serve_spec),
                         ("serve_resident", phase_serve_resident),
@@ -5917,13 +6309,15 @@ def path_launches(out: dict, name: str) -> dict:
     set to 0 just before it): the overcommit burst, the tight pool with
     the tier off and on (the swapping run), the host tier's phase B,
     serve_faults' last run with the log and ledger on, its faulted run
-    and its deadline run, serve_ingress's last timed burst, sampling's
+    and its deadline run, serve_ingress's last timed burst, the fleet
+    phase's burst through the router (both replicas), sampling's
     first sampled serve, serve_spec's three serves (prompt lookup on
     the int8 target, the bf16 target plain and drafted by its int8 copy;
     their speculative rounds attend on einsums, as the reference's do),
     and serve_resident's last resident run, its float-cache resident run,
     the float paged pool and the int8 pool's gathered route (all four
-    attend on einsums: K2 0). serve_faults runs at CUT_MODEL's depth."""
+    attend on einsums: K2 0). serve_overcommit, serve_faults and fleet run
+    at CUT_MODEL's depth."""
     oc, ht, sf, sp, rs = (out["serve_overcommit"], out["serve_host_tier"],
                           out["serve_faults"], out["serve_spec"],
                           out["serve_resident"])
@@ -5936,6 +6330,7 @@ def path_launches(out: dict, name: str) -> dict:
             "serve_faults_recovery": sf["recovery"]["launches"][name],
             "serve_faults_deadlines": sf["deadlines"]["launches"][name],
             "serve_ingress": out["serve_ingress"]["burst"]["launches"][name],
+            "fleet": out["fleet"]["burst"]["launches"][name],
             "sampling": out["sampling"]["serve"]["launches"][name],
             "serve_spec_lookup": sp["lookup"]["launches"][name],
             "serve_spec_bf16_plain": sp["bf16_plain"]["launches"][name],

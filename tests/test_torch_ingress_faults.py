@@ -3,7 +3,9 @@ the reference's tests/test_faults.py:439-583 (graceful drain, the engine
 watchdog's stall flag and dead-engine restart, a client socket dying
 mid-stream, a failed scrape) and :679 (a real SIGTERM to a
 ``serve_forever`` process mid-stream), plus the 504 a request gets when
-its deadline passes while it waits. On the f32 bridged int8 weights of
+its deadline passes while it waits, and an engine that raises outside
+the round's scheduling (in ``_profile_tick``, or while it publishes the
+round's events) and serves on. On the f32 bridged int8 weights of
 tests/test_torch_scheduler.py, every stream held to the port's solo greedy
 ``generate`` (the reference's streams on the same weights are held to it
 in tests/test_torch_ingress.py).
@@ -97,6 +99,164 @@ class _Gate:
 
     def release(self):
         self.go.set()
+
+
+class _Stepper:
+    """Wraps ``srv.sched.step``: while ``hold`` is on, each round waits after
+    running until ``advance()`` (or ``release()``) lets it go; ``held`` is
+    set while a round waits."""
+
+    def __init__(self, srv):
+        self.real = srv.sched.step
+        self.hold = True
+        self.held = threading.Event()
+        self.go = threading.Event()
+        srv.sched.step = self.step
+
+    def step(self):
+        out = self.real()
+        if self.hold:
+            self.held.set()
+            assert self.go.wait(HTTP_TIMEOUT), "the round was never let go"
+            self.go.clear()
+        return out
+
+    def advance(self):
+        """Let the held round publish, and wait for the next to hold."""
+        self.held.clear()
+        self.go.set()
+        assert self.held.wait(HTTP_TIMEOUT), "no next round"
+
+    def release(self):
+        self.hold = False
+        self.go.set()
+
+
+def _boom():
+    raise RuntimeError("injected profiler failure")
+
+
+def _boom_once(window):
+    """Make ``window.add`` (a round's publish calls it for each event with
+    tokens) raise once, then be itself again."""
+    def add(*a, **kw):
+        del window.add
+        raise RuntimeError("injected publish failure")
+    window.add = add
+
+
+def _held_pair(srv, handed_over, port=None):
+    """Request 1 (56 tokens, four rounds of 16) decoding on a batch-1
+    engine held at a round boundary by a ``_Stepper``; request 2 in
+    ``_pending``, or, with ``handed_over``, taken into the next round
+    (queued behind request 1) and held there. Clients post to ``port`` (a router in front) or to
+    the server. Returns (stepper, lines 1, lines 2, threads)."""
+    port = port or srv.port
+    stepper = _Stepper(srv)
+    first: list = []
+    second: list = []
+    t1 = threading.Thread(target=_stream_lines, args=(
+        port, {"tokens": [1, 2, 3], "max_new": 56}, first))
+    t1.start()
+    assert stepper.held.wait(HTTP_TIMEOUT)
+    stepper.advance()
+    wait_until(lambda: tokens_of(first), what="the first tokens")
+    t2 = threading.Thread(target=_stream_lines, args=(
+        port, {"tokens": [4, 5, 6], "max_new": 8}, second))
+    t2.start()
+    wait_until(lambda: srv._pending, what="the second request waiting")
+    if handed_over:
+        stepper.advance()
+        assert not srv._pending
+    return stepper, first, second, (t1, t2)
+
+
+def _ended(threads, *streams):
+    """Both clients return, each stream with one final chunk."""
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+        assert not t.is_alive()
+    for lines in streams:
+        assert not any("client_error" in ln for ln in lines), lines
+        assert sum(1 for ln in lines if ln.get("done")) == 1, lines
+        assert lines[-1].get("done") is True, lines
+
+
+def test_engine_exit_outside_the_round_ends_every_open_stream(monkeypatch):
+    """An exception in ``_profile_tick``, which once ended the engine
+    thread with clients waiting on their queues (the request handed over
+    in that round had not reached the scheduler), now fails only the
+    /profilez capture in flight: its handler answers 504, /healthz keeps
+    the cause and stays 200 on the same engine thread, and every open
+    stream, mid-decode or still queued, ends with one final chunk and
+    the oracle's tokens."""
+    monkeypatch.setenv("TPUBC_PROFILEZ", "1")
+    srv = tingress.IngressServer(TPARAMS, TCFG, port=0, batch_size=1,
+                                 paged=True, kv_quant=True, kv_blocks=24,
+                                 block_size=8, host="127.0.0.1",
+                                 device="cpu").start()
+    restarts = telemetry.metrics().to_json().get(
+        "serve_engine_restarts_total", 0)
+    try:
+        engine = srv._engine
+        stepper, first, second, threads = _held_pair(srv, False)
+        srv._profile_tick = _boom
+        capture: list = []
+        tp = threading.Thread(target=lambda: capture.append(post(
+            srv.port, None, path="/profilez?ms=50")))
+        tp.start()
+        wait_until(lambda: srv._profile is not None, what="a parked capture")
+        stepper.release()
+        _ended(threads, first, second)
+        tp.join(timeout=HTTP_TIMEOUT)
+        assert capture and capture[0][0] == 504, capture
+        assert not first[-1].get("error") and not second[-1].get("error")
+        assert tokens_of(first) == solo([1, 2, 3], 56)
+        assert tokens_of(second) == solo([4, 5, 6], 8)
+        assert srv._engine is engine and engine.is_alive()
+        code, h = get(srv.port, "/healthz")
+        assert code == 200 and h["ok"], h
+        assert h["last_error"] == \
+            "profilez: RuntimeError: injected profiler failure"
+        assert h["served"] == 2
+        assert telemetry.metrics().to_json().get(
+            "serve_engine_restarts_total", 0) == restarts
+    finally:
+        srv.stop()
+
+
+def test_publish_failure_fails_the_round_streams_and_serves_on():
+    """An exception while a round's events are published (outside the
+    round's guarded ``try`` until then) takes the abort-all path: every
+    stream the engine holds, the one mid-decode (its tokens a prefix of
+    the oracle's) and the one queued in that round (no token), ends with
+    one error chunk, and the same engine thread serves the next request
+    exactly."""
+    srv = tingress.IngressServer(TPARAMS, TCFG, port=0, batch_size=1,
+                                 paged=True, kv_quant=True, kv_blocks=24,
+                                 block_size=8, host="127.0.0.1",
+                                 device="cpu").start()
+    try:
+        engine = srv._engine
+        stepper, first, second, threads = _held_pair(srv, True)
+        _boom_once(srv._tps_window)
+        stepper.release()
+        _ended(threads, first, second)
+        for lines in (first, second):
+            assert lines[-1]["error"] == \
+                "RuntimeError: injected publish failure", lines
+        got = tokens_of(first)
+        assert 0 < len(got) < 56 and got == solo([1, 2, 3], 56)[:len(got)]
+        assert tokens_of(second) == []
+        assert srv._engine is engine and engine.is_alive()
+        code, h = get(srv.port, "/healthz")
+        assert code == 200 and h["ok"], h
+        code, _, out = post(srv.port, {"tokens": [7, 8], "max_new": 6,
+                                       "stream": False})
+        assert code == 200 and not out.get("error")
+        assert out["tokens"] == solo([7, 8], 6)
+    finally:
+        srv.stop()
 
 
 def test_drain_flushes_streams_with_final_draining_chunk():

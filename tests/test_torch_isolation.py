@@ -4,6 +4,7 @@ kernel module imports without nvcc or a card, building or launching
 only when a CUDA tensor asks for a kernel."""
 
 import json
+import os
 import pkgutil
 import subprocess
 import sys
@@ -40,7 +41,7 @@ def test_port_modules_cover_the_slice():
                 "workload.prng", "workload.lora", "workload.distill",
                 "workload.quality", "workload.sharding",
                 "workload.dryrun_mp", "workload.ring_attention",
-                "workload.pipeline"):
+                "workload.pipeline", "workload.router", "workload.fleetz"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 
@@ -56,6 +57,24 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["router", "fleetz"])
+def test_fleet_entries_run_where_jax_cannot_import(module, tmp_path):
+    """``python -m tpu_bootstrap_torch.workload.{router,fleetz} --help`` in
+    a process whose ``import jax`` (and ``jaxlib``) raises."""
+    for name in ("jax", "jaxlib"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            "raise ImportError('no JAX on this machine')\n")
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
+    out = subprocess.run(
+        [sys.executable, "-m", f"tpu_bootstrap_torch.workload.{module}",
+         "--help"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=env)
+    assert out.returncode == 0, out.stderr
+    assert f"python -m tpu_bootstrap_torch.workload.{module}" in out.stdout
 
 
 def test_kernel_wrappers_refuse_host_tensors():

@@ -64,6 +64,7 @@ resident engines) are the pools' own, with the reference's checks.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import queue
@@ -635,6 +636,23 @@ class IngressServer:
             self._work.notify_all()
         return client_q, depth
 
+    def _fail_streams_locked(self, msg: str, streams) -> None:
+        """Under the lock: end ``streams`` ((rid, queue) pairs) with an
+        error chunk carrying each row's committed tokens, forget every
+        in-flight request's records, and reset the pool and the queue."""
+        generated = {s.rid: list(s.generated)
+                     for s in self.pool.slots if s is not None}
+        for rid, q in streams:
+            q.put({"new": [], "done": True, "error": msg,
+                   "generated": generated.get(rid, [])})
+        self._streams.clear()
+        self._submit_t.clear()
+        self._last_ev_t.clear()
+        self._cached_toks.clear()
+        self._req_meta.clear()
+        self.pool.reset()
+        self.sched.reset()
+
     def _engine_loop(self):
         while True:
             with self._work:
@@ -657,7 +675,12 @@ class IngressServer:
                 has_work = (bool(incoming) or self.pool.has_active()
                             or self.sched.pending()
                             or (self._draining and not self._drained))
-            self._profile_tick()
+            try:
+                self._profile_tick()
+            except Exception as e:  # noqa: BLE001
+                # A failed tick fails the capture, never the streams: the
+                # round goes on.
+                self._fail_profile(f"profilez: {type(e).__name__}: {e}"[:300])
             if not has_work:
                 # A capture in flight on an idle pool: poll its deadline
                 # instead of running empty rounds.
@@ -678,94 +701,19 @@ class IngressServer:
                 if recovery_err:
                     with self._work:
                         self.last_error = recovery_err
+                self._publish_events(events)
             except Exception as e:  # noqa: BLE001
                 # Abort-all, reached when in-round recovery is unavailable
-                # (the slot engine) or exhausted: every in-flight request
-                # fails loudly, the pool and queue reset, the engine goes
-                # on serving.
+                # (the slot engine) or exhausted, or when the publish
+                # fails: every in-flight request fails loudly, the pool and
+                # queue reset, the engine goes on serving.
                 msg = f"{type(e).__name__}: {e}"[:300]
                 with self._work:
                     self.last_error = msg
-                    generated = {s.rid: s.generated
-                                 for s in self.pool.slots if s is not None}
-                    for rid, q in list(self._streams.items()):
-                        q.put({"new": [], "done": True, "error": msg,
-                               "generated": generated.get(rid, [])})
-                    self._streams.clear()
-                    self._submit_t.clear()
-                    self._last_ev_t.clear()
-                    self._cached_toks.clear()
-                    self._req_meta.clear()
-                    self.pool.reset()
-                    self.sched.reset()
+                    self._fail_streams_locked(msg,
+                                              list(self._streams.items()))
                 self._publish_poolz()
                 continue
-            now = telemetry.monotonic()
-            reg = telemetry.metrics()
-            with self._work:
-                for rid, ev in events.items():
-                    if ev["done"]:
-                        ev["cached_tokens"] = self._cached_toks.get(rid, 0)
-                        timing = self.sched.request_timing(rid)
-                        if timing is not None:
-                            ev["timing"] = timing
-                        ev["trace_id"] = self._req_meta.get(
-                            rid, (0, ""))[1]
-                    self._streams[rid].put(ev)
-                    t_submit, t_first = self._submit_t.get(rid, (now, None))
-                    if ev["new"]:
-                        self._tps_window.add(len(ev["new"]), t=now)
-                        reg.inc("serve_tokens_total", len(ev["new"]))
-                        last = self._last_ev_t.get(rid)
-                        if last is not None:
-                            # This round's wall time over the tokens it
-                            # delivered: the cadence a client sees.
-                            reg.observe("serve_inter_token_ms",
-                                        (now - last) * 1e3 / len(ev["new"]))
-                        self._last_ev_t[rid] = now
-                    if t_first is None and ev["new"]:
-                        self._submit_t[rid] = (t_submit, now)
-                        self._ttft_ms.append((now - t_submit) * 1e3)
-                        reg.observe("serve_ttft_ms", (now - t_submit) * 1e3)
-                        reg.observe(
-                            "serve_ttft_ms", (now - t_submit) * 1e3,
-                            labels={"priority": str(
-                                self._req_meta.get(rid, (0, ""))[0])})
-                        reg.observe("serve_cached_ttft_ms"
-                                    if self._cached_toks.get(rid, 0)
-                                    else "serve_cold_ttft_ms",
-                                    (now - t_submit) * 1e3)
-                    if ev["done"]:
-                        del self._streams[rid]
-                        self._submit_t.pop(rid, None)
-                        self._last_ev_t.pop(rid, None)
-                        self._cached_toks.pop(rid, None)
-                        self._req_meta.pop(rid, None)
-                        self._total_ms.append((now - t_submit) * 1e3)
-                        self._served += 1
-                        reg.inc("serve_requests_total")
-                        reg.observe("serve_request_ms",
-                                    (now - t_submit) * 1e3)
-                        self._qps_window.add(t=now)
-                reg.set_gauge("serve_active_slots",
-                              sum(1 for s in self.pool.slots
-                                  if s is not None))
-                reg.set_gauge("serve_queue_depth",
-                              len(self._pending) + self.sched.queue_depth())
-                reg.set_gauge("serve_qps",
-                              round(self._qps_window.per_sec(t=now), 3))
-                reg.set_gauge("serve_tokens_per_sec",
-                              round(self._tps_window.per_sec(t=now), 1))
-                reg.set_gauge("serve_qps_window_secs",
-                              self._qps_window.window)
-                reg.set_gauge("serve_tokens_per_sec_window_secs",
-                              self._tps_window.window)
-                stats = self.pool.stats
-                if stats.get("slot_steps"):
-                    reg.set_gauge(
-                        "serve_slot_utilization",
-                        round(stats["active_slot_steps"]
-                              / stats["slot_steps"], 3))
             # Round boundary: the one moment a coherent view of the pool
             # exists.
             self._publish_poolz()
@@ -773,6 +721,76 @@ class IngressServer:
                 draining = self._draining and not self._drained
             if draining:
                 self._drain_tick()
+
+    def _publish_events(self, events: dict) -> None:
+        """ENGINE THREAD ONLY: hand a round's events to their streams and
+        update the serve_* series."""
+        now = telemetry.monotonic()
+        reg = telemetry.metrics()
+        with self._work:
+            for rid, ev in events.items():
+                if ev["done"]:
+                    ev["cached_tokens"] = self._cached_toks.get(rid, 0)
+                    timing = self.sched.request_timing(rid)
+                    if timing is not None:
+                        ev["timing"] = timing
+                    ev["trace_id"] = self._req_meta.get(
+                        rid, (0, ""))[1]
+                self._streams[rid].put(ev)
+                t_submit, t_first = self._submit_t.get(rid, (now, None))
+                if ev["new"]:
+                    self._tps_window.add(len(ev["new"]), t=now)
+                    reg.inc("serve_tokens_total", len(ev["new"]))
+                    last = self._last_ev_t.get(rid)
+                    if last is not None:
+                        # This round's wall time over the tokens it
+                        # delivered: the cadence a client sees.
+                        reg.observe("serve_inter_token_ms",
+                                    (now - last) * 1e3 / len(ev["new"]))
+                    self._last_ev_t[rid] = now
+                if t_first is None and ev["new"]:
+                    self._submit_t[rid] = (t_submit, now)
+                    self._ttft_ms.append((now - t_submit) * 1e3)
+                    reg.observe("serve_ttft_ms", (now - t_submit) * 1e3)
+                    reg.observe(
+                        "serve_ttft_ms", (now - t_submit) * 1e3,
+                        labels={"priority": str(
+                            self._req_meta.get(rid, (0, ""))[0])})
+                    reg.observe("serve_cached_ttft_ms"
+                                if self._cached_toks.get(rid, 0)
+                                else "serve_cold_ttft_ms",
+                                (now - t_submit) * 1e3)
+                if ev["done"]:
+                    del self._streams[rid]
+                    self._submit_t.pop(rid, None)
+                    self._last_ev_t.pop(rid, None)
+                    self._cached_toks.pop(rid, None)
+                    self._req_meta.pop(rid, None)
+                    self._total_ms.append((now - t_submit) * 1e3)
+                    self._served += 1
+                    reg.inc("serve_requests_total")
+                    reg.observe("serve_request_ms",
+                                (now - t_submit) * 1e3)
+                    self._qps_window.add(t=now)
+            reg.set_gauge("serve_active_slots",
+                          sum(1 for s in self.pool.slots
+                              if s is not None))
+            reg.set_gauge("serve_queue_depth",
+                          len(self._pending) + self.sched.queue_depth())
+            reg.set_gauge("serve_qps",
+                          round(self._qps_window.per_sec(t=now), 3))
+            reg.set_gauge("serve_tokens_per_sec",
+                          round(self._tps_window.per_sec(t=now), 1))
+            reg.set_gauge("serve_qps_window_secs",
+                          self._qps_window.window)
+            reg.set_gauge("serve_tokens_per_sec_window_secs",
+                          self._tps_window.window)
+            stats = self.pool.stats
+            if stats.get("slot_steps"):
+                reg.set_gauge(
+                    "serve_slot_utilization",
+                    round(stats["active_slot_steps"]
+                          / stats["slot_steps"], 3))
 
     def _drain_tick(self) -> None:
         """ENGINE THREAD ONLY: one drain check at a round boundary.
@@ -899,6 +917,20 @@ class IngressServer:
         prof["result"] = result
         prof["event"].set()
 
+    def _fail_profile(self, msg: str) -> None:
+        """ENGINE THREAD ONLY: a tick raised. A capture in flight closes
+        its profiler and wakes its handler with no result (504)."""
+        with self._work:
+            self.last_error = msg
+            prof = self._profile
+        if prof is None:
+            return
+        opened = prof.pop("profiler", None)
+        if opened is not None:
+            with contextlib.suppress(Exception):
+                opened.stop()
+        prof["event"].set()
+
     # ---- drain / watchdog ------------------------------------------------
 
     def _drain_retry_after_s(self) -> int:
@@ -970,19 +1002,8 @@ class IngressServer:
             self.sched.requeue(self.pool.quarantine())
         else:
             with self._work:
-                generated = {s.rid: list(s.generated)
-                             for s in self.pool.slots if s is not None}
-                for rid, q in list(self._streams.items()):
-                    q.put({"new": [], "done": True,
-                           "error": "engine thread died",
-                           "generated": generated.get(rid, [])})
-                self._streams.clear()
-                self._submit_t.clear()
-                self._last_ev_t.clear()
-                self._cached_toks.clear()
-                self._req_meta.clear()
-            self.pool.reset()
-            self.sched.reset()
+                self._fail_streams_locked("engine thread died",
+                                          list(self._streams.items()))
         with self._work:
             if self._stop:
                 return
