@@ -130,8 +130,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               which must preempt, held to a never-preempted f32 serve at
               f32's near-tie limit (_tight_f32).
 13. serve_host_tier -- the host tier on bench.py:951-1057's traffic
-              (block 16): ten 40-token prompts served, demoted and served
-              again (the host hit rate, HOST_HIT_RATE exactly; demoted and
+              (block 16; CUT_MODEL's 4 layers): ten 40-token prompts
+              served, demoted and served again (the host hit rate,
+              HOST_HIT_RATE exactly; demoted and
               promoted bytes bitwise the device's); the same after a reset
               that zeroes the pool in place, a replayed decode chunk over
               the restored blocks equal to the eager loop; a burst (12
@@ -207,7 +208,40 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               stitched in /traces.json; (e) no module of JAX or of the JAX
               package loaded. The replicas' rounds take turns on one lock
               (_serialized): one card, one process.
-17. sampling -- sampling with threefry parity (prng) on the main path
+17. bootstrap -- the controller's path with the port alone
+              (bench.py:2600-2746's trace capture, its workload leg the
+              port's replica on the card): nativelib.build_native() builds
+              the daemons from native/ into build/native/ (the phase
+              native_build, run before the serve phases);
+              the port's fakeapi.FakeKube, tpubc-admission over TLS
+              (a self-signed certificate from openssl) registered as the
+              MutatingWebhookConfiguration, tpubc-controller scraping the
+              replica (CONF_WORKLOAD_SCRAPE, every second), both writing
+              TPUBC_TRACE_FILE; one UserBootstrap POSTed as an
+              impersonated user (spec.tpu: tpu-v5-lite-podslice 2x2, the
+              command python -m tpu_bootstrap_torch.workload.train, the
+              serve env of the decode model with int8 weights and KV, the
+              paged engine, batch 8, seed 0) and synchronized_with_sheet;
+              the admission patch in the stored CR, the JobSet's container
+              running the port's command, the Service's targetPort its
+              WORKLOAD_SERVE_PORT; the container's command started with
+              its env (the kubelet's part) and the gang marked ready (the
+              JobSet controller's); 8 greedy requests over HTTP held to
+              the oracle in this process (generate(kv_kernel=False) on the
+              same seed's int8 weights) up to near-ties; the burst again
+              under a POST /profilez?ms=1000 (the replica's
+              TPUBC_PROFILEZ), its Chrome trace holding K1 and K2 device
+              kernels, which the replica's process alone can count, its
+              streams held as the first's; the native
+              controller's scrape in status.slice.workload
+              (tokens_per_sec > 0, serve_qps) and the replica's
+              quant_int8_matmul_calls_total above 0; SIGTERM: the replica
+              drains and both daemons exit 0; the three Chrome traces
+              merged (telemetry.merge_chrome_traces): spans of all three
+              processes, each with spans under the propagated trace id, no
+              timestamp at or below 0; no module of JAX or of the JAX
+              package in this process.
+18. sampling -- sampling with threefry parity (prng) on the main path
               (CUT_MODEL's 4 layers):
               prng on the card bit for bit prng on the CPU (keys, a
               fold_in chain, split, per-row fold_in, bits and uniforms of
@@ -227,7 +261,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               sampled speculative_generate
               (the bf16 target, its int8 draft, (8, 64) prompts, 64 steps)
               completes.
-18. serve_spec -- the paged engine's greedy speculative rounds, gamma 4,
+19. serve_spec -- the paged engine's greedy speculative rounds, gamma 4,
               at CUT_MODEL's 4 layers (serving its own streams at that
               depth): prompt lookup on the int8 target and serve's 32
               requests (streams held to that serve's), then the bf16
@@ -237,7 +271,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               drafted round; K1 launched as the lookup's verify chunks and
               the draft's steps imply, K2 on the plain run's decode steps;
               tokens/s of each and the serve_spec_* phase times.
-19. serve_resident -- the reference's other engines on serve's model (at
+20. serve_resident -- the reference's other engines on serve's model (at
               CUT_MODEL's 4 layers, serving its own oracle and its own
               kernel-route streams at that depth) and
               32 requests (batch 8), every stream held to the solo oracle
@@ -256,7 +290,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the resident engine over 8 requests (committed tokens a
               round, streams held to the resident run's); the resident
               engine in f32 on them, held to the f32 oracle.
-20. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
+21. generate_int8kv -- bench.py's int8-KV decode workload: generate on the
               decode model with int8 weights and an int8 KV cache (CUT_MODEL's
               4 layers), prompts (8, 64), 64 and 192 steps, with K5 (AUTO)
               and without it (kv_kernel=False); K5 launched exactly
@@ -266,12 +300,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               the eager loop's (its decode steps are replays of one
               captured step; one capture a call); two-point tokens/s of
               both; one profiled call of each.
-21. speculative -- bench.py's self-speculation: the bf16 target drafted by
-              its own int8 copy, gamma 4, int8 KV caches (the draft's steps
-              on K5), prompts (8, 64), 64 steps; streams held to the
+22. speculative -- bench.py's self-speculation: the bf16 target drafted by
+              its own int8 copy (CUT_MODEL's 4 layers), gamma 4, int8 KV
+              caches (the draft's steps on K5), prompts (8, 64), 64 steps;
+              streams held to the
               target's generate(kv_kernel=False) (near-ties allowed),
               mean_committed, verify_rounds, tokens/s and K5's launches.
-22. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
+23. k3     -- flash_fwd (kernel K3: bf16 on the tensor cores, f32 on the
               CUDA cores) against its plain version (out and lse, each
               element to its own limit) at the train shapes (B=8 S=1023
               and B=2 S=8191, H=16 D=64) in bf16 and f32, causal and not,
@@ -280,13 +315,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               outside the limits; the kernels' shared memory against
               kernels.flash_smem_bytes; timed beside
               scaled_dot_product_attention.
-23. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
+24. k4     -- flash_dq and flash_dkv (kernel K4) through the autograd
               function against the plain backward, at the same cases (some
               with an lse cotangent); two backward runs must be bitwise
               equal; in bf16 the controls (a skipped KV tile, delta'
               dropped, the lse cotangent ignored) must land outside the
               limit; timed beside SDPA's backward.
-24. train  -- the training slice end to end: make_train_step on the
+25. train  -- the training slice end to end: make_train_step on the
               reference's 134M train benchmark model (seq 1024, batch 8,
               attention="flash", a fixed token batch from a seed), one
               warm-up step then 5 timed; every loss finite, the loss falling,
@@ -296,7 +331,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               land outside it, 8 launches of each flash kernel per step; one
               profiled step, in which each flash role's device time must
               be above 0; then two steps of train_loop.
-25. train_mesh -- the train phase's model and batch on a one-rank NCCL
+26. train_mesh -- the train phase's model and batch on a one-rank NCCL
               process group and build_mesh(MeshConfig()) over the seven
               axes (the DTensor mesh path at world 1): 6 steps on the mesh
               against 6 plain steps from the same state, each loss within
@@ -309,7 +344,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               restored bitwise on the plain device and with the same
               placements on the mesh; train_loop(cfg, 2, mesh=mesh); ms a
               step on each path and the NCCL init time.
-26. ring   -- ring attention's flash local body (queue 1 item 11b) on
+27. ring   -- ring attention's flash local body (queue 1 item 11b) on
               K3/K4 at train_long's shape (B=2, S=8192, H=16, D=64, bf16,
               causal) in 4 sequence shards, every shard's body in one
               process in lockstep (ring_attention.ring_on_one_device):
@@ -321,7 +356,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               counted run; the f32 route and the dense core at S=1024
               against the plain versions; the ring's forward and forward +
               backward timed beside the whole call's, SDPA's and the bound.
-27. pipeline -- the pipeline (queue 1 item 11c): the train phase's model,
+28. pipeline -- the pipeline (queue 1 item 11c): the train phase's model,
               batch and tokens in 2 stages of 4 layers and 4 microbatches,
               both stages in one process (pipeline_on_one_device, in
               lockstep), under GPipe and 1F1B, 3 steps each (the grad
@@ -334,11 +369,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
               profiled step; 1F1B's active ticks 16 of 20; 1F1B's peak
               memory above the train state below GPipe's; ms a step and
               peak memory of each beside the plain step.
-28. train_long -- the reference's long-context configuration (seq 8192,
+29. train_long -- the reference's long-context configuration (seq 8192,
               batch 2, remat, vocab_chunk 4096): one warm-up and two timed
               steps; with remat the forward kernel runs twice per layer;
               the same profiled-step check.
-29. quality -- fine-tuning and evaluation on a trained model
+30. quality -- fine-tuning and evaluation on a trained model
               (bench.py:350-458): make_train_step on TRAIN_MODEL (seq
               1024, batch 8, flash, bf16) for 300 steps on
               quality.markov_batch's chain over 4096 tokens; K1 and K6 at
@@ -408,8 +443,9 @@ MOE_MODEL = dict(num_experts=8, expert_top_k=2, expert_capacity_factor=2.0)
 # and kernel phases keep the full depth.
 CUT_MODEL = {**DECODE_MODEL, "num_layers": 4}
 DEPTH_CUT = ("serve_int4", "serve_moe", "serve_prefix", "serve_overcommit",
-             "serve_faults", "fleet", "sampling", "generate_int8kv",
-             "serve_resident", "serve_spec")
+             "serve_host_tier", "serve_faults", "fleet", "sampling",
+             "generate_int8kv", "serve_resident", "serve_spec",
+             "speculative")
 MOE_SHAPES = {"moe_up": (1024, 4096), "moe_down": (4096, 1024)}
 MOE_REQUESTS = 16
 MOE_SOLO = 8  # of them, compared with solo generate
@@ -3151,9 +3187,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _model_env() -> str:
-    """WORKLOAD_MODEL's terms for the decode model in bf16."""
-    return ",".join([f"{k}={v}" for k, v in DECODE_MODEL.items()]
+def _model_env(model_kw=DECODE_MODEL) -> str:
+    """WORKLOAD_MODEL's terms for a model (the decode model) in bf16."""
+    return ",".join([f"{k}={v}" for k, v in model_kw.items()]
                     + ["compute_dtype=bfloat16"])
 
 
@@ -3663,6 +3699,461 @@ def phase_fleet(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
                           "burst", "views", "no_jax") if not out[k]["ok"]]
     if failed:
         raise SystemExit(f"fleet failed: {failed}")
+    return out
+
+
+# The controller's path (phase bootstrap): bench.py:2600-2746's trace
+# capture on the port, its workload leg the port's replica on the card. The
+# CR's spec.tpu: the slice bench.py drives (v5e 2x2: one host, so no
+# rendezvous), the port's entry as its command (in place of the default
+# python -m tpu_bootstrap.workload.train,
+# native/src/reconcile_core.cc:202-208) and the replica's serve env:
+# serve_ingress's entry settings.
+BOOT_NAME = "boot"
+BOOT_COMMAND = ["python", "-m", "tpu_bootstrap_torch.workload.train"]
+BOOT_REQUESTS = 8
+BOOT_SEED = 0
+BOOT_PREDICTED_S = (30, 90)
+BOOT_DAEMON_UP_S = 15  # each daemon's /health
+BOOT_WAIT_S = 60  # the JobSet and Service, then the scrape in the CR
+BOOT_EXIT_S = 10  # a daemon's exit after SIGTERM
+BOOT_PROFILE_LEAD_S = 0.2  # the /profilez POST parks before the burst
+JOBSET_API = "apis/jobset.x-k8s.io/v1alpha2"
+WEBHOOKS_PATH = ("/apis/admissionregistration.k8s.io/v1/"
+                 "mutatingwebhookconfigurations")
+
+
+def _native_missing(nativelib) -> list:
+    """The C shim and daemons not (yet) in nativelib.BUILD_DIR."""
+    return [p.name for p in [nativelib.LIB_PATH] + [
+        nativelib.BUILD_DIR / f"tpubc-{d}" for d in nativelib.DAEMONS]
+        if not p.exists()]
+
+
+def phase_native_build() -> dict:
+    """nativelib.build_native(): the daemons and the C shim from native/
+    into build/native/ (cmake and ninja, else g++), every binary there."""
+    from tpu_bootstrap_torch import nativelib
+
+    t0 = time.perf_counter()
+    try:
+        nativelib.build_native()
+    except subprocess.CalledProcessError as e:
+        print(f"native_build: {e.cmd} exited {e.returncode}",
+              *(b.decode(errors="replace") for b in (e.stdout, e.stderr)
+                if b), sep="\n", file=sys.stderr)
+        raise SystemExit(f"native_build failed: {e.cmd}") from e
+    out = {"phase": "native_build", "seconds": time.perf_counter() - t0,
+           "build_dir": str(nativelib.BUILD_DIR.relative_to(
+               nativelib.REPO_ROOT)),
+           "missing": _native_missing(nativelib)}
+    emit(out)
+    if out["missing"]:
+        raise SystemExit(f"native_build failed: missing {out['missing']}")
+    return out
+
+
+def _wait_for(pred, timeout: float, what: str):
+    """``pred()``'s first truthy value, polled against a deadline; a
+    timeout fails the phase."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.05)
+    raise SystemExit(f"bootstrap failed: timed out waiting for {what}")
+
+
+def _health(url: str, proc, context=None) -> bool:
+    """Whether a daemon answers ``pong`` at ``url``; one that exited fails
+    the phase."""
+    import urllib.request
+
+    if proc.poll() is not None:
+        raise SystemExit(f"bootstrap failed: {proc.args[0]} exited "
+                         f"{proc.returncode}")
+    try:
+        with urllib.request.urlopen(url, timeout=1, context=context) as r:
+            return r.read() == b"pong"
+    except OSError:
+        return False
+
+
+def _kube(base: str, method: str, path: str, body, headers=None,
+          ctype: str = "application/json") -> tuple:
+    """(status, JSON body) of one call to the fake API server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(), method=method,
+        headers={"Content-Type": ctype, **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _stop(proc, timeout: float):
+    """SIGTERM, then the exit code within ``timeout`` (None: killed)."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return None
+
+
+def _log_tails(tmp: Path, procs: dict) -> None:
+    """The last lines of each process's log, on stderr."""
+    for k in procs:
+        path = tmp / f"{k}.log"
+        if path.exists():
+            tail = path.read_text(errors="replace").splitlines()[-8:]
+            print(f"bootstrap {k} log:", *tail, sep="\n  ", file=sys.stderr)
+
+
+def _boot_spec(model_kw, serve_port: int) -> dict:
+    return {"tpu": {"accelerator": "tpu-v5-lite-podslice", "topology": "2x2",
+                    "command": list(BOOT_COMMAND),
+                    "env": {"WORKLOAD_MODE": "serve",
+                            "WORKLOAD_MODEL": _model_env(model_kw),
+                            "WORKLOAD_QUANT": "int8",
+                            "WORKLOAD_KV_QUANT": "1",
+                            "WORKLOAD_PAGED": "1",
+                            "WORKLOAD_SERVE_BATCH": str(INGRESS_BATCH),
+                            "WORKLOAD_SEED": str(BOOT_SEED),
+                            "WORKLOAD_SERVE_PORT": str(serve_port)}}}
+
+
+def _boot_traces(telemetry, tmp: Path, traces: dict,
+                 trace_id: str) -> dict:
+    """The three Chrome traces merged: complete spans by process, those
+    under ``trace_id`` by process, and any at or below ts 0."""
+    merged = telemetry.merge_chrome_traces(str(tmp / "merged.json"),
+                                           [str(p) for p in traces.values()])
+    events = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    by_proc, in_trace = {}, {}
+    for e in events:
+        proc = e.get("cat", "?")
+        by_proc[proc] = by_proc.get(proc, 0) + 1
+        if trace_id and e.get("args", {}).get("trace_id") == trace_id:
+            in_trace[proc] = in_trace.get(proc, 0) + 1
+    bad = sum(1 for e in events if e.get("ts", 0) <= 0 or e.get("dur", 0) < 0)
+    files = {k: p.exists() for k, p in traces.items()}
+    return {"files": files, "spans": by_proc, "in_trace": in_trace,
+            "bad_timestamps": bad,
+            "ok": (all(files.values()) and len(by_proc) == len(traces)
+                   and len(in_trace) == len(traces) and bad == 0)}
+
+
+def _boot_streams(decode, params, cfg, reqs, run: dict, solo: dict) -> dict:
+    """One burst's streams against the oracle: complete, 200, no error,
+    parting from it only at near-ties."""
+    got = {r.rid: _rec_tokens(rec) for r, rec in zip(reqs, run["recs"])}
+    vs = _streams_vs(decode, params, cfg, reqs, got, solo)
+    return {"tokens": run["tokens"], "wall_s": run["wall_s"],
+            "equal": sum(got[r.rid] == solo[r.rid] for r in reqs),
+            "differ": vs["differ"], "bad": vs["bad"],
+            "ok": (not vs["bad"] and all(
+                rec.get("code") == 200 and "error" not in rec
+                and len(_rec_tokens(rec)) == r.max_new
+                for r, rec in zip(reqs, run["recs"])))}
+
+
+def _boot_profiled(decode, params, cfg, reqs, solo: dict, port: int,
+                   pid: int, prof_dir: Path) -> dict:
+    """The burst again (the replica's graphs captured), under a
+    /profilez capture of PROFILEZ_MS posted BOOT_PROFILE_LEAD_S before
+    it: the replica's own Chrome trace (``profilez-<its pid>-*.json`` in
+    ``prof_dir``, its TPUBC_PROFILEZ) must hold device kernels of K1 and
+    of K2, the launches that another process cannot count; its streams
+    held to the oracle as the first burst's."""
+    import threading
+
+    prof = {}
+
+    def capture():
+        prof["answer"] = _http(port, f"/profilez?ms={PROFILEZ_MS}", {})
+
+    pt = threading.Thread(target=capture)
+    pt.start()
+    time.sleep(BOOT_PROFILE_LEAD_S)
+    run = _ingress_traffic(port, [{"tokens": r.tokens, "max_new": r.max_new}
+                                  for r in reqs])
+    pt.join(HTTP_S)
+    code, _, answer = prof.get("answer", (None, None, {}))
+    files = sorted(prof_dir.glob(f"profilez-{pid}-*.json"),
+                   key=os.path.getmtime)
+    trace = _trace_kernels(str(files[-1])) if files else None
+    out = {"code": code, "mode": answer.get("mode"),
+           "measured_ms": answer.get("measured_ms"),
+           "profiler_error": answer.get("profiler_error"), "trace": trace,
+           "streams": _boot_streams(decode, params, cfg, reqs, run, solo)}
+    out["ok"] = (code == 200 and answer.get("mode") == "profiler"
+                 and trace is not None and trace["k1_events"] > 0
+                 and trace["k2_events"] > 0 and out["streams"]["ok"])
+    return out
+
+
+def phase_bootstrap(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
+    """A UserBootstrap admitted, reconciled and served with the port alone
+    (after phase_native_build): the port's FakeKube; tpubc-admission over
+    TLS, registered through the API server as the
+    MutatingWebhookConfiguration (failurePolicy Fail); tpubc-controller
+    scraping the replica's /metrics.json every second; both daemons
+    writing TPUBC_TRACE_FILE. One CR POSTed as the user oidc:boot (group
+    tpu), its status patched synchronized_with_sheet; then (a) the wiring:
+    the admission patch in the stored CR (the trace annotation, the kube
+    username, the slice's chips), the JobSet's container running the port's
+    command with the CR's trace id in its env, the Service's targetPort its
+    WORKLOAD_SERVE_PORT; (b) the container's command started with its env
+    plus TPUBC_TRACE_FILE (the kubelet's part; its ``python`` is this
+    interpreter), its /healthz up, the gang marked ready in the store (the
+    JobSet controller's part); (c) BOOT_REQUESTS greedy requests over HTTP
+    held to the oracle of this process (generate(kv_kernel=False) on the
+    same seed's int8 weights) up to near-ties; (c') the burst again under a
+    /profilez capture, the replica's trace holding K1 and K2 kernels
+    (_boot_profiled); (d) status.slice.workload written by the native
+    controller from the replica's /metrics.json (tokens_per_sec > 0,
+    serve_qps), the replica's K1 call counter above 0; (e) SIGTERM: the
+    replica drains and exits 0, both daemons exit 0; (f) the three traces
+    merged, spans of all three processes under the propagated trace id,
+    none at ts 0 or before; (g) no module of JAX or of the JAX package in
+    this process."""
+    import base64
+    import shutil
+    import ssl
+    import tempfile
+
+    from tpu_bootstrap_torch import nativelib, telemetry
+    from tpu_bootstrap_torch.fakeapi import FakeKube
+    from tpu_bootstrap_torch.workload import decode, model, quant, serving
+
+    if _native_missing(nativelib):
+        raise SystemExit(f"bootstrap failed: {_native_missing(nativelib)} "
+                         "not built (phase_native_build builds them)")
+
+    emit({"phase": "bootstrap", "predicted_s": list(BOOT_PREDICTED_S)})
+    name, ns = BOOT_NAME, BOOT_NAME
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(BOOT_SEED)
+    reqs = [serving.Request(
+        rid=i, tokens=rng.integers(1, cfg.vocab_size,
+                                   int(rng.integers(4, 17))).tolist(),
+        max_new=int(rng.integers(1, 33))) for i in range(BOOT_REQUESTS)]
+    tmp = Path(tempfile.mkdtemp(prefix="tpubc-bootstrap-"))
+    traces = {k: tmp / f"{k}.json"
+              for k in ("admission", "controller", "workload")}
+    cert, key = tmp / "admission.crt", tmp / "admission.key"
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-nodes", "-keyout", str(key), "-out", str(cert),
+                    "-days", "1", "-subj", "/CN=bootstrap-admission"],
+                   check=True, capture_output=True, timeout=60)
+    serve_port, aport, cport = _free_port(), _free_port(), _free_port()
+    out = {"phase": "bootstrap", "model_layers": cfg.num_layers,
+           "requests": BOOT_REQUESTS}
+    fake = FakeKube().start()
+    procs, logs = {}, []
+    t_phase = time.perf_counter()
+    try:
+        def daemon(binary, env, log):
+            f = open(tmp / log, "w")
+            logs.append(f)
+            return subprocess.Popen(
+                [str(nativelib.BUILD_DIR / binary)], env={**os.environ, **env},
+                stdout=subprocess.DEVNULL, stderr=f)
+
+        procs["admission"] = daemon("tpubc-admission", {
+            "CONF_LISTEN_ADDR": "127.0.0.1", "CONF_LISTEN_PORT": str(aport),
+            "CONF_CERT_PATH": str(cert), "CONF_KEY_PATH": str(key),
+            "CONF_AUTHORIZED_GROUP_NAMES": "tpu,admin",
+            "TPUBC_TRACE_FILE": str(traces["admission"]),
+            "TPUBC_LOG": "error"}, "admission.log")
+        procs["controller"] = daemon("tpubc-controller", {
+            "CONF_KUBE_API_URL": fake.url, "CONF_LISTEN_ADDR": "127.0.0.1",
+            "CONF_LISTEN_PORT": str(cport), "CONF_WORKLOAD_SCRAPE": "1",
+            "CONF_WORKLOAD_SCRAPE_ADDR": f"127.0.0.1:{serve_port}",
+            "CONF_WORKLOAD_SCRAPE_INTERVAL_SECS": "1",
+            "TPUBC_TRACE_FILE": str(traces["controller"]),
+            "TPUBC_LOG": "error"}, "controller.log")
+        insecure = ssl.create_default_context()
+        insecure.check_hostname = False
+        insecure.verify_mode = ssl.CERT_NONE
+        _wait_for(lambda: _health(f"https://127.0.0.1:{aport}/health",
+                                  procs["admission"], insecure),
+                  BOOT_DAEMON_UP_S, "the admission daemon's /health")
+        _wait_for(lambda: _health(f"http://127.0.0.1:{cport}/health",
+                                  procs["controller"]),
+                  BOOT_DAEMON_UP_S, "the controller's /health")
+        out["daemons_up_s"] = time.perf_counter() - t_phase
+
+        codes = {"webhook": _kube(fake.url, "POST", WEBHOOKS_PATH, {
+            "apiVersion": "admissionregistration.k8s.io/v1",
+            "kind": "MutatingWebhookConfiguration",
+            "metadata": {"name": "tpubc-bootstrap"},
+            "webhooks": [{
+                "name": "mutate.tpu.bacchus.io",
+                "clientConfig": {
+                    "url": f"https://127.0.0.1:{aport}/mutate",
+                    "caBundle": base64.b64encode(cert.read_bytes()).decode()},
+                "rules": [{"apiGroups": ["tpu.bacchus.io"],
+                           "apiVersions": ["v1"],
+                           "resources": ["userbootstraps"],
+                           "operations": ["CREATE", "UPDATE", "DELETE"]}],
+                "failurePolicy": "Fail", "timeoutSeconds": 10}]})[0]}
+        codes["create"] = _kube(
+            fake.url, "POST", "/apis/tpu.bacchus.io/v1/userbootstraps",
+            {"apiVersion": "tpu.bacchus.io/v1", "kind": "UserBootstrap",
+             "metadata": {"name": name},
+             "spec": _boot_spec(model_kw, serve_port)},
+            headers={"Impersonate-User": f"oidc:{name}",
+                     "Impersonate-Group": "tpu"})[0]
+        codes["status"] = _kube(
+            fake.url, "PATCH",
+            f"/apis/tpu.bacchus.io/v1/userbootstraps/{name}/status",
+            {"status": {"synchronized_with_sheet": True}},
+            ctype="application/merge-patch+json")[0]
+        out["writes"] = {"codes": codes, "ok": codes == {
+            "webhook": 201, "create": 201, "status": 200}}
+        if not out["writes"]["ok"]:
+            raise SystemExit(f"bootstrap failed: writes {codes}")
+
+        key_js = (JOBSET_API, ns, "jobsets")
+        key_svc = ("api/v1", ns, "services")
+        js = _wait_for(lambda: fake.get(key_js, f"{name}-slice"),
+                       BOOT_WAIT_S, "the reconciled JobSet")
+        svc = _wait_for(lambda: fake.get(key_svc, f"{name}-serve"),
+                        BOOT_WAIT_S, "the reconciled Service")
+        out["reconciled_s"] = time.perf_counter() - t_phase
+        ub = fake.get(FakeKube.KEY_UB, name)
+        trace_id = (ub["metadata"].get("annotations") or {}).get(
+            telemetry.TRACE_ANNOTATION, "")
+        container = (js["spec"]["replicatedJobs"][0]["template"]["spec"]
+                     ["template"]["spec"]["containers"][0])
+        env = {e["name"]: e["value"] for e in container["env"]
+               if "value" in e}
+        [svc_port] = svc["spec"]["ports"]
+        out["wiring"] = {
+            "trace_id": trace_id,
+            "kube_username": ub["spec"].get("kube_username"),
+            "chips": ub["spec"]["tpu"].get("chips"),
+            "command": container.get("command"),
+            "target_port": svc_port["targetPort"],
+            "serve_port": env.get("WORKLOAD_SERVE_PORT"),
+            "ok": (bool(trace_id) and ub["spec"].get("kube_username") == name
+                   and ub["spec"]["tpu"].get("chips") == 4
+                   and container.get("command") == BOOT_COMMAND
+                   and env.get("TPUBC_TRACE_ID") == trace_id
+                   and (js["metadata"].get("annotations") or {}).get(
+                       telemetry.TRACE_ANNOTATION) == trace_id
+                   and svc_port["targetPort"] == serve_port
+                   and env.get("WORKLOAD_SERVE_PORT") == str(serve_port))}
+
+        # The kubelet's part: the container's command with its env.
+        argv = container["command"] + container.get("args", [])
+        if argv[0] == "python":
+            argv = [sys.executable] + argv[1:]
+        root = Path(__file__).resolve().parent
+        wenv = {**os.environ, **env,
+                "TPUBC_TRACE_FILE": str(traces["workload"]),
+                "TPUBC_PROFILEZ": str(tmp / "profilez"),
+                "PYTHONPATH": os.pathsep.join(
+                    [str(root)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p])}
+        wlog = open(tmp / "workload.log", "w")
+        logs.append(wlog)
+        t_up = time.perf_counter()
+        procs["workload"] = subprocess.Popen(
+            argv, cwd=root, env=wenv, stdout=wlog, stderr=subprocess.STDOUT)
+
+        t0 = time.perf_counter()
+        params = quant.quantize_params(model.init_params(cfg, seed=BOOT_SEED,
+                                                         device=device))
+        solo = _solo_streams(decode, params, cfg, reqs)
+        out["oracle_s"] = time.perf_counter() - t0
+
+        def replica_up():
+            if procs["workload"].poll() is not None:
+                raise SystemExit("bootstrap failed: the replica exited "
+                                 f"{procs['workload'].returncode}")
+            try:
+                return _http(serve_port, "/healthz", timeout=5)[0] == 200
+            except OSError:
+                return False
+
+        _wait_for(replica_up, ENTRY_UP_S, "the replica's /healthz")
+        out["replica_up_s"] = time.perf_counter() - t_up
+        # The JobSet controller's part: the gang is ready, which arms the
+        # controller's scrape.
+        js = fake.get(key_js, f"{name}-slice")
+        js["status"] = {"replicatedJobsStatus": [{"name": "workers",
+                                                  "ready": 1}]}
+        fake.store.upsert(key_js, f"{name}-slice", js, preserve_status=False)
+
+        run = _ingress_traffic(serve_port, [{"tokens": r.tokens,
+                                             "max_new": r.max_new}
+                                            for r in reqs])
+        out["streams"] = _boot_streams(decode, params, cfg, reqs, run, solo)
+        out["profiled"] = _boot_profiled(
+            decode, params, cfg, reqs, solo, serve_port,
+            procs["workload"].pid, tmp / "profilez")
+
+        def scraped():
+            cr = fake.get(FakeKube.KEY_UB, name) or {}
+            block = cr.get("status", {}).get("slice", {}).get("workload")
+            return (block if block and block.get("tokens_per_sec", 0) > 0
+                    and "serve_qps" in block else None)
+
+        block = _wait_for(scraped, BOOT_WAIT_S, "status.slice.workload")
+        replica, ctrl = (_http(p, "/metrics.json")[2]
+                         for p in (serve_port, cport))
+        calls = replica.get("quant_int8_matmul_calls_total", 0)
+        out["scrape"] = {
+            "workload": block, "int8_matmul_calls": calls,
+            "scrapes": ctrl.get("workload_scrapes_total", 0),
+            "scrape_errors": ctrl.get("workload_scrape_errors_total", 0),
+            "ok": block["tokens_per_sec"] > 0 and calls > 0}
+
+        limit = float(os.environ.get("TPUBC_DRAIN_TIMEOUT_MS",
+                                     "5000")) / 1e3 + 30
+        codes = {"workload": _stop(procs["workload"], limit)}
+        for k in ("admission", "controller"):
+            codes[k] = _stop(procs[k], BOOT_EXIT_S)
+        out["exits"] = {"codes": codes,
+                        "ok": all(c == 0 for c in codes.values())}
+    except BaseException:
+        _log_tails(tmp, procs)
+        raise
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        fake.stop()
+        for f in logs:
+            f.close()
+    out["trace"] = _boot_traces(telemetry, tmp, traces, trace_id)
+    out["trace"]["trace_id"] = trace_id
+    if not out["exits"]["ok"]:
+        _log_tails(tmp, procs)
+    shutil.rmtree(tmp, ignore_errors=True)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tpu_bootstrap"))
+    out["no_jax"] = {"ok": not loaded, "loaded": loaded[:10]}
+    out["near_tie"] = NEAR_TIE["bfloat16"]
+    emit(out)
+    failed = [k for k in ("writes", "wiring", "streams", "profiled",
+                          "scrape", "exits", "trace", "no_jax")
+              if not out[k]["ok"]]
+    if failed:
+        raise SystemExit(f"bootstrap failed: {failed}")
     return out
 
 
@@ -4423,7 +4914,7 @@ def phase_generate_int8kv(torch, kernels, device,
     return result
 
 
-def phase_speculative(torch, kernels, device) -> dict:
+def phase_speculative(torch, kernels, device, model_kw=DECODE_MODEL) -> dict:
     """bench.py:1654-1680's self-speculation with kv_quant=True: the decode
     model's bf16 target (weights stored in bf16, bench.py:473-480) drafted
     by its own int8 copy, gamma 4, prompts (8, 64), 64 steps; the draft's
@@ -4434,7 +4925,7 @@ def phase_speculative(torch, kernels, device) -> dict:
     One warm-up call and one timed call of each."""
     from tpu_bootstrap_torch.workload import decode, model, quant, speculative
 
-    cfg = model.ModelConfig(**DECODE_MODEL, compute_dtype=torch.bfloat16)
+    cfg = model.ModelConfig(**model_kw, compute_dtype=torch.bfloat16)
     master = model.init_params(cfg, seed=0, device=device)
     draft = quant.quantize_params(master)
     target = {"embed": master["embed"].bfloat16(),
@@ -6259,6 +6750,8 @@ def main() -> int:
            "k5": run("k5", phase_k5, torch, kernels, decode,
                      decode_attention, timer, device)}
     del timer  # frees the L2-flush buffer
+    # The daemons bootstrap starts, built and timed apart from it.
+    run("native_build", phase_native_build)
     for name, phase in (("serve", phase_serve),
                         ("serve_int4", phase_serve_int4),
                         ("serve_moe", phase_serve_moe),
@@ -6268,6 +6761,7 @@ def main() -> int:
                         ("serve_faults", phase_serve_faults),
                         ("serve_ingress", phase_serve_ingress),
                         ("fleet", phase_fleet),
+                        ("bootstrap", phase_bootstrap),
                         ("sampling", phase_sampling),
                         ("serve_spec", phase_serve_spec),
                         ("serve_resident", phase_serve_resident),

@@ -41,7 +41,8 @@ def test_port_modules_cover_the_slice():
                 "workload.prng", "workload.lora", "workload.distill",
                 "workload.quality", "workload.sharding",
                 "workload.dryrun_mp", "workload.ring_attention",
-                "workload.pipeline", "workload.router", "workload.fleetz"):
+                "workload.pipeline", "workload.router", "workload.fleetz",
+                "nativelib", "fakeapi", "fakeadmission"):
         assert f"tpu_bootstrap_torch.{mod}" in names, mod
 
 
@@ -59,10 +60,15 @@ def test_importing_the_port_loads_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("module", ["router", "fleetz"])
+ENTRIES = {"router": "workload.router", "fleetz": "workload.fleetz",
+           "fakeapi": "fakeapi"}
+
+
+@pytest.mark.parametrize("module", sorted(ENTRIES))
 def test_fleet_entries_run_where_jax_cannot_import(module, tmp_path):
-    """``python -m tpu_bootstrap_torch.workload.{router,fleetz} --help`` in
-    a process whose ``import jax`` (and ``jaxlib``) raises."""
+    """``python -m tpu_bootstrap_torch.workload.{router,fleetz} --help`` and
+    ``python -m tpu_bootstrap_torch.fakeapi --help`` in a process whose
+    ``import jax`` (and ``jaxlib``) raises."""
     for name in ("jax", "jaxlib"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
@@ -70,11 +76,11 @@ def test_fleet_entries_run_where_jax_cannot_import(module, tmp_path):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
     out = subprocess.run(
-        [sys.executable, "-m", f"tpu_bootstrap_torch.workload.{module}",
+        [sys.executable, "-m", f"tpu_bootstrap_torch.{ENTRIES[module]}",
          "--help"], capture_output=True, text=True, timeout=300, cwd=ROOT,
         env=env)
     assert out.returncode == 0, out.stderr
-    assert f"python -m tpu_bootstrap_torch.workload.{module}" in out.stdout
+    assert f"python -m tpu_bootstrap_torch.{ENTRIES[module]}" in out.stdout
 
 
 def test_kernel_wrappers_refuse_host_tensors():

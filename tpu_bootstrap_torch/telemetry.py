@@ -8,7 +8,19 @@ the three expositions (``to_json``, ``to_prometheus``, ``window_json``),
 the injectable monotonic clock (``set_clock``), the span ``Tracer`` that
 ``span`` and the serving request log record into, ``RateWindow``, the
 train loop's heartbeat and the worker's ``start_metrics_server``, the MFU
-denominator and the host-link rate the paged engine prices swaps with.
+denominator, the HBM roofline denominator and the host-link rate the paged
+engine prices swaps with.
+
+The trace plane is the reference's too, wire-compatible with the daemons'
+tracer (native/src/trace.cc): the span-list JSON served at /traces.json
+and the Chrome trace-event JSON ``Tracer.dump`` writes, so the controller's,
+the admission daemon's and a worker's spans merge onto one timeline
+(``merge_chrome_traces``). A worker's root spans join the trace id the
+controller injects into the JobSet as ``TPUBC_TRACE_ID`` (the id the
+admission webhook stamped on the CR's ``tpu.bacchus.io/trace-id``
+annotation), and when ``TPUBC_TRACE_FILE`` is set the process writes its
+spans there at exit.
+
 Names are the reference's, so a scrape of either package reads the same
 keys:
 ``quant_<kernel>_{calls,weight_bytes,activation_bytes,bytes}_total`` from
@@ -19,7 +31,9 @@ loop's ``workload_*`` gauges.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import json
 import os
 import secrets
 import threading
@@ -27,6 +41,9 @@ import time
 import zlib
 from collections import deque
 from dataclasses import dataclass, field
+
+TRACE_ANNOTATION = "tpu.bacchus.io/trace-id"
+TRACE_ID_ENV = "TPUBC_TRACE_ID"
 
 DEFAULT_BUCKETS = (1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
                    10000)
@@ -411,6 +428,11 @@ class Tracer:
                            "tid": _chrome_tid(s.trace_id), "args": args})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
+    def dump(self, path: str) -> None:
+        """Write ``to_chrome()`` to ``path``."""
+        with open(path, "w") as f:
+            json.dump(self.to_chrome(), f)
+
 
 def _chrome_tid(trace_id: str) -> int:
     if not trace_id:
@@ -433,7 +455,7 @@ def root_trace_id() -> str:
     a per-process random id."""
     global _root_id
     if _root_id is None:
-        _root_id = os.environ.get("TPUBC_TRACE_ID", "") or new_trace_id()
+        _root_id = os.environ.get(TRACE_ID_ENV, "") or new_trace_id()
     return _root_id
 
 
@@ -446,19 +468,20 @@ _spans: deque = deque(maxlen=4096)
 
 
 @contextlib.contextmanager
-def span(name: str, **attrs):
+def span(name: str, trace_id: str | None = None, **attrs):
     """Time a block on the host clock. Yields a record dict, whose
     ``dur_ms`` is set when the block exits, kept in a bounded ring
     (``spans()``); the block is also a ``Span`` in the ``tracer()``,
-    parented under the enclosing span of this thread. The caller
-    synchronises the device inside the block where the span must cover
-    device work."""
+    parented under the enclosing span of this thread and sharing its trace
+    id. A root span joins ``trace_id`` (default: ``root_trace_id()``, the
+    propagated one). The caller synchronises the device inside the block
+    where the span must cover device work."""
     rec = {"name": name, **attrs}
     parent = current()
     if parent is not None:
         tid, pid = parent.trace_id, parent.span_id
     else:
-        tid, pid = root_trace_id(), ""
+        tid, pid = trace_id or root_trace_id(), ""
     s = Span(tid, new_span_id(), pid, name, now_us(),
              attrs={k: str(v) for k, v in attrs.items()})
     stack = getattr(_tls, "stack", None)
@@ -481,6 +504,41 @@ def spans() -> list:
     return list(_spans)
 
 
+def merge_chrome_traces(out_path: str, sources: list) -> dict:
+    """Merge Chrome trace files (or already-parsed dicts) into one timeline
+    at ``out_path``. Sources that are missing or unparseable are skipped (a
+    daemon that never got its SIGTERM contributes no spans). Returns the
+    merged document."""
+    events = []
+    for src in sources:
+        if isinstance(src, dict):
+            doc = src
+        else:
+            try:
+                with open(src) as f:
+                    doc = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                continue
+        events.extend(doc.get("traceEvents",
+                              doc if isinstance(doc, list) else []))
+    merged = {"traceEvents": events, "displayTimeUnit": "ms"}
+    with open(out_path, "w") as f:
+        json.dump(merged, f)
+    return merged
+
+
+def _dump_at_exit() -> None:
+    path = os.environ.get("TPUBC_TRACE_FILE", "")
+    if path and _tracer.spans():
+        try:
+            _tracer.dump(path)
+        except OSError:
+            pass
+
+
+atexit.register(_dump_at_exit)
+
+
 # The denominator of workload_train_mfu, as in the reference: the operator
 # sets it with TPUBC_PEAK_TFLOPS; otherwise it follows the card's name.
 PEAK_TFLOPS_ENV = "TPUBC_PEAK_TFLOPS"
@@ -497,13 +555,37 @@ def peak_tflops() -> float | None:
         return float(os.environ[PEAK_TFLOPS_ENV])
     except (KeyError, ValueError):
         pass
+    return H100_SXM_BF16_TFLOPS if _h100_sxm() else None
+
+
+def _h100_sxm() -> bool:
+    """Whether CUDA reports an H100 SXM (the PCIe and NVL parts run lower
+    and are not assumed)."""
     import torch
 
-    if torch.cuda.is_available():
-        name = torch.cuda.get_device_name()
-        if "H100" in name and "PCIe" not in name and "NVL" not in name:
-            return H100_SXM_BF16_TFLOPS
-    return None
+    if not torch.cuda.is_available():
+        return False
+    name = torch.cuda.get_device_name()
+    return "H100" in name and "PCIe" not in name and "NVL" not in name
+
+
+# The denominator of every HBM roofline share (record_kernel_bandwidth), as
+# in the reference: the operator sets it with TPUBC_HBM_GBPS; otherwise it
+# follows the card's name, as peak_tflops does.
+HBM_PEAK_ENV = "TPUBC_HBM_GBPS"
+# HBM3 rate of the H100 SXM, GB/s (NVIDIA's data sheet).
+H100_SXM_HBM_GBPS = 3350.0
+
+
+def hbm_peak_gbps() -> float | None:
+    """HBM peak GB/s of the card the port runs on: TPUBC_HBM_GBPS when set,
+    else the H100 SXM's when CUDA reports one, else None (an unknown part,
+    or no card: no roofline share is computed)."""
+    try:
+        return float(os.environ[HBM_PEAK_ENV])
+    except (KeyError, ValueError):
+        pass
+    return H100_SXM_HBM_GBPS if _h100_sxm() else None
 
 
 # Host<->device transfer rate, GB/s: the seed of the paged engine's swap
@@ -537,6 +619,23 @@ def record_peak_provenance() -> None:
     reg.set_gauge("serve_host_xfer_gbps", host_xfer_gbps())
     reg.set_gauge("serve_host_xfer_gbps_from_env",
                   int(HOST_XFER_ENV in os.environ))
+
+
+def record_kernel_bandwidth(kernel: str, bytes_moved: int, seconds: float,
+                            peak_gbps: float | None = None) -> None:
+    """Set the per-kernel achieved-bandwidth gauges from one measured
+    execution: ``quant_<kernel>_achieved_gbps`` and, when a peak is known
+    (``peak_gbps``, else ``hbm_peak_gbps()``),
+    ``quant_<kernel>_hbm_roofline_frac``."""
+    if seconds <= 0 or bytes_moved <= 0:
+        return
+    if peak_gbps is None:
+        peak_gbps = hbm_peak_gbps()
+    gbps = bytes_moved / seconds / 1e9
+    _metrics.set_gauge(f"quant_{kernel}_achieved_gbps", round(gbps, 2))
+    if peak_gbps is not None:
+        _metrics.set_gauge(f"quant_{kernel}_hbm_roofline_frac",
+                           round(gbps / peak_gbps, 4))
 
 
 class RateWindow:
